@@ -1,0 +1,270 @@
+"""XMR tree model + beam-search inference (paper §3, Algorithm 1).
+
+Counterpart of ``repro.core.tree``. An :class:`XMRTree` holds one layer of
+chunked tensors per tree level on one device; ``infer`` runs the beam
+search, with each level's masked product through ``mscm_dense`` (gather +
+einsum, the exact oracle) or ``mscm_pallas_grouped`` (the grouped CUDA
+kernel on a GPU, its plain version on the CPU). The method strings are the
+reference's, so one configuration drives both packages.
+
+Label layout: the children of node p at level l are [p*B, (p+1)*B) at
+level l+1, so chunk id == parent id.
+
+Ids are int64 throughout (PyTorch's index type); the reference holds them
+as int32, with the same values.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core import mscm as mscm_lib
+from repro_torch.core.beam import beam_select, combine_scores
+from repro_torch.core.chunked import ChunkedLayer, ColumnELLLayer
+from repro_torch.sparse.csr import CSC
+
+METHODS = (
+    "vanilla",
+    "mscm_dense",
+    "mscm_searchsorted",
+    "mscm_pallas",
+    "mscm_pallas_pregather",
+    "mscm_pallas_grouped",
+    "mscm_pallas_grouped_q",
+)
+
+#: Methods not ported yet, with the ROADMAP.md item that ports each.
+_UNPORTED = {
+    "vanilla": "queue 1 item 2 (vanilla_columns)",
+    "mscm_searchsorted": "queue 1 item 2 (mscm_searchsorted)",
+    "mscm_pallas": "queue 1 item 6 with queue 2 item 2 (mscm_fused)",
+    "mscm_pallas_pregather": "queue 1 item 6 with queue 2 item 3 (mscm_pregather)",
+    "mscm_pallas_grouped_q": "queue 1 item 8 with queue 2 item 4 (mscm_grouped_q)",
+}
+
+
+def check_method(method: str) -> None:
+    """Raise unless ``method`` is one this port runs."""
+    if method in _UNPORTED:
+        raise NotImplementedError(
+            f"method {method!r} is not ported yet: ROADMAP.md {_UNPORTED[method]}"
+        )
+    if method not in METHODS:
+        raise ValueError(f"unknown method {method!r}; choose from {METHODS}")
+
+
+def resolve_device(device: str | torch.device | None) -> torch.device:
+    """The device an entry point places the tree on: CUDA unless the caller
+    names another. With no GPU and no explicit device this raises; it never
+    carries on quietly on the CPU."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run on the CPU"
+        )
+    return torch.device("cuda")
+
+
+@dataclasses.dataclass
+class TreeLayerArrays:
+    """Device tensors for one level."""
+
+    chunk_rows: torch.Tensor  # int32 [C, R]
+    chunk_vals: torch.Tensor  # f32 [C, R, B]
+    col_rows: torch.Tensor    # int32 [L, Rc] (vanilla baseline layout)
+    col_vals: torch.Tensor    # f32 [L, Rc]
+
+    def to(self, device: torch.device) -> "TreeLayerArrays":
+        return TreeLayerArrays(
+            **{f.name: getattr(self, f.name).to(device) for f in dataclasses.fields(self)}
+        )
+
+
+@dataclasses.dataclass
+class XMRTree:
+    layers: List[TreeLayerArrays]
+    n_cols: Tuple[int, ...]     # true (unpadded) label count per level
+    branching: Tuple[int, ...]  # B per level
+    d: int
+
+    @property
+    def depth(self) -> int:
+        return len(self.layers)
+
+    @property
+    def n_labels(self) -> int:
+        return self.n_cols[-1]
+
+    @property
+    def device(self) -> torch.device:
+        return self.layers[0].chunk_vals.device
+
+    @classmethod
+    def from_weight_matrices(
+        cls,
+        weights: Sequence[CSC],
+        branching: int | Sequence[int],
+        *,
+        device: str | torch.device | None = None,
+    ) -> "XMRTree":
+        """Build from per-level CSC weight matrices W^(l), l = 2..depth, on
+        ``device`` (CUDA unless named; see :func:`resolve_device`)."""
+        dev = resolve_device(device)
+        bs = (
+            [int(branching)] * len(weights)
+            if np.isscalar(branching)
+            else [int(b) for b in branching]
+        )
+        layers, ncols = [], []
+        for w, b in zip(weights, bs):
+            ch = ChunkedLayer.from_csc(w, b)
+            col = ColumnELLLayer.from_csc(w, b)
+            layers.append(
+                TreeLayerArrays(
+                    chunk_rows=torch.from_numpy(ch.rows).to(dev),
+                    chunk_vals=torch.from_numpy(ch.vals).to(dev),
+                    col_rows=torch.from_numpy(col.rows).to(dev),
+                    col_vals=torch.from_numpy(col.vals).to(dev),
+                )
+            )
+            ncols.append(w.shape[1])
+        return cls(layers=layers, n_cols=tuple(ncols), branching=tuple(bs),
+                   d=weights[0].shape[0])
+
+    def to(self, device: str | torch.device) -> "XMRTree":
+        """Copy of the tree on ``device`` (the tree itself if already there)."""
+        dev = torch.device(device)
+        if dev == self.device or (dev.index is None and dev.type == self.device.type):
+            return self
+        return dataclasses.replace(self, layers=[l.to(dev) for l in self.layers])
+
+    def memory_bytes(self) -> int:
+        return sum(
+            t.numel() * t.element_size()
+            for l in self.layers
+            for t in (l.chunk_rows, l.chunk_vals)
+        )
+
+    def infer(
+        self,
+        x_idx: torch.Tensor,  # int [n, Q] sorted, sentinel-padded
+        x_val: torch.Tensor,  # f32 [n, Q]
+        *,
+        beam: int = 10,
+        topk: int = 10,
+        method: str = "mscm_dense",
+        score_mode: str = "prod",
+        qt: int = 8,
+        init_parent_ids: torch.Tensor | None = None,
+        init_scores: torch.Tensor | None = None,
+        clamp_chunks: bool = False,
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Beam-search inference. Returns (scores [n, k], labels [n, k]).
+
+        ``init_parent_ids``/``init_scores`` ([n, b]) start the search from an
+        external beam instead of the root; ``clamp_chunks`` parks parents
+        past the last chunk on the last chunk. Inputs are moved to the
+        tree's device; nothing here synchronises with it.
+        """
+        check_method(method)
+        dev = self.device
+        x_idx = torch.as_tensor(x_idx, device=dev)
+        x_val = torch.as_tensor(x_val, device=dev)
+        if init_parent_ids is not None:
+            init_parent_ids = torch.as_tensor(init_parent_ids, device=dev)
+            init_scores = torch.as_tensor(init_scores, device=dev)
+        return _tree_infer(
+            self.layers, self.n_cols, self.branching, self.d, x_idx, x_val,
+            init_parent_ids, init_scores, beam=beam, topk=topk, method=method,
+            score_mode=score_mode, qt=qt, clamp_chunks=clamp_chunks,
+        )
+
+
+def level_combined(
+    layer: TreeLayerArrays,
+    branching: int,
+    d: int,
+    x_dense: torch.Tensor,
+    parent_ids: torch.Tensor,     # int [n, b] chunk ids (already clamped)
+    parent_scores: torch.Tensor,  # f32 [n, b]
+    *,
+    method: str,
+    score_mode: str,
+    qt: int = 8,
+) -> torch.Tensor:
+    """One level's combined child scores σ(logit) ⊗ parent — f32 [n, b, B]."""
+    n, b_cur = parent_ids.shape
+    block_q = torch.arange(n, device=parent_ids.device)[:, None].expand(n, b_cur).reshape(-1)
+    block_c = parent_ids.reshape(-1)
+    if method == "mscm_pallas_grouped":
+        from repro_torch.kernels import ops
+
+        # Grouping, tile product and the σ⊗parent epilogue in one kernel
+        # dispatch: the combined scores are the only output per level.
+        return ops.mscm_grouped_level(
+            x_dense, layer.chunk_rows, layer.chunk_vals, block_q, block_c,
+            parent_scores.reshape(-1), qt=qt, mode=score_mode,
+        ).reshape(n, b_cur, branching)
+    check_method(method)
+    logits = mscm_lib.mscm_dense_lookup(
+        x_dense, layer.chunk_rows, layer.chunk_vals, block_q, block_c
+    ).reshape(n, b_cur, branching)
+    return combine_scores(parent_scores, logits, score_mode)
+
+
+def _tree_infer(
+    layers: Sequence[TreeLayerArrays],
+    n_cols: Tuple[int, ...],
+    branching: Tuple[int, ...],
+    d: int,
+    x_idx: torch.Tensor,
+    x_val: torch.Tensor,
+    init_parent_ids: torch.Tensor | None = None,
+    init_scores: torch.Tensor | None = None,
+    *,
+    beam: int,
+    topk: int,
+    method: str,
+    score_mode: str,
+    qt: int = 8,
+    clamp_chunks: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    n = x_idx.shape[0]
+    dev = x_idx.device
+    x_dense = mscm_lib.scatter_dense(x_idx, x_val, d)
+    if init_parent_ids is not None:
+        # Continuation from an external beam.
+        parent_ids = init_parent_ids.to(torch.int64)
+        scores = init_scores.to(torch.float32)
+    else:
+        # Layer 1 is the root (Alg. 1 line 3): its children form chunk 0 of
+        # the first stored level.
+        parent_ids = torch.zeros((n, 1), dtype=torch.int64, device=dev)
+        scores = (
+            torch.ones((n, 1), dtype=torch.float32, device=dev)
+            if score_mode == "prod"
+            else torch.zeros((n, 1), dtype=torch.float32, device=dev)
+        )
+    for li, layer in enumerate(layers):
+        chunk_ids = parent_ids
+        if clamp_chunks:
+            chunk_ids = parent_ids.clamp(max=layer.chunk_rows.shape[0] - 1)
+        is_last = li == len(layers) - 1
+        next_b = min(topk if is_last else beam, n_cols[li])
+        combined = level_combined(
+            layer, branching[li], d, x_dense, chunk_ids, scores,
+            method=method, score_mode=score_mode, qt=qt,
+        )
+        parent_ids, scores = beam_select(chunk_ids, combined, n_cols[li], next_b)
+        if method == "mscm_pallas_grouped" and not is_last:
+            # Keep the beam id-ascending so the next level's block list is
+            # already chunk-major within each query; selection is canonical,
+            # so the order cannot change results.
+            parent_ids, perm = torch.sort(parent_ids, dim=1)
+            scores = scores.gather(1, perm)
+    return scores, parent_ids

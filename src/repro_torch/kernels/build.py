@@ -1,0 +1,97 @@
+"""Build and load the port's CUDA kernels.
+
+Each ``csrc/<name>.cu`` exposes a plain C interface. At first use it is
+compiled with ``nvcc`` for ``sm_90a`` into ``build/repro_torch/`` at the
+root of the checkout, under a name that carries a hash of the source and
+flags (so an edited source is rebuilt), and loaded with ``ctypes``. Nothing
+here runs at import time: the CPU tests import every module of the port on
+machines without ``nvcc``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict, Sequence, Tuple
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+#: argtypes of each kernel's C entry point, by source name.
+SIGNATURES: Dict[str, Tuple[str, tuple]] = {
+    # xg, vals, tile_chunk, ps, out, T, QT, R, B, C, mode, stream
+    "mscm_grouped": ("mscm_grouped_launch", (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P)),
+}
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+#: ptxas report (registers, shared memory, spills) of each build, by name.
+BUILD_LOGS: Dict[str, str] = {}
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    cand = Path(cuda_home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+    return found
+
+
+def _target(name: str) -> Tuple[Path, Path]:
+    src = CSRC / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return src, BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+
+
+def build_libraries(names: Sequence[str]) -> Dict[str, Path]:
+    """Compile every named source that has no up-to-date library, with one
+    ``nvcc`` per source, all started together. Returns the library paths."""
+    targets = {n: _target(n) for n in names}
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    nvcc = None
+    for name, (src, lib) in targets.items():
+        if lib.exists():
+            continue
+        nvcc = nvcc or _nvcc()
+        tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+        procs[name] = (tmp, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        ))
+    failed = []
+    for name, (tmp, proc) in procs.items():
+        log, _ = proc.communicate()
+        BUILD_LOGS[name] = log
+        if proc.returncode != 0:
+            failed.append(f"{name}:\n{log}")
+            continue
+        os.replace(tmp, targets[name][1])
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    return {n: lib for n, (_, lib) in targets.items()}
+
+
+def load_library(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, built on first use."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        path = build_libraries([name])[name]
+        lib = ctypes.CDLL(str(path))
+        fn_name, argtypes = SIGNATURES[name]
+        fn = getattr(lib, fn_name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+        _LIBS[name] = lib
+    return lib

@@ -1,0 +1,198 @@
+"""Batched XMR serving engine (counterpart of ``repro.serving.engine``).
+
+The paper's two production settings (§3.2): **batch**, a matrix of queries
+served in bucketed chunks, and **online**, one query at a time. Batch sizes
+are bucketed to powers of two and query nnz padded to a fixed ELL width, as
+in the reference, so both packages see the same shapes.
+
+``serve_batch`` double-buffers: the host marshals chunk *i+1* while the GPU
+runs chunk *i*. That relies on CUDA's asynchronous launches, as the
+reference relies on JAX's asynchronous dispatch: the traversal reads
+nothing back to the host, queries go to the device through pinned memory
+with ``non_blocking=True``, and the engine waits only when it copies a
+finished chunk's results back.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.tree import XMRTree, check_method, resolve_device
+from repro_torch.serving.config import ServeConfig
+from repro_torch.serving.metrics import LatencyStats
+from repro_torch.sparse.csr import CSR, rows_to_ell
+
+__all__ = ["ServeConfig", "XMRServingEngine", "resolve_method"]
+
+
+def resolve_method(method: str, device: str | torch.device | None = None) -> str:
+    """Resolve ``"auto"`` to the best batch method for the device: the
+    grouped CUDA kernel on a GPU, the dense-lookup einsum elsewhere.
+    ``device=None`` means the GPU when one is present."""
+    if method != "auto":
+        return method
+    if device is None:
+        device = "cuda" if torch.cuda.is_available() else "cpu"
+    return "mscm_pallas_grouped" if torch.device(device).type == "cuda" else "mscm_dense"
+
+
+def _bucket(n: int, max_batch: int) -> int:
+    b = 1
+    while b < n and b < max_batch:
+        b *= 2
+    return min(b, max_batch)
+
+
+class XMRServingEngine:
+    def __init__(self, tree: XMRTree, config: ServeConfig | None = None,
+                 label_perm: Optional[np.ndarray] = None, *,
+                 device: str | torch.device | None = None):
+        self.config = config or ServeConfig()
+        self.device = resolve_device(device)
+        self.method = resolve_method(self.config.method, self.device)
+        check_method(self.method)
+        self.tree = tree.to(self.device)
+        self.label_perm = label_perm  # leaf position -> original label id
+        self.stats = LatencyStats()
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _to_device(self, a: np.ndarray) -> torch.Tensor:
+        t = torch.from_numpy(a)
+        if self.device.type == "cuda":
+            # Pinned source + non_blocking: the copy is enqueued without
+            # waiting for the chunk the GPU is still running.
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t.to(self.device)
+
+    # -- query marshalling --------------------------------------------------
+    def marshal_rows(self, queries: CSR, rows: np.ndarray, bucket: int
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Vectorized ELL marshalling padded up to a bucket; padding rows
+        are empty queries (sentinel index ``d``, value 0)."""
+        w = self.config.ell_width
+        d = queries.shape[1]
+        idx, val = rows_to_ell(queries, rows, w)
+        if bucket > len(rows):
+            pad = bucket - len(rows)
+            idx = np.concatenate([idx, np.full((pad, w), d, np.int32)])
+            val = np.concatenate([val, np.zeros((pad, w), np.float32)])
+        return self._to_device(idx), self._to_device(val)
+
+    def bucket_for(self, n: int) -> int:
+        """Power-of-two bucket for ``n`` queries."""
+        return _bucket(n, self.config.max_batch)
+
+    def _run(self, xi: torch.Tensor, xv: torch.Tensor):
+        c = self.config
+        return self.tree.infer(
+            xi, xv, beam=c.beam, topk=c.topk, method=self.method,
+            score_mode=c.score_mode, qt=c.qt,
+        )
+
+    def _empty_batch(self, bucket: int, d: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        w = self.config.ell_width
+        xi = torch.full((bucket, w), d, dtype=torch.int32, device=self.device)
+        xv = torch.zeros((bucket, w), dtype=torch.float32, device=self.device)
+        return xi, xv
+
+    # -- serving modes --------------------------------------------------
+    def warmup(self, d: int, batch_sizes: Sequence[int] = (1,)) -> None:
+        for b in batch_sizes:
+            self._run(*self._empty_batch(self.bucket_for(b), d))
+            self._sync()
+
+    def warmup_buckets(self, d: int, max_batch: int) -> None:
+        """Warm every power-of-two bucket up to ``bucket_for(max_batch)``."""
+        sizes, b = [], 1
+        target = self.bucket_for(max_batch)
+        while b <= target:
+            sizes.append(b)
+            b *= 2
+        self.warmup(d, sizes)
+
+    def serve_batch(self, queries: CSR) -> Tuple[np.ndarray, np.ndarray]:
+        """Batch setting: all queries, in ``max_batch`` chunks, double
+        buffered. One amortized per-query average is recorded per call."""
+        n = queries.shape[0]
+        out_s, out_l = [], []
+
+        def finalize(pending) -> None:
+            s, l, done = pending
+            if done is not None:
+                done.synchronize()  # this chunk and its copy, not the next
+            out_s.append(s.numpy())
+            out_l.append(l.numpy())
+
+        t_start = time.perf_counter()
+        pending = None
+        i = 0
+        while i < n:
+            count = min(self.config.max_batch, n - i)
+            bucket = self.bucket_for(count)
+            xi, xv = self.marshal_rows(queries, np.arange(i, i + count), bucket)
+            s, l = self._run(xi, xv)  # enqueued, not waited for
+            # Copy back right behind this chunk's kernels (to pinned memory
+            # when on a GPU), so waiting for it never waits for the next one.
+            s = s[:count].to("cpu", non_blocking=True)
+            l = l[:count].to("cpu", non_blocking=True)
+            done = None
+            if self.device.type == "cuda":
+                done = torch.cuda.Event()
+                done.record()
+            if pending is not None:
+                finalize(pending)
+            pending = (s, l, done)
+            i += count
+        if pending is not None:
+            finalize(pending)
+        self.stats.record_amortized(time.perf_counter() - t_start, n)
+        scores = np.concatenate(out_s)
+        leaves = np.concatenate(out_l)
+        return scores, self._map_labels(leaves)
+
+    def serve_online(self, queries: CSR, limit: int | None = None
+                     ) -> Tuple[np.ndarray, np.ndarray]:
+        """Online setting: one query at a time, per-query latency recorded."""
+        n = queries.shape[0] if limit is None else min(limit, queries.shape[0])
+        out_s, out_l = [], []
+        bucket = self.bucket_for(1)
+        for i in range(n):
+            xi, xv = self.marshal_rows(queries, np.arange(i, i + 1), bucket)
+            t0 = time.perf_counter()
+            s, l = self._run(xi, xv)
+            self._sync()
+            self.stats.record(time.perf_counter() - t0)
+            out_s.append(s[0].cpu().numpy())
+            out_l.append(l[0].cpu().numpy())
+        scores = np.stack(out_s)
+        leaves = np.stack(out_l)
+        return scores, self._map_labels(leaves)
+
+    def _map_labels(self, leaves: np.ndarray) -> np.ndarray:
+        if self.label_perm is None:
+            return leaves
+        return self.label_perm[leaves]
+
+    def measure_batch_seconds(self, batch: int, iters: int = 3) -> float:
+        """Median wall seconds for one ``batch``-sized dispatch (warmed),
+        with empty queries that traverse the same levels as real ones."""
+        xi, xv = self._empty_batch(self.bucket_for(batch), self.tree.d)
+        self._run(xi, xv)
+        self._sync()
+        times = []
+        for _ in range(iters):
+            t0 = time.perf_counter()
+            self._run(xi, xv)
+            self._sync()
+            times.append(time.perf_counter() - t0)
+        return float(np.median(times))
+
+    def latency_summary(self) -> dict:
+        return self.stats.summary()

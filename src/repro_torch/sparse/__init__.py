@@ -1,0 +1,15 @@
+from repro_torch.sparse.csr import (
+    CSC,
+    CSR,
+    random_sparse_csc,
+    random_sparse_csr,
+    rows_to_ell,
+)
+
+__all__ = [
+    "CSR",
+    "CSC",
+    "random_sparse_csr",
+    "random_sparse_csc",
+    "rows_to_ell",
+]

@@ -1,0 +1,133 @@
+"""PyTorch port, serving engine: the port's engine against the reference's.
+
+Both engines get the same ``ServeConfig`` knobs, weights and queries and
+serve them in the batch and online settings; results agree under the rule
+of ``test_torch_tree.py`` (scores within ``rtol=1e-5, atol=1e-6``, labels
+equal wherever the reference's score gap exceeds that). Options this slice
+does not port raise ``NotImplementedError``.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro.core import XMRTree as JTree
+from repro.serving import ServeConfig as JConfig
+from repro.serving import XMRServingEngine as JEngine
+from repro.sparse import random_sparse_csr
+from repro_torch.core.tree import XMRTree
+from repro_torch.serving import LatencyStats, ServeConfig, XMRServingEngine, resolve_method
+from repro_torch.sparse.csr import CSR
+from tests.conftest import make_tree_weights
+from tests.test_torch_tree import assert_same_ranking, port_csc
+
+KNOBS = dict(beam=10, topk=5, ell_width=32, max_batch=16)
+
+
+def port_csr(x):
+    return CSR(x.indptr, x.indices, x.data, tuple(x.shape))
+
+
+@pytest.fixture(scope="module")
+def setup():
+    rng = np.random.default_rng(4321)
+    d, B = 150, 8
+    ws = make_tree_weights(rng, d, [8, 64, 512], B)
+    jt = JTree.from_weight_matrices(ws, B)
+    tt = XMRTree.from_weight_matrices([port_csc(w) for w in ws], B, device="cpu")
+    xq = random_sparse_csr(40, d, 18, rng)
+    tq = port_csr(xq)
+    perm = rng.permutation(512)
+    return jt, tt, xq, tq, perm
+
+
+@pytest.mark.parametrize("method_port,method_ref,n", [
+    ("auto", "auto", 40),
+    ("mscm_dense", "mscm_dense", 40),
+    ("mscm_pallas_grouped", "mscm_pallas_grouped", 24),
+    ("mscm_pallas_grouped", "mscm_dense", 40),
+])
+def test_serve_batch_matches_reference(setup, method_port, method_ref, n):
+    jt, tt, xq, tq, perm = setup
+    ref = JEngine(jt, JConfig(method=method_ref, **KNOBS), label_perm=perm)
+    eng = XMRServingEngine(tt, ServeConfig(method=method_port, **KNOBS), label_perm=perm,
+                           device="cpu")
+    xs = xq.slice_rows(np.arange(n))
+    s_j, l_j = ref.serve_batch(xs)
+    s_t, l_t = eng.serve_batch(port_csr(xs))
+    assert_same_ranking(s_t, l_t, s_j, l_j)
+    summary = eng.latency_summary()
+    assert summary["count"] == 0 and summary["amortized"]["queries"] == n
+
+
+def test_serve_online_matches_batch_and_reference(setup):
+    jt, tt, xq, tq, perm = setup
+    ref = JEngine(jt, JConfig(method="mscm_dense", **KNOBS), label_perm=perm)
+    eng = XMRServingEngine(tt, ServeConfig(method="mscm_pallas_grouped", **KNOBS),
+                           label_perm=perm, device="cpu")
+    s_j, l_j = ref.serve_online(xq, limit=5)
+    s_t, l_t = eng.serve_online(tq, limit=5)
+    assert_same_ranking(s_t, l_t, s_j, l_j)
+    s_b, l_b = eng.serve_batch(tq)
+    np.testing.assert_array_equal(l_t, l_b[:5])
+    np.testing.assert_allclose(s_t, s_b[:5], rtol=1e-5, atol=1e-6)
+    summary = eng.latency_summary()
+    assert summary["count"] == 5 and summary["amortized"]["calls"] == 1
+
+
+def test_warmup_and_probe_run(setup):
+    _, tt, _, _, _ = setup
+    eng = XMRServingEngine(tt, ServeConfig(method="mscm_pallas_grouped", **KNOBS), device="cpu")
+    eng.warmup_buckets(tt.d, 12)
+    assert [eng.bucket_for(n) for n in (1, 3, 9, 16, 40)] == [1, 4, 16, 16, 16]
+    assert eng.measure_batch_seconds(4, iters=2) > 0
+
+
+def test_resolve_method(monkeypatch):
+    assert resolve_method("auto", "cpu") == "mscm_dense"
+    assert resolve_method("auto", "cuda") == "mscm_pallas_grouped"
+    assert resolve_method("mscm_dense", "cuda") == "mscm_dense"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert resolve_method("auto") == "mscm_dense"
+
+
+def test_engine_needs_a_gpu_or_explicit_cpu(setup, monkeypatch):
+    _, tt, _, _, _ = setup
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        XMRServingEngine(tt, ServeConfig())
+
+
+@pytest.mark.parametrize("kwargs", [
+    dict(shards=2), dict(partitions=2), dict(tier="int8"), dict(target_p99_ms=50.0),
+    dict(quant=object()), dict(partition=object()), dict(slo=object()),
+])
+def test_unported_options_raise(kwargs):
+    with pytest.raises(NotImplementedError):
+        ServeConfig(**kwargs)
+
+
+@pytest.mark.parametrize("method", ["vanilla", "mscm_searchsorted", "mscm_pallas",
+                                    "mscm_pallas_pregather", "mscm_pallas_grouped_q"])
+def test_unported_methods_raise_at_engine_build(setup, method):
+    _, tt, _, _, _ = setup
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        XMRServingEngine(tt, ServeConfig(method=method), device="cpu")
+
+
+def test_config_defaults_and_unknown_options():
+    c, j = ServeConfig(partitions=1, tier="exact", target_p99_ms=None), JConfig()
+    for k in ("beam", "topk", "method", "ell_width", "max_batch", "score_mode", "qt", "shards"):
+        assert getattr(c, k) == getattr(j, k)
+    with pytest.raises(TypeError):
+        ServeConfig(beem=3)
+
+
+def test_latency_stats_keep_series_apart():
+    st = LatencyStats()
+    st.record(0.002)
+    st.record(0.010, n_queries=5)
+    st.record_amortized(0.004, 2)
+    s = st.summary()
+    assert s["count"] == 1 and s["avg_ms"] == pytest.approx(2.0)
+    assert s["amortized"] == {"calls": 2, "queries": 7, "avg_ms_per_query": pytest.approx(2.0)}
