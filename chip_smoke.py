@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path on one NVIDIA GPU and check it.
+"""Drive the PyTorch port's paths on one NVIDIA GPU and check them.
 
 Run from the root of a checkout, on a machine with a CUDA device and nvcc:
 
@@ -9,20 +9,29 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 1. device   require CUDA; print the card's name and power limit; turn TF32
             off so every f32 matrix product on the card is true f32;
-2. build    compile every kernel of the path from ``src/repro_torch/kernels/csrc``;
-3. kernels  hold each kernel against its plain PyTorch version on the card,
-            at the main path's shapes and at edge shapes, in every epilogue
-            mode; time kernel, plain version and library call with CUDA events;
-4. small    exact beam search on a small tree, on the card, against a numpy
-            brute-force scorer;
+2. build    compile every kernel from ``src/repro_torch/kernels/csrc``, one
+            ``nvcc`` per source, all started together;
+3. kernels  hold each kernel (grouped, fused, pregather) against its plain
+            PyTorch version on the card, at the paths' shapes and at edge
+            shapes; time kernel, plain version and library call with CUDA
+            events, behind a sleep kernel so that only device time counts;
+4. small    exact beam search on a small tree, on the card, through every
+            ported method, against a numpy brute-force scorer;
 5. path     build the ``search-1m`` model (seed 0, random weights at the real
             sparsity) on the card and serve 256 queries through
             ``XMRServingEngine.serve_batch`` with ``method="auto"``; check that
             it resolved to the grouped kernel and launched it depth x batches
-            times, and that it agrees with the ``mscm_dense`` oracle on the card.
+            times, and that it agrees with the ``mscm_dense`` oracle on the card;
+6. online   serve 64 of those queries one at a time (``serve_online``) with
+            ``method="mscm_pallas"``, which takes the pregather kernel at
+            d = 4M, then through every other method, each held against
+            ``mscm_dense`` and profiled; then build ``search-32k`` (d = 337,067)
+            and serve 64 queries with ``method="mscm_pallas"``, which takes the
+            fused kernel there.
 
-The line before last is a JSON object with one entry per kernel; the last is
-``{"ok": true, "device": {...}}``.
+The line before last is a JSON object with one entry per kernel, whose
+``launches`` count that kernel's path (grouped: path; pregather: search-1m
+online; fused: search-32k online); the last is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -38,12 +47,18 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 F32_FLOPS = 67e12           # H100 SXM f32 outside the tensor cores
-# Scores: the tolerance the reference's tests use across methods.
-SCORE_RTOL, SCORE_ATOL = 1e-5, 1e-6
 # Kernel vs plain version: R-term f32 sums taken in different orders. With
 # inputs in [0, 1) x N(0, 1) the terms' magnitudes add up to ~200 at
 # R = 496, so reordering moves a sum by up to ~1e-4.
 KERNEL_RTOL, KERNEL_ATOL = 1e-5, 1e-4
+# bf16 inputs: the tolerance the reference's dtype sweep uses.
+BF16_TOL = 2e-2
+# The serving configuration of both settings (examples/serve_search.py).
+SERVE = dict(beam=10, topk=10, ell_width=256, max_batch=64)
+ONLINE_QUERIES, PROFILED_QUERIES = 64, 16
+# The online panel: the paper's method and the baselines it is compared with.
+ONLINE_PANEL = ("mscm_pallas", "mscm_pallas_pregather", "vanilla", "mscm_searchsorted",
+                "mscm_pallas_grouped", "mscm_dense")
 
 
 def log(msg: str) -> None:
@@ -59,48 +74,80 @@ def gpu_line() -> str:
 
 
 def time_ms(fn, reps: int = 25, inner: int = 10) -> float:
-    """Median over ``reps`` of the mean time of ``inner`` back-to-back calls,
-    from CUDA events."""
+    """Median over ``reps`` of the mean device time of ``inner`` back-to-back
+    calls, from CUDA events. Each rep first queues a sleep kernel, so the
+    host has enqueued every call before the card reaches the first: the
+    events then time the card alone, not the host's launch rate. A rep whose
+    sleep ran out first is dropped and the sleep doubled."""
     import torch
 
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
+    cycles, times = 1 << 22, []
+    while len(times) < reps:
+        torch.cuda._sleep(cycles)
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
         start.record()
         for _ in range(inner):
             fn()
         stop.record()
+        late = start.query()  # the card got there before the host was done
         stop.synchronize()
+        if late and cycles < 1 << 32:
+            cycles *= 2
+            continue
         times.append(start.elapsed_time(stop) / inner)
     return float(np.median(times))
 
 
-def check_ranking(s, l, s_ref, l_ref, what: str) -> int:
-    """Scores within the stated tolerance; labels equal wherever the
-    reference's score gap to both neighbours exceeds it. Returns the number
-    of label positions that differ (all within near-ties)."""
-    if s.shape != s_ref.shape or l.shape != l_ref.shape:
-        raise AssertionError(f"{what}: shapes {s.shape} vs {s_ref.shape}")
-    if not (np.isfinite(s).all() and np.isfinite(s_ref).all()):
-        raise AssertionError(f"{what}: non-finite scores")
-    np.testing.assert_allclose(s, s_ref, rtol=SCORE_RTOL, atol=SCORE_ATOL, err_msg=what)
-    tol = SCORE_ATOL + SCORE_RTOL * np.abs(s_ref)
-    gap = np.abs(np.diff(s_ref, axis=1))
-    inf = np.full((s_ref.shape[0], 1), np.inf)
-    decided = (np.concatenate([inf, gap], 1) > tol) & (np.concatenate([gap, inf], 1) > tol)
-    differ = l != l_ref
-    if (differ & decided).any():
-        raise AssertionError(f"{what}: labels differ where the score gap exceeds the tolerance")
-    return int(differ.sum())
+def bound(nbytes: float, flops: float):
+    """(bound ms, what bounds it): bytes over the memory rate against f32
+    operations over the CUDA cores' rate."""
+    bytes_ms, flops_ms = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * flops / F32_FLOPS
+    return max(bytes_ms, flops_ms), "bytes" if bytes_ms >= flops_ms else "operations"
 
 
-def kernel_check(torch, mk, build):
-    """Phase 3: the grouped kernel against its plain version, then timings
-    at the main path's shapes."""
+def held(torch, got, want, what: str, rtol: float, atol: float) -> float:
+    """Raise unless ``got`` is within ``atol + rtol*|want|`` of ``want``;
+    log and return the largest difference."""
+    torch.cuda.synchronize()
+    diff = (got - want).abs()
+    err = float(diff.max()) if diff.numel() else 0.0
+    ok = bool((diff <= atol + rtol * want.abs()).all())
+    log(f"  {what}: max|kernel-plain| = {err:.3e} (tolerance {atol:g} + {rtol:g}*|plain|) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{what}: kernel disagrees with its plain version")
+    return err
+
+
+def device_profile(fn):
+    """Run ``fn`` once under the profiler. Returns (wall s, device
+    activities, device busy us, [(busy us, count, name)] by device time)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        wall = time.perf_counter() - t0
+    rows = []
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue  # host-side ops; their kernels are listed on their own
+        dev_us = getattr(e, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(e, "self_cuda_time_total", 0.0)
+        rows.append((dev_us, e.count, e.key))
+    rows.sort(reverse=True)
+    return wall, sum(r[1] for r in rows), sum(r[0] for r in rows), rows
+
+
+def kernel_check(torch, mk):
+    """Phase 3a: the grouped kernel against its plain version, then timings
+    at the batch path's shapes."""
     g = torch.Generator().manual_seed(0)
 
     def inputs(t, qt, r, b, c, runs):
@@ -124,43 +171,25 @@ def kernel_check(torch, mk, build):
             p = None if mode == "none" else ps
             got = mk.mscm_grouped(xg, vals, tc, p, mode=mode)
             want = mk.mscm_grouped_plain(xg, vals, tc, p, mode=mode)
-            torch.cuda.synchronize()
-            err = float((got - want).abs().max())
-            ok = bool(((got - want).abs() <= KERNEL_ATOL + KERNEL_RTOL * want.abs()).all())
-            log(f"  mscm_grouped T={t} QT={qt} R={r} B={b} mode={mode}: "
-                f"max|kernel-plain| = {err:.3e} (tolerance {KERNEL_ATOL:g} + "
-                f"{KERNEL_RTOL:g}*|plain|) {'ok' if ok else 'FAIL'}")
-            if not ok:
-                raise AssertionError(f"mscm_grouped disagrees with its plain version ({mode})")
-            max_err = max(max_err, err)
+            max_err = max(max_err, held(torch, got, want,
+                                        f"mscm_grouped T={t} QT={qt} R={r} B={b} mode={mode}",
+                                        KERNEL_RTOL, KERNEL_ATOL))
 
     # Timings at the main path's shapes, in the path's epilogue mode.
     t, qt, r, b, c, runs = shapes[0]
     xg, vals, tc, ps = inputs(t, qt, r, b, c, runs)
-    out = torch.empty(t, qt, b, device="cuda")
-    lib = build.load_library("mscm_grouped")
-    stream = torch.cuda.current_stream().cuda_stream
-    args = (xg.data_ptr(), vals.data_ptr(), tc.data_ptr(), ps.data_ptr(), out.data_ptr(),
-            t, qt, r, b, c, mk.MODES["prod"], stream)
-
-    def kernel():  # the bare launch, so host-side checks do not pace it
-        err = lib.mscm_grouped_launch(*args)
-        if err:
-            raise RuntimeError(f"launch failed: CUDA error {err}")
-
     vals_g = vals[tc]
-    ms = time_ms(kernel)
+    ms = time_ms(lambda: mk.mscm_grouped(xg, vals, tc, ps, mode="prod"))
     plain_ms = time_ms(lambda: mk.mscm_grouped_plain(xg, vals, tc, ps, mode="prod"))
     library_ms = time_ms(lambda: torch.bmm(xg, vals_g))
     n_chunks = int(torch.unique(tc).numel())
     nbytes = 4 * (t * qt * r + n_chunks * r * b + t * qt + t * qt * b) + 8 * t
     flops = 2 * t * qt * r * b
-    bytes_ms, flops_ms = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * flops / F32_FLOPS
-    bound_ms = max(bytes_ms, flops_ms)
+    bound_ms, bound_by = bound(nbytes, flops)
     log(f"  timing T={t} QT={qt} R={r} B={b} ({n_chunks} distinct chunks, "
         f"{nbytes / 1e6:.2f} MB, {flops / 1e6:.1f} MFLOP): kernel {ms:.5f} ms, "
         f"plain {plain_ms:.5f} ms, torch.bmm on pre-gathered tiles {library_ms:.5f} ms, "
-        f"bound {bound_ms:.5f} ms (bytes {bytes_ms:.5f}, f32 ops {flops_ms:.5f})")
+        f"bound {bound_ms:.5f} ms ({bound_by})")
     return {
         "name": "mscm_grouped",
         "route": "cuda",
@@ -172,14 +201,141 @@ def kernel_check(torch, mk, build):
         "kernel_ms": ms,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
-        "bound_by": "bytes" if bytes_ms >= flops_ms else "operations",
+        "bound_by": bound_by,
         "library_ms": library_ms,
     }
 
 
+def block_list(torch, g, a, n, c, runs):
+    """A chunk-sorted list of ``a`` blocks over ``n`` queries and ``c``
+    chunks, ``runs`` of whose chunks repeat: (block_q, block_c)."""
+    base = torch.randint(0, c, (a - runs,), device="cuda", generator=g)
+    bc = torch.sort(torch.cat([base, base[:runs]])).values
+    return torch.randint(0, n, (a,), device="cuda", generator=g), bc
+
+
+def block_inputs(torch, g, a, n, dp, r, b, c, runs, *, past=0):
+    """Inputs of the per-block kernels on the card: a query table [n, dp],
+    chunk rows [c, r] (``past`` > 0 puts some past the table, which the
+    kernels clip), tiles [c, r, b] and a block list (:func:`block_list`)."""
+    x = torch.rand(n, dp, device="cuda", generator=g)
+    rows = torch.randint(0, dp + past, (c, r), device="cuda", generator=g, dtype=torch.int32)
+    vals = torch.randn(c, r, b, device="cuda", generator=g)
+    return (x, rows, vals) + block_list(torch, g, a, n, c, runs)
+
+
+def gathered(x, rows, bq, bc):
+    """xg for the pregather kernel: the fused kernel's gather, written out
+    (chunk ids clamped, rows clipped)."""
+    idx = rows[bc.clamp(0, rows.shape[0] - 1)].long().clamp(0, x.shape[1] - 1)
+    return x[bq[:, None], idx]
+
+
+def block_timing(torch, mk, name, x, rows, vals, bq, bc) -> dict:
+    """Kernel, plain version and ``torch.bmm`` on pre-gathered inputs, at one
+    shape, with the bound: each input read once (the distinct chunk tiles,
+    their rows for ``fused``, the gathered query values, the block ids) and
+    the output written once."""
+    c, r, b = vals.shape
+    a = bc.numel()
+    es = vals.element_size()
+    xg = gathered(x, rows, bq, bc)
+    vals_g = vals[bc]
+    if name == "mscm_fused":
+        kernel = lambda: mk.mscm_fused(x, rows, vals, bq, bc)  # noqa: E731
+        plain = lambda: mk.mscm_fused_plain(x, rows, vals, bq, bc)  # noqa: E731
+    else:
+        kernel = lambda: mk.mscm_pregather(xg, vals, bc)  # noqa: E731
+        plain = lambda: mk.mscm_pregather_plain(xg, vals, bc)  # noqa: E731
+    distinct = int(torch.unique(bc).numel())
+    fused = name == "mscm_fused"
+    nbytes = (es * (a * r + distinct * r * b) + 4 * a * b + 8 * a * (2 if fused else 1)
+              + (4 * distinct * r if fused else 0))
+    bound_ms, bound_by = bound(nbytes, 2 * a * r * b)
+    out = dict(ms=time_ms(kernel), plain_ms=time_ms(plain),
+               library_ms=time_ms(lambda: torch.bmm(xg[:, None, :], vals_g)),
+               bound_ms=bound_ms, bound_by=bound_by)
+    log(f"  timing {name} A={a} R={r} B={b} ({distinct} distinct chunks, "
+        f"{nbytes / 1e6:.3f} MB, {2 * a * r * b / 1e6:.2f} MFLOP): kernel {out['ms']:.5f} ms, "
+        f"plain {out['plain_ms']:.5f} ms, torch.bmm on pre-gathered rows "
+        f"{out['library_ms']:.5f} ms, bound {bound_ms:.5f} ms ({bound_by})")
+    return out
+
+
+def block_kernel_check(torch, mk, ops):
+    """Phase 3b: the fused and pregather kernels against their plain
+    versions, at the online shape (A = 10 blocks a level), the batch shape
+    (A = 640) and edge shapes, in f32 and (fused) bf16; then timings."""
+    g = torch.Generator(device="cuda").manual_seed(0)
+    big = block_inputs(torch, g, 640, 64, 337_068, 496, 32, 32768, 160)
+    x, rows, vals, _, _ = big
+    online = (x[:1], rows, vals) + block_list(torch, g, 10, 1, vals.shape[0], 3)
+    cases = {  # label -> (x, rows, vals, block_q, block_c)
+        "online A=10 R=496 B=32": online,
+        "batch A=640 R=496 B=32": big,
+        "edge A=1 B=6": block_inputs(torch, g, 1, 1, 50, 8, 6, 3, 0, past=3),
+        "edge B=8 R=37": block_inputs(torch, g, 5, 2, 70, 37, 8, 3, 1, past=3),
+        "edge B=70 R=1037": block_inputs(torch, g, 3, 2, 2000, 1037, 70, 4, 1, past=3),
+    }
+    past = block_inputs(torch, g, 6, 3, 90, 24, 16, 5, 1)
+    past[4][-2:] = 7  # chunk ids past C = 5: clamped to the last chunk
+    cases["edge chunk id past C"] = past
+    err = {"mscm_fused": 0.0, "mscm_pregather": 0.0, "bf16": 0.0}
+    for label, (x, rows, vals, bq, bc) in cases.items():
+        got = mk.mscm_fused(x, rows, vals, bq, bc)
+        want = mk.mscm_fused_plain(x, rows, vals, bq, bc)
+        err["mscm_fused"] = max(err["mscm_fused"], held(
+            torch, got, want, f"mscm_fused {label}", KERNEL_RTOL, KERNEL_ATOL))
+        xg = gathered(x, rows, bq, bc)
+        got = mk.mscm_pregather(xg, vals, bc)
+        want = mk.mscm_pregather_plain(xg, vals, bc)
+        err["mscm_pregather"] = max(err["mscm_pregather"], held(
+            torch, got, want, f"mscm_pregather {label}", KERNEL_RTOL, KERNEL_ATOL))
+    for label in ("online A=10 R=496 B=32", "edge B=70 R=1037"):
+        x, rows, vals, bq, bc = cases[label]
+        x16, v16 = x.bfloat16(), vals.bfloat16()
+        got = mk.mscm_fused(x16, rows, v16, bq, bc)
+        want = mk.mscm_fused_plain(x16, rows, v16, bq, bc)
+        err["bf16"] = max(err["bf16"], held(
+            torch, got, want, f"mscm_fused bf16 {label}", BF16_TOL, BF16_TOL))
+    # sort=False through ops.mscm_pallas: the block list in arrival order.
+    x, rows, vals, bq, bc = cases["online A=10 R=496 B=32"]
+    perm = torch.randperm(bc.numel(), device="cuda", generator=g)
+    for variant in ("fused", "pregather"):
+        for sort in (False, True):
+            got = ops.mscm_pallas(x, rows, vals, bq[perm], bc[perm], variant=variant, sort=sort)
+            want = mk.mscm_fused_plain(x, rows, vals, bq[perm], bc[perm])
+            name = f"mscm_{variant}"
+            err[name] = max(err[name], held(
+                torch, got, want, f"ops.mscm_pallas variant={variant} sort={sort}",
+                KERNEL_RTOL, KERNEL_ATOL))
+
+    entries = []
+    for name, line in (("mscm_fused", 67), ("mscm_pregather", 111)):
+        t_online = block_timing(torch, mk, name, *cases["online A=10 R=496 B=32"])
+        t_batch = block_timing(torch, mk, name, *cases["batch A=640 R=496 B=32"])
+        entry = {
+            "name": name,
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/mscm_block.cu",
+            "replaces": f"src/repro/kernels/mscm_kernel.py:{line}",
+            "max_abs_err": err[name],
+            "max_err": err[name],
+            **t_online,
+            "kernel_ms": t_online["ms"],
+            **{f"batch_{k}": v for k, v in t_batch.items()},
+        }
+        if name == "mscm_fused":
+            entry["bf16_max_abs_err"] = err["bf16"]
+        entries.append(entry)
+    return entries
+
+
 def small_check(torch):
-    """Phase 4: exact search (beam = L) on a small tree against brute force."""
+    """Phase 4: exact search (beam = L) on a small tree against brute force,
+    through every ported method."""
     from repro_torch.core.tree import XMRTree
+    from repro_torch.parity import check_ranking
     from repro_torch.sparse.csr import random_sparse_csc, random_sparse_csr
 
     rng = np.random.default_rng(1234)
@@ -194,7 +350,7 @@ def small_check(torch):
         prev = np.repeat(prev, act.shape[1] // prev.shape[1], axis=1) * act
     want_l = np.argsort(-prev, axis=1, kind="stable")[:, :5]
     want_s = np.take_along_axis(prev, want_l, axis=1)
-    for method in ("mscm_pallas_grouped", "mscm_dense"):
+    for method in ONLINE_PANEL:
         s, l = tree.infer(torch.from_numpy(xi), torch.from_numpy(xv), beam=512, topk=5,
                           method=method, qt=4)
         n_diff = check_ranking(s.cpu().numpy(), l.cpu().numpy(), want_s, want_l,
@@ -230,8 +386,8 @@ def level_counts(torch, eng, queries, bucket: int) -> None:
             f"{real} holding blocks, {distinct} distinct chunks of {n_chunks} "
             f"({need / 1e6:.2f} MB of xg and chunk tiles needed); "
             f"{100 * float((logits != 0).float().mean()):.2f}% of logits nonzero")
-        combined = level_combined(layer, tree.branching[li], tree.d, x_dense, ids, scores,
-                                  method=eng.method, score_mode=c.score_mode, qt=c.qt)
+        combined = level_combined(layer, tree.branching[li], tree.d, xi, xv, x_dense, ids,
+                                  scores, method=eng.method, score_mode=c.score_mode, qt=c.qt)
         last = li == tree.depth - 1
         ids, scores = beam_select(ids, combined, tree.n_cols[li],
                                   min(c.topk if last else c.beam, tree.n_cols[li]))
@@ -239,10 +395,24 @@ def level_counts(torch, eng, queries, bucket: int) -> None:
         scores = scores.gather(1, order)
 
 
+def log_profile(what: str, wall: float, acts: int, busy_us: float, rows, gpu: str,
+                top: int) -> None:
+    if not busy_us:
+        log(f"  profile of {what}: no device time recorded (device breakdown not measured)")
+        return
+    log(f"  profile of {what} (profiler on): wall {1e3 * wall:.3f} ms, {acts} device "
+        f"activities, device busy {busy_us / 1e3:.3f} ms = {100 * busy_us / (1e6 * wall):.1f}% "
+        f"of wall  [{gpu}]")
+    for dev_us, count, key in rows[:top]:
+        log(f"    {dev_us / 1e3:9.4f} ms {100 * dev_us / busy_us:5.1f}%  x{count:<4d} {key[:90]}")
+
+
 def path(torch, mk, gpu: str):
-    """Phase 5: the main path at the search-1m geometry."""
+    """Phase 5: the batch path at the search-1m geometry. Returns the grouped
+    kernel's launches, the tree and the queries."""
     from repro_torch.data.build import build_benchmark_tree
     from repro_torch.data.xmr_data import XMRShape, benchmark_queries
+    from repro_torch.parity import check_ranking
     from repro_torch.serving import ServeConfig, XMRServingEngine
 
     # The README's enterprise serving model (examples/serve_search.py).
@@ -255,8 +425,7 @@ def path(torch, mk, gpu: str):
         f"R={tree.layers[-1].chunk_vals.shape[1]}, "
         f"{tree.memory_bytes() / 1e9:.3f} GB chunk tiles, in {time.perf_counter() - t0:.1f} s (host)")
     queries = benchmark_queries(shape, 256, rng)
-    cfg = dict(beam=10, topk=10, ell_width=256, max_batch=64)
-    eng = XMRServingEngine(tree, ServeConfig(method="auto", **cfg))
+    eng = XMRServingEngine(tree, ServeConfig(method="auto", **SERVE))
     if eng.method != "mscm_pallas_grouped":
         raise AssertionError(f"method='auto' resolved to {eng.method!r} on the GPU")
     eng.warmup(shape.d, batch_sizes=(64,))
@@ -267,7 +436,7 @@ def path(torch, mk, gpu: str):
     s, l = eng.serve_batch(queries)
     wall = time.perf_counter() - t0
     launches = mk.GROUPED_LAUNCHES
-    n_batches = -(-queries.shape[0] // cfg["max_batch"])
+    n_batches = -(-queries.shape[0] // SERVE["max_batch"])
     if launches != tree.depth * n_batches:
         raise AssertionError(f"{launches} grouped launches, want {tree.depth * n_batches}")
     peak = torch.cuda.max_memory_allocated()
@@ -279,13 +448,13 @@ def path(torch, mk, gpu: str):
     n = queries.shape[0]
     med = float(np.median(walls))
     log(f"  serve_batch {n} queries (method=auto -> {eng.method}, {n_batches} batches of "
-        f"{cfg['max_batch']}): {launches} grouped launches; wall s per call "
+        f"{SERVE['max_batch']}): {launches} grouped launches; wall s per call "
         f"{[round(w, 6) for w in walls]}; median {1e3 * med / n:.5f} ms/query amortized, "
         f"{n / med:.1f} QPS, peak device memory {peak / 1e9:.3f} GB  [{gpu}]")
     if s.shape != (n, 10) or not np.isfinite(s).all():
         raise AssertionError(f"bad scores: shape {s.shape}")
 
-    dense = XMRServingEngine(tree, ServeConfig(method="mscm_dense", **cfg))
+    dense = XMRServingEngine(tree, ServeConfig(method="mscm_dense", **SERVE))
     s_d, l_d = dense.serve_batch(queries)
     t0 = time.perf_counter()
     dense.serve_batch(queries)
@@ -295,45 +464,108 @@ def path(torch, mk, gpu: str):
         f"{float(np.abs(s - s_d).max()):.3e}, {n_diff} near-tie label swaps of {l.size}; "
         f"mscm_dense {1e3 * wall_d / n:.5f} ms/query amortized  [{gpu}]")
 
-    level_counts(torch, eng, queries, cfg["max_batch"])
+    level_counts(torch, eng, queries, SERVE["max_batch"])
 
     # The dense lookup table the path scatters every batch: [64, d+1] f32.
     from repro_torch.core.mscm import scatter_dense
 
-    xi, xv = eng.marshal_rows(queries, np.arange(cfg["max_batch"]), cfg["max_batch"])
-    table_bytes = cfg["max_batch"] * (shape.d + 1) * 4
+    xi, xv = eng.marshal_rows(queries, np.arange(SERVE["max_batch"]), SERVE["max_batch"])
+    table_bytes = SERVE["max_batch"] * (shape.d + 1) * 4
     scatter_ms = time_ms(lambda: scatter_dense(xi, xv, shape.d), reps=10, inner=4)
-    log(f"  scatter_dense of one {cfg['max_batch']}-query batch: {scatter_ms:.5f} ms for a "
+    log(f"  scatter_dense of one {SERVE['max_batch']}-query batch: {scatter_ms:.5f} ms for a "
         f"{table_bytes / 1e9:.3f} GB table (write bound {1e3 * table_bytes / HBM_BYTES_PER_S:.5f} ms)"
         f"  [{gpu}]")
 
     # Where the time goes: device time by kernel over one serve_batch.
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    log_profile("one serve_batch", *device_profile(lambda: eng.serve_batch(queries)), gpu, 14)
+    return launches, tree, queries
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        eng.serve_batch(queries)
-        wall_p = time.perf_counter() - t0
-    rows = []
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
-            continue  # host-side ops; their kernels are listed on their own
-        dev_us = getattr(e, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = getattr(e, "self_cuda_time_total", 0.0)
-        rows.append((dev_us, e.count, e.key))
-    rows.sort(reverse=True)
-    total_us = sum(r[0] for r in rows)
-    if total_us:
-        log(f"  profile of one serve_batch (profiler on): wall {1e3 * wall_p:.3f} ms, "
-            f"{sum(r[1] for r in rows)} device activities, device busy {total_us / 1e3:.3f} ms "
-            f"= {100 * total_us / (1e6 * wall_p):.1f}% of wall  [{gpu}]")
-        for dev_us, count, key in rows[:14]:
-            log(f"    {dev_us / 1e3:9.4f} ms {100 * dev_us / total_us:5.1f}%  x{count:<4d} {key[:90]}")
-    else:
-        log("  profile: no device time recorded (device breakdown not measured)")
-    return launches
+
+def online(torch, mk, gpu: str, tree, queries):
+    """Phase 6: the online setting, one query at a time. Returns the
+    pregather kernel's launches on search-1m and the fused kernel's on
+    search-32k."""
+    from repro_torch.data.build import build_benchmark_tree
+    from repro_torch.data.xmr_data import XMRShape, benchmark_queries
+    from repro_torch.parity import check_ranking
+    from repro_torch.serving import ServeConfig, XMRServingEngine
+
+    n = ONLINE_QUERIES
+
+    def serve(method, t, qs):
+        """An engine for ``method`` on ``t``, warmed at bucket 1 (the online
+        setting's only bucket), then ``n`` queries served one at a time with
+        the launch counts set to 0 just before."""
+        eng = XMRServingEngine(t, ServeConfig(method=method, **SERVE))
+        eng.warmup(t.d)
+        mk.FUSED_LAUNCHES = mk.PREGATHER_LAUNCHES = 0
+        s, l = eng.serve_online(qs, limit=n)
+        counts = (mk.FUSED_LAUNCHES, mk.PREGATHER_LAUNCHES)
+        if s.shape != (n, SERVE["topk"]) or not np.isfinite(s).all():
+            raise AssertionError(f"{method}: bad scores, shape {s.shape}")
+        return eng, s, l, counts
+
+    def expect(method, counts, want):
+        if counts != want:
+            raise AssertionError(f"{method}: (fused, pregather) launches {counts}, want {want}")
+
+    # search-1m: the main path first, then the rest of the panel.
+    runs = {m: serve(m, tree, queries) for m in ONLINE_PANEL}
+    pregather = runs["mscm_pallas"][3][1]
+    expect("mscm_pallas", runs["mscm_pallas"][3], (0, tree.depth * n))
+    expect("mscm_pallas_pregather", runs["mscm_pallas_pregather"][3], (0, tree.depth * n))
+    log(f"  search-1m serve_online {n} queries, method=mscm_pallas: d+1 = {tree.d + 1:,} > "
+        f"VMEM_ROW_LIMIT, so pregather: {pregather} pregather launches, 0 fused  [{gpu}]")
+    # A second pass in reverse order: the host-bound latencies drift with
+    # the order the engines run in, and the two passes show by how much.
+    for method in reversed(ONLINE_PANEL):
+        runs[method][0].serve_online(queries, limit=n)
+    _, s_ref, l_ref, _ = runs["mscm_dense"]
+    p50 = {}
+    for method, (eng, s, l, _) in runs.items():
+        n_diff = check_ranking(s, l, s_ref, l_ref, f"search-1m online {method} vs mscm_dense")
+        passes = np.asarray(eng.stats.per_query_ms).reshape(2, n)
+        p50[method] = np.percentile(passes, 50, axis=1)
+        p99 = np.percentile(passes, 99, axis=1)
+        wall, acts, busy_us, rows = device_profile(
+            lambda: eng.serve_online(queries, limit=PROFILED_QUERIES))
+        log(f"  search-1m online {method}: p50 {p50[method][0]:.5f} / {p50[method][1]:.5f} ms, "
+            f"p99 {p99[0]:.5f} / {p99[1]:.5f} ms per query over {n} (forward / reverse pass); "
+            f"{acts / PROFILED_QUERIES:.1f} device activities and "
+            f"{busy_us / 1e3 / PROFILED_QUERIES:.5f} ms device busy per query "
+            f"({100 * busy_us / (1e6 * wall):.1f}% of the profiled wall of {PROFILED_QUERIES}); "
+            f"max|score diff| vs mscm_dense {float(np.abs(s - s_ref).max()):.3e}, "
+            f"{n_diff} near-tie label swaps  [{gpu}]")
+        if method == "mscm_pallas":
+            log_profile(f"{PROFILED_QUERIES} online queries, mscm_pallas", wall, acts, busy_us,
+                        rows, gpu, 10)
+    ratio = p50["vanilla"] / p50["mscm_pallas"]
+    log(f"  search-1m online p50 vanilla / mscm_pallas = {ratio[0]:.3f} / {ratio[1]:.3f} "
+        f"(forward / reverse pass; the paper reports 7.28 / 0.88 ms = 8.3x on its "
+        f"enterprise model on a CPU)  [{gpu}]")
+
+    # search-32k: the --small model of examples/serve_search.py, whose d + 1
+    # is under VMEM_ROW_LIMIT, so mscm_pallas takes the fused kernel.
+    shape = XMRShape("search-32k", 337_067, 32_768, 10_000, 100, 64)
+    rng = np.random.default_rng(0)
+    t0 = time.perf_counter()
+    tree32 = build_benchmark_tree(shape, 32, rng)
+    torch.cuda.synchronize()
+    log(f"  built {shape.name}: d={shape.d:,} L={shape.L:,} depth {tree32.depth}, "
+        f"R={tree32.layers[-1].chunk_vals.shape[1]}, {tree32.memory_bytes() / 1e9:.3f} GB chunk "
+        f"tiles, in {time.perf_counter() - t0:.1f} s (host)")
+    q32 = benchmark_queries(shape, n, rng)
+    eng, s, l, counts = serve("mscm_pallas", tree32, q32)
+    fused = counts[0]
+    expect("search-32k mscm_pallas", counts, (tree32.depth * n, 0))
+    dense, s_d, l_d, _ = serve("mscm_dense", tree32, q32)
+    n_diff = check_ranking(s, l, s_d, l_d, "search-32k online mscm_pallas vs mscm_dense")
+    st, st_d = eng.latency_summary(), dense.latency_summary()
+    log(f"  search-32k serve_online {n} queries, method=mscm_pallas: {fused} fused launches, "
+        f"0 pregather; p50 {st['p50_ms']:.5f} ms, p99 {st['p99_ms']:.5f} ms per query "
+        f"(mscm_dense p50 {st_d['p50_ms']:.5f}, p99 {st_d['p99_ms']:.5f}); agrees with "
+        f"mscm_dense ({n_diff} near-tie label swaps)  [{gpu}]")
+    return pregather, fused
 
 
 def main() -> int:
@@ -343,7 +575,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.kernels import build
+    from repro_torch.kernels import build, ops
     from repro_torch.kernels import mscm_kernel as mk
 
     t_all = time.perf_counter()
@@ -366,13 +598,16 @@ def main() -> int:
     log(f"  built in {time.perf_counter() - t0:.2f} s")
 
     log("phase kernels")
-    entry = kernel_check(torch, mk, build)
+    grouped = kernel_check(torch, mk)
+    fused, pregather = block_kernel_check(torch, mk, ops)
     log("phase small")
     small_check(torch)
     log("phase path")
-    entry["launches"] = path(torch, mk, gpu)
+    grouped["launches"], tree, queries = path(torch, mk, gpu)
+    log("phase online")
+    pregather["launches"], fused["launches"] = online(torch, mk, gpu, tree, queries)
     log(f"done in {time.perf_counter() - t_all:.1f} s")
-    print(json.dumps({"kernels": [entry]}))
+    print(json.dumps({"kernels": [grouped, fused, pregather]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -2,10 +2,14 @@
 
 Counterpart of ``repro.core.tree``. An :class:`XMRTree` holds one layer of
 chunked tensors per tree level on one device; ``infer`` runs the beam
-search, with each level's masked product through ``mscm_dense`` (gather +
-einsum, the exact oracle) or ``mscm_pallas_grouped`` (the grouped CUDA
-kernel on a GPU, its plain version on the CPU). The method strings are the
-reference's, so one configuration drives both packages.
+search, with each level's masked product through one of the reference's
+methods: ``vanilla`` (per-column baseline), ``mscm_dense`` (gather + einsum,
+the exact oracle), ``mscm_searchsorted`` (binary search, no dense table),
+``mscm_pallas``/``mscm_pallas_pregather`` (the per-block CUDA kernels of the
+online path) or ``mscm_pallas_grouped`` (the grouped CUDA kernel of the
+batch path). Kernels run on a GPU, their plain versions on the CPU. The
+method strings are the reference's, so one configuration drives both
+packages.
 
 Label layout: the children of node p at level l are [p*B, (p+1)*B) at
 level l+1, so chunk id == parent id.
@@ -39,12 +43,14 @@ METHODS = (
 
 #: Methods not ported yet, with the ROADMAP.md item that ports each.
 _UNPORTED = {
-    "vanilla": "queue 1 item 2 (vanilla_columns)",
-    "mscm_searchsorted": "queue 1 item 2 (mscm_searchsorted)",
-    "mscm_pallas": "queue 1 item 6 with queue 2 item 2 (mscm_fused)",
-    "mscm_pallas_pregather": "queue 1 item 6 with queue 2 item 3 (mscm_pregather)",
     "mscm_pallas_grouped_q": "queue 1 item 8 with queue 2 item 4 (mscm_grouped_q)",
 }
+
+#: Methods that read the dense [n, d+1] query table (the others read the
+#: ELL rows and must not allocate it: 1.02 GB at 64 queries and d = 4M).
+_NEEDS_DENSE = (
+    "mscm_dense", "mscm_pallas", "mscm_pallas_pregather", "mscm_pallas_grouped",
+)
 
 
 def check_method(method: str) -> None:
@@ -185,11 +191,48 @@ class XMRTree:
         )
 
 
+def _masked_matmul(
+    layer: TreeLayerArrays,
+    x_idx: torch.Tensor,
+    x_val: torch.Tensor,
+    x_dense: torch.Tensor | None,
+    block_q: torch.Tensor,
+    block_c: torch.Tensor,
+    branching: int,
+    d: int,
+    method: str,
+) -> torch.Tensor:
+    """Dispatch one level's masked product A = M ⊙ (X W) (paper eq. 6)."""
+    if method == "vanilla":
+        return mscm_lib.vanilla_columns(
+            x_idx, x_val, layer.col_rows, layer.col_vals, block_q, block_c, branching, d
+        )
+    if method == "mscm_dense":
+        return mscm_lib.mscm_dense_lookup(
+            x_dense, layer.chunk_rows, layer.chunk_vals, block_q, block_c
+        )
+    if method == "mscm_searchsorted":
+        return mscm_lib.mscm_searchsorted(
+            x_idx, x_val, layer.chunk_rows, layer.chunk_vals, block_q, block_c, d
+        )
+    if method in ("mscm_pallas", "mscm_pallas_pregather"):
+        from repro_torch.kernels import ops
+
+        variant = "pregather" if method.endswith("pregather") else "auto"
+        return ops.mscm_pallas(
+            x_dense, layer.chunk_rows, layer.chunk_vals, block_q, block_c, variant=variant
+        )
+    check_method(method)
+    raise ValueError(f"{method} is dispatched in level_combined, with its epilogue")
+
+
 def level_combined(
     layer: TreeLayerArrays,
     branching: int,
     d: int,
-    x_dense: torch.Tensor,
+    x_idx: torch.Tensor,          # int [n, Q] ELL rows
+    x_val: torch.Tensor,          # f32 [n, Q]
+    x_dense: torch.Tensor | None, # f32 [n, d+1] for the methods that read it
     parent_ids: torch.Tensor,     # int [n, b] chunk ids (already clamped)
     parent_scores: torch.Tensor,  # f32 [n, b]
     *,
@@ -210,9 +253,8 @@ def level_combined(
             x_dense, layer.chunk_rows, layer.chunk_vals, block_q, block_c,
             parent_scores.reshape(-1), qt=qt, mode=score_mode,
         ).reshape(n, b_cur, branching)
-    check_method(method)
-    logits = mscm_lib.mscm_dense_lookup(
-        x_dense, layer.chunk_rows, layer.chunk_vals, block_q, block_c
+    logits = _masked_matmul(
+        layer, x_idx, x_val, x_dense, block_q, block_c, branching, d, method
     ).reshape(n, b_cur, branching)
     return combine_scores(parent_scores, logits, score_mode)
 
@@ -236,7 +278,7 @@ def _tree_infer(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     n = x_idx.shape[0]
     dev = x_idx.device
-    x_dense = mscm_lib.scatter_dense(x_idx, x_val, d)
+    x_dense = mscm_lib.scatter_dense(x_idx, x_val, d) if method in _NEEDS_DENSE else None
     if init_parent_ids is not None:
         # Continuation from an external beam.
         parent_ids = init_parent_ids.to(torch.int64)
@@ -257,7 +299,7 @@ def _tree_infer(
         is_last = li == len(layers) - 1
         next_b = min(topk if is_last else beam, n_cols[li])
         combined = level_combined(
-            layer, branching[li], d, x_dense, chunk_ids, scores,
+            layer, branching[li], d, x_idx, x_val, x_dense, chunk_ids, scores,
             method=method, score_mode=score_mode, qt=qt,
         )
         parent_ids, scores = beam_select(chunk_ids, combined, n_cols[li], next_b)

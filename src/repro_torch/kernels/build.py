@@ -1,6 +1,7 @@
 """Build and load the port's CUDA kernels.
 
-Each ``csrc/<name>.cu`` exposes a plain C interface. At first use it is
+Each ``csrc/<name>.cu`` exposes a plain C interface (one or more entry
+points, listed in :data:`SIGNATURES`). At first use it is
 compiled with ``nvcc`` for ``sm_90a`` into ``build/repro_torch/`` at the
 root of the checkout, under a name that carries a hash of the source and
 flags (so an edited source is rebuilt), and loaded with ``ctypes``. Nothing
@@ -25,11 +26,19 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
-#: argtypes of each kernel's C entry point, by source name.
-SIGNATURES: Dict[str, Tuple[str, tuple]] = {
-    # xg, vals, tile_chunk, ps, out, T, QT, R, B, C, mode, stream
-    "mscm_grouped": ("mscm_grouped_launch", (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P)),
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+#: argtypes of each C entry point, by source name and function name.
+SIGNATURES: Dict[str, Dict[str, tuple]] = {
+    "mscm_grouped": {
+        # xg, vals, tile_chunk, ps, out, T, QT, R, B, C, mode, stream
+        "mscm_grouped_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    },
+    "mscm_block": {
+        # x_dense, rows, vals, block_q, block_c, out, A, Dp, R, B, C, n, dtype, stream
+        "mscm_fused_launch": (_P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _I, _I, _I, _P),
+        # xg, vals, block_c, out, A, R, B, C, dtype, stream
+        "mscm_pregather_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    },
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -89,9 +98,9 @@ def load_library(name: str) -> ctypes.CDLL:
     if lib is None:
         path = build_libraries([name])[name]
         lib = ctypes.CDLL(str(path))
-        fn_name, argtypes = SIGNATURES[name]
-        fn = getattr(lib, fn_name)
-        fn.argtypes = list(argtypes)
-        fn.restype = ctypes.c_int
+        for fn_name, argtypes in SIGNATURES[name].items():
+            fn = getattr(lib, fn_name)
+            fn.argtypes = list(argtypes)
+            fn.restype = ctypes.c_int
         _LIBS[name] = lib
     return lib

@@ -1,15 +1,23 @@
-"""The grouped MSCM kernel for Hopper, and its plain PyTorch version.
+"""The MSCM kernels for Hopper, and their plain PyTorch versions.
 
-Counterpart of the grouped half of ``repro.kernels.mscm_kernel``. The
-kernel (``csrc/mscm_grouped.cu``) replaces the Pallas TPU kernel
-``mscm_grouped``: one [QT, R] x [R, B] product per chunk-major query tile,
-with the beam epilogue (σ(logit) ⊗ parent score, paper eq. 5) fused before
-the store.
+Counterpart of ``repro.kernels.mscm_kernel``. Three kernels, each replacing
+the Pallas TPU kernel of the same name:
 
-:func:`mscm_grouped` takes the plain version for tensors on the CPU and
-launches the CUDA kernel for tensors on a GPU, raising if it cannot; it
-never falls back from one to the other. :data:`GROUPED_LAUNCHES` counts the
-kernel's launches, so a run can show its main path went through it.
+``mscm_grouped``    (``csrc/mscm_grouped.cu``) one [QT, R] x [R, B] product
+                    per chunk-major query tile, with the beam epilogue
+                    (σ(logit) ⊗ parent score, paper eq. 5) fused before the
+                    store: the batch path;
+``mscm_fused``      (``csrc/mscm_block.cu``) one [1, R] x [R, B] product per
+                    chunk-sorted block, gathering the query values from the
+                    dense query row inside the kernel: the online path for
+                    d up to ``ops.VMEM_ROW_LIMIT``;
+``mscm_pregather``  (``csrc/mscm_block.cu``) the same product over query
+                    values gathered beforehand: the online path above it.
+
+Each wrapper takes the plain version for tensors on the CPU and launches
+its CUDA kernel for tensors on a GPU, raising if it cannot; it never falls
+back from one to the other. ``*_LAUNCHES`` count each kernel's launches, so
+a run can show its main path went through it.
 """
 
 from __future__ import annotations
@@ -20,8 +28,13 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-#: Launches of the CUDA kernel since import (or since a caller reset it).
+#: Launches of each CUDA kernel since import (or since a caller reset them).
 GROUPED_LAUNCHES = 0
+FUSED_LAUNCHES = 0
+PREGATHER_LAUNCHES = 0
+
+#: Element types the per-block kernels take, by their code in the C interface.
+BLOCK_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 MODES = {"none": 0, "prod": 1, "logsum": 2}
 
@@ -160,4 +173,147 @@ def _launch(xg_tiles, vals, tile_chunk, parent_scores, mode) -> torch.Tensor:
             f"(T={t}, QT={qt}, R={r}, B={b}, C={c}, mode={mode})"
         )
     GROUPED_LAUNCHES += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# fused and pregather: one [1, R] x [R, B] product per block
+# ---------------------------------------------------------------------------
+
+def _check_block_args(x, vals, block_c, rows=None, block_q=None) -> None:
+    """Checks shared by :func:`mscm_fused` (``x`` = x_dense [n, Dp], with
+    ``rows`` and ``block_q``) and :func:`mscm_pregather` (``x`` = xg [A, R])."""
+    fused = rows is not None
+    if x.dim() != 2 or vals.dim() != 3 or block_c.dim() != 1:
+        raise ValueError(
+            f"expected {'x_dense [n, Dp]' if fused else 'xg [A, R]'}, vals [C, R, B], "
+            f"block_c [A]; got {tuple(x.shape)}, {tuple(vals.shape)}, {tuple(block_c.shape)}"
+        )
+    c, r, _ = vals.shape
+    a = block_c.shape[0]
+    if fused:
+        bad = (rows.dim() != 2 or tuple(rows.shape) != (c, r) or block_q.dim() != 1
+               or block_q.shape[0] != a or x.shape[0] == 0 or x.shape[1] == 0)
+    else:
+        bad = tuple(x.shape) != (a, r)
+    if bad or c == 0:
+        what = f"rows {tuple(rows.shape)}, block_q {tuple(block_q.shape)}, " if fused else ""
+        raise ValueError(
+            f"shape mismatch: x {tuple(x.shape)}, vals {tuple(vals.shape)}, "
+            f"{what}block_c {tuple(block_c.shape)}"
+        )
+    if x.dtype not in BLOCK_DTYPES or vals.dtype != x.dtype:
+        raise TypeError(
+            f"x and vals must both be float32 or both bfloat16; got {x.dtype}, {vals.dtype}"
+        )
+    ids = [block_c] + ([block_q] if fused else [])
+    if any(i.dtype != torch.int64 for i in ids):
+        raise TypeError("block ids must be int64")
+    if fused and rows.dtype != torch.int32:
+        raise TypeError(f"rows must be int32; got {rows.dtype}")
+
+
+def _block_device(tensors, name: str) -> torch.device:
+    devices = {x.device for x in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"tensors on several devices: {sorted(map(str, devices))}")
+    dev = tensors[0].device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name} runs on cpu or cuda tensors; got {dev}")
+    if dev.type == "cuda" and not all(x.is_contiguous() for x in tensors):
+        raise ValueError(f"{name} needs contiguous tensors")
+    return dev
+
+
+def mscm_pregather_plain(
+    xg: torch.Tensor,       # [A, R] pre-gathered query values
+    vals: torch.Tensor,     # [C, R, B]
+    block_c: torch.Tensor,  # int [A]
+) -> torch.Tensor:
+    """The plain PyTorch version: ``einsum("ar,arb->ab")`` in f32 over the
+    chunk tiles, with out-of-range chunk ids clamped as the reference's
+    gather clamps them. Returns f32 [A, B]."""
+    bc = block_c.clamp(0, vals.shape[0] - 1)
+    return torch.einsum("ar,arb->ab", xg.float(), vals[bc].float())
+
+
+def mscm_fused_plain(
+    x_dense: torch.Tensor,  # [n, Dp]
+    rows: torch.Tensor,     # int [C, R]
+    vals: torch.Tensor,     # [C, R, B]
+    block_q: torch.Tensor,  # int [A]
+    block_c: torch.Tensor,  # int [A]
+) -> torch.Tensor:
+    """The plain PyTorch version: gather ``x_dense[q, clip(rows[c])]``, as the
+    reference's ``jnp.take(..., mode="clip")`` does, then contract."""
+    n, dp = x_dense.shape
+    bc = block_c.clamp(0, vals.shape[0] - 1)
+    idx = rows[bc].to(torch.int64).clamp(0, dp - 1)            # [A, R]
+    xg = x_dense[block_q.clamp(0, n - 1)[:, None], idx]         # [A, R]
+    return mscm_pregather_plain(xg, vals, bc)
+
+
+def mscm_fused(
+    x_dense: torch.Tensor,  # f32 or bf16 [n, Dp] (Dp >= d+1; sentinel slot is 0)
+    rows: torch.Tensor,     # int32 [C, R]
+    vals: torch.Tensor,     # same type as x_dense [C, R, B]
+    block_q: torch.Tensor,  # int64 [A]  sorted by block_c for chunk reuse
+    block_c: torch.Tensor,  # int64 [A]
+) -> torch.Tensor:
+    """Per-block ``x_dense[q][rows[c]] [1, R] @ vals[c] [R, B]``, the gather
+    inside the kernel. Returns f32 [A, B]."""
+    _check_block_args(x_dense, vals, block_c, rows, block_q)
+    dev = _block_device([x_dense, rows, vals, block_q, block_c], "mscm_fused")
+    if dev.type == "cpu":
+        return mscm_fused_plain(x_dense, rows, vals, block_q, block_c)
+    return _launch_block(x_dense, vals, block_c, rows, block_q)
+
+
+def mscm_pregather(
+    xg: torch.Tensor,       # f32 or bf16 [A, R] pre-gathered query values
+    vals: torch.Tensor,     # same type as xg [C, R, B]
+    block_c: torch.Tensor,  # int64 [A] sorted
+) -> torch.Tensor:
+    """Per-block ``xg[a] [1, R] @ vals[c] [R, B]``. Returns f32 [A, B]."""
+    _check_block_args(xg, vals, block_c)
+    dev = _block_device([xg, vals, block_c], "mscm_pregather")
+    if dev.type == "cpu":
+        return mscm_pregather_plain(xg, vals, block_c)
+    return _launch_block(xg, vals, block_c)
+
+
+def _launch_block(x, vals, block_c, rows=None, block_q=None) -> torch.Tensor:
+    global FUSED_LAUNCHES, PREGATHER_LAUNCHES
+    from repro_torch.kernels.build import load_library
+
+    c, r, b = vals.shape
+    a = block_c.shape[0]
+    dev = x.device
+    out = torch.empty((a, b), dtype=torch.float32, device=dev)
+    lib = load_library("mscm_block")
+    dtype = BLOCK_DTYPES[x.dtype]
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if rows is not None:
+            name = "mscm_fused"
+            err = lib.mscm_fused_launch(
+                x.data_ptr(), rows.data_ptr(), vals.data_ptr(), block_q.data_ptr(),
+                block_c.data_ptr(), out.data_ptr(), a, x.shape[1], r, b, c, x.shape[0],
+                dtype, stream,
+            )
+        else:
+            name = "mscm_pregather"
+            err = lib.mscm_pregather_launch(
+                x.data_ptr(), vals.data_ptr(), block_c.data_ptr(), out.data_ptr(),
+                a, r, b, c, dtype, stream,
+            )
+    if err != 0:
+        raise RuntimeError(
+            f"{name} launch failed with CUDA error {err} "
+            f"(A={a}, R={r}, B={b}, C={c}, x {tuple(x.shape)} {x.dtype})"
+        )
+    if rows is not None:
+        FUSED_LAUNCHES += 1
+    else:
+        PREGATHER_LAUNCHES += 1
     return out

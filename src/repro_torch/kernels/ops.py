@@ -1,12 +1,13 @@
-"""The grouped MSCM level around the kernel (counterpart of
-``repro.kernels.ops``, grouped path).
+"""The MSCM levels around the kernels (counterpart of ``repro.kernels.ops``).
 
-All index arithmetic stays here, outside the kernel, so the CPU tests reach
-it: :func:`group_blocks_device` packs the active blocks chunk-major into
-QT-row tiles with sorts, searchsorted and gathers; :func:`mscm_grouped_level`
-gathers the query rows into tiles, runs the kernel and restores the block
-order. Tile counts come from shapes only (:func:`grouped_tile_bound`), and
-nothing here reads a value back to the host, so a whole traversal is
+All index arithmetic stays here, outside the kernels, so the CPU tests reach
+it. Online path: :func:`mscm_pallas` sorts the blocks by chunk, runs the
+fused or the pregather kernel and restores the block order. Batch path:
+:func:`group_blocks_device` packs the active blocks chunk-major into QT-row
+tiles with sorts, searchsorted and gathers; :func:`mscm_grouped_level`
+gathers the query rows into tiles, runs the grouped kernel and restores the
+block order. Tile counts come from shapes only (:func:`grouped_tile_bound`),
+and nothing here reads a value back to the host, so a whole traversal is
 enqueued on the GPU without a synchronisation.
 """
 
@@ -16,7 +17,14 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels.mscm_kernel import mscm_grouped
+from repro_torch.core.mscm import gather_query_rows
+from repro_torch.kernels.mscm_kernel import mscm_fused, mscm_grouped, mscm_pregather
+
+# The reference's switch between its fused and pregather kernels: a dense
+# query row wider than this many elements would not fit the TPU's VMEM.
+# Nothing on this card needs the switch; it is kept so that one
+# configuration reaches the same kernel in both packages.
+VMEM_ROW_LIMIT = 1 << 20
 
 # Query-tile height of the grouped kernel: rows per [QT, R] x [R, B] product.
 DEFAULT_QT = 8
@@ -31,6 +39,40 @@ def sort_blocks_by_chunk(block_q: torch.Tensor, block_c: torch.Tensor):
 def unsort(out_sorted: torch.Tensor, order: torch.Tensor) -> torch.Tensor:
     """Undo a permutation by gathering through its inverse."""
     return out_sorted[torch.argsort(order)]
+
+
+def mscm_pallas(
+    x_dense: torch.Tensor,   # f32 or bf16 [n, Dp]
+    rows: torch.Tensor,      # int32 [C, R]
+    vals: torch.Tensor,      # same type as x_dense [C, R, B]
+    block_q: torch.Tensor,   # int [A]
+    block_c: torch.Tensor,   # int [A]
+    *,
+    variant: str = "auto",
+    sort: bool = True,
+) -> torch.Tensor:
+    """Masked chunk multiplication through the per-block kernels. Returns
+    f32 [A, B] in the original block order.
+
+    ``variant``: ``fused`` gathers the query values inside the kernel,
+    ``pregather`` gathers them first; ``auto`` picks by the reference's rule
+    (fused up to :data:`VMEM_ROW_LIMIT` columns of ``x_dense``). ``sort``
+    evaluates the blocks in chunk order (paper §4), a pure schedule change.
+    """
+    if variant == "auto":
+        variant = "fused" if x_dense.shape[1] <= VMEM_ROW_LIMIT else "pregather"
+    if variant not in ("fused", "pregather"):
+        raise ValueError(f"unknown variant {variant}")
+    block_q, block_c = block_q.to(torch.int64), block_c.to(torch.int64)
+    if sort:
+        bq, bc, order = sort_blocks_by_chunk(block_q, block_c)
+    else:
+        bq, bc, order = block_q, block_c, None
+    if variant == "fused":
+        out = mscm_fused(x_dense, rows, vals, bq, bc)
+    else:
+        out = mscm_pregather(gather_query_rows(x_dense, rows, bq, bc), vals, bc)
+    return unsort(out, order) if order is not None else out
 
 
 def grouped_tile_bound(a: int, qt: int, num_chunks: int) -> int:

@@ -1,4 +1,4 @@
-"""PyTorch port on a GPU: the CUDA kernel and the traversal on the card.
+"""PyTorch port on a GPU: the CUDA kernels and the traversal on the card.
 
 Every test here needs a CUDA device and ``nvcc`` and skips without one
 (from its fixture). The file imports nothing of JAX, so it runs on a GPU
@@ -6,8 +6,10 @@ machine that has only the port's dependencies:
 
     PYTHONPATH=src python -m pytest tests/test_torch_cuda.py -q
 
-The kernel is held against its plain version; the traversal on the card
-against the same traversal on the CPU.
+Each kernel is held against its plain version; the traversal on the card
+against the same traversal on the CPU, by the ranking rule of
+``repro_torch.parity`` (scores within rtol 1e-5 / atol 1e-6, labels equal
+outside near-ties).
 """
 
 import numpy as np
@@ -16,10 +18,14 @@ import torch
 
 from repro_torch.core.tree import XMRTree
 from repro_torch.kernels import mscm_kernel as tk
+from repro_torch.kernels import ops
+from repro_torch.parity import check_ranking
 from repro_torch.sparse.csr import random_sparse_csc, random_sparse_csr
 
 # R-term f32 sums in different orders (see chip_smoke.py).
 KERNEL_RTOL, KERNEL_ATOL = 1e-5, 1e-4
+# bf16 inputs: the tolerance the reference's dtype sweep uses.
+BF16_TOL = 2e-2
 
 
 @pytest.fixture
@@ -65,5 +71,73 @@ def test_traversal_on_card_matches_cpu(cuda_device, score_mode):
     s1, l1 = gpu.infer(xi, xv, beam=10, topk=5, method="mscm_pallas_grouped",
                        score_mode=score_mode, qt=4)
     assert tk.GROUPED_LAUNCHES == before + gpu.depth
-    torch.testing.assert_close(s1.cpu(), s0, rtol=1e-5, atol=1e-6)
-    assert torch.equal(l1.cpu(), l0)
+    check_ranking(s1.cpu().numpy(), l1.cpu().numpy(), s0.numpy(), l0.numpy(), "grouped")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [  # (A, n, Dp, R, B, C)
+    (10, 1, 5000, 496, 32, 300), (640, 64, 900, 96, 32, 40), (1, 1, 50, 8, 6, 3),
+    (3, 2, 90, 1100, 70, 4), (5, 2, 70, 37, 8, 3),
+])
+def test_block_kernels_match_plain(cuda_device, shape, dtype):
+    a, n, dp, r, b, c = shape
+    g = torch.Generator().manual_seed(1)
+    x = torch.rand(n, dp, generator=g).to(dtype)
+    rows = torch.randint(0, dp + 3, (c, r), generator=g, dtype=torch.int32)  # some clipped
+    vals = torch.randn(c, r, b, generator=g).to(dtype)
+    bq = torch.randint(0, n, (a,), generator=g)
+    bc = torch.sort(torch.randint(0, c + 1, (a,), generator=g)).values  # c is clamped
+    x, rows, vals, bq, bc = (t.to(cuda_device) for t in (x, rows, vals, bq, bc))
+    tol = dict(rtol=KERNEL_RTOL, atol=KERNEL_ATOL) if dtype == torch.float32 else dict(
+        rtol=BF16_TOL, atol=BF16_TOL)
+    before = tk.FUSED_LAUNCHES
+    got = tk.mscm_fused(x, rows, vals, bq, bc)
+    assert tk.FUSED_LAUNCHES == before + 1
+    torch.testing.assert_close(got, tk.mscm_fused_plain(x, rows, vals, bq, bc), **tol)
+    xg = x[bq[:, None], rows[bc.clamp(max=c - 1)].long().clamp(max=dp - 1)]
+    before = tk.PREGATHER_LAUNCHES
+    got = tk.mscm_pregather(xg, vals, bc)
+    assert tk.PREGATHER_LAUNCHES == before + 1
+    torch.testing.assert_close(got, tk.mscm_pregather_plain(xg, vals, bc), **tol)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["fused", "pregather"])
+def test_mscm_pallas_unsorted_on_card(cuda_device, variant):
+    g = torch.Generator().manual_seed(2)
+    x = torch.rand(4, 300, generator=g)
+    rows = torch.randint(0, 300, (6, 40), generator=g, dtype=torch.int32)
+    vals = torch.randn(6, 40, 16, generator=g)
+    bq, bc = torch.randint(0, 4, (12,), generator=g), torch.randint(0, 6, (12,), generator=g)
+    want = ops.mscm_pallas(x, rows, vals, bq, bc, variant=variant, sort=False)
+    x, rows, vals, bq, bc = (t.to(cuda_device) for t in (x, rows, vals, bq, bc))
+    for sort in (False, True):
+        got = ops.mscm_pallas(x, rows, vals, bq, bc, variant=variant, sort=sort)
+        torch.testing.assert_close(got.cpu(), want, rtol=KERNEL_RTOL, atol=KERNEL_ATOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("score_mode", ["prod", "logsum"])
+@pytest.mark.parametrize("method", ["mscm_pallas", "mscm_pallas_pregather", "vanilla",
+                                    "mscm_searchsorted"])
+def test_online_traversal_on_card_matches_cpu(cuda_device, method, score_mode):
+    rng = np.random.default_rng(4321)
+    d, B = 150, 8
+    ws = [random_sparse_csc(d, L, 10, rng, sibling_groups=B) for L in (8, 64, 512)]
+    x = random_sparse_csr(6, d, 18, rng)
+    xi, xv = (torch.from_numpy(a) for a in x.to_ell())
+    cpu = XMRTree.from_weight_matrices(ws, B, device="cpu")
+    gpu = XMRTree.from_weight_matrices(ws, B)
+    for i in range(xi.shape[0]):  # one query at a time, as the online setting runs
+        q = slice(i, i + 1)
+        s0, l0 = cpu.infer(xi[q], xv[q], beam=10, topk=5, method=method, score_mode=score_mode)
+        fused, pregather = tk.FUSED_LAUNCHES, tk.PREGATHER_LAUNCHES
+        s1, l1 = gpu.infer(xi[q], xv[q], beam=10, topk=5, method=method,
+                           score_mode=score_mode)
+        if method == "mscm_pallas":  # d + 1 columns: under the limit, so fused
+            assert (tk.FUSED_LAUNCHES, tk.PREGATHER_LAUNCHES) == (fused + gpu.depth, pregather)
+        if method == "mscm_pallas_pregather":
+            assert (tk.FUSED_LAUNCHES, tk.PREGATHER_LAUNCHES) == (fused, pregather + gpu.depth)
+        check_ranking(s1.cpu().numpy(), l1.cpu().numpy(), s0.numpy(), l0.numpy(), method)

@@ -1,12 +1,13 @@
 """PyTorch port, MSCM kernels and the grouped level around them.
 
 The reference's functions and the port's run on the same seeded inputs.
-Integer outputs (tile bounds, the four grouping outputs, host grouping) are
-compared bitwise; f32 results within ``rtol=1e-5, atol=1e-6``. The
-reference's grouped Pallas kernel runs in interpret mode; the port's
-wrapper takes its plain version because the tensors lie on the CPU. The
-CUDA kernel itself is held against the plain version on a GPU by
-``test_torch_cuda.py``.
+Integer outputs (tile bounds, the four grouping outputs, host grouping,
+cost counters) are compared bitwise; f32 results within ``rtol=1e-5,
+atol=1e-6`` (the tolerance ``test_kernels.py`` uses), bf16 inputs within
+``2e-2`` as there. The reference's Pallas kernels run in interpret mode; the
+port's wrappers take their plain versions because the tensors lie on the
+CPU. The CUDA kernels themselves are held against the plain versions on a
+GPU by ``test_torch_cuda.py``.
 """
 
 import jax
@@ -16,7 +17,8 @@ import pytest
 import torch
 
 from repro.core import mscm as JM
-from repro.core.chunked import ChunkedLayer
+from repro.core.chunked import ChunkedLayer, ColumnELLLayer
+from repro.kernels import mscm_kernel as jk
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.kernels.mscm_kernel import group_blocks_by_chunk as j_group_host
@@ -31,16 +33,26 @@ RTOL, ATOL = 1e-5, 1e-6
 T = torch.from_numpy
 
 
-def _mk(seed, n=6, d=90, C=5, B=8, nnz_w=8, nnz_x=10, A=13):
+def _mk(seed, n=6, d=90, C=5, B=8, nnz_w=8, nnz_x=10, A=13, L=None):
+    """Seeded inputs; ``L`` columns (default C*B) with L % B != 0 make a
+    ragged layer, whose column layout has phantom columns."""
     rng = np.random.default_rng(seed)
-    w = random_sparse_csc(d, C * B, nnz_w, rng, sibling_groups=B)
+    w = random_sparse_csc(d, L or C * B, nnz_w, rng, sibling_groups=B)
     ch = ChunkedLayer.from_csc(w, B)
+    col = ColumnELLLayer.from_csc(w, B)
     x = random_sparse_csr(n, d, nnz_x, rng)
     xi, xv = x.to_ell()
     bq = rng.integers(0, n, size=A).astype(np.int32)
-    bc = rng.integers(0, C, size=A).astype(np.int32)
+    bc = rng.integers(0, ch.C, size=A).astype(np.int32)
     ps = rng.random(A).astype(np.float32)
-    return dict(xi=xi, xv=xv, d=d, rows=ch.rows, vals=ch.vals, bq=bq, bc=bc, ps=ps)
+    return dict(xi=xi, xv=xv, d=d, rows=ch.rows, vals=ch.vals, bq=bq, bc=bc, ps=ps,
+                col_rows=col.rows, col_vals=col.vals, B=B, w=w)
+
+
+def _dense(m):
+    """The dense query table of ``m`` in both packages."""
+    return (JM.scatter_dense(jnp.asarray(m["xi"]), jnp.asarray(m["xv"]), m["d"]),
+            TM.scatter_dense(T(m["xi"]), T(m["xv"]), m["d"]))
 
 
 def test_scatter_dense_bitwise():
@@ -165,3 +177,227 @@ def test_grouped_wrapper_rejects_bad_arguments():
     with pytest.raises(ValueError, match="parent_scores"):
         tk.mscm_grouped(xg, vals, tc, torch.zeros(2, 3), mode="prod")
 
+
+
+# ---------------------------------------------------------------------------
+# The online path: fused and pregather kernels, mscm_pallas
+# ---------------------------------------------------------------------------
+
+def _sorted_blocks(m):
+    order = np.argsort(m["bc"], kind="stable")
+    return m["bq"][order], m["bc"][order]
+
+
+@pytest.mark.parametrize("seed", [30, 31])
+def test_fused_plain_matches_pallas_interpret(seed):
+    m = _mk(seed, A=17)
+    xd_j, xd_t = _dense(m)
+    bq, bc = _sorted_blocks(m)
+    want = jk.mscm_fused(xd_j, jnp.asarray(m["rows"]), jnp.asarray(m["vals"]),
+                         jnp.asarray(bq), jnp.asarray(bc), interpret=True)
+    before = tk.FUSED_LAUNCHES
+    got = tk.mscm_fused(xd_t, T(m["rows"]), T(m["vals"]), T(bq).long(), T(bc).long())
+    assert tk.FUSED_LAUNCHES == before  # CPU tensors never launch the kernel
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL, atol=ATOL)
+    np.testing.assert_array_equal(
+        got.numpy(), tk.mscm_fused_plain(xd_t, T(m["rows"]), T(m["vals"]), T(bq), T(bc)).numpy())
+
+
+@pytest.mark.parametrize("seed", [32, 33])
+def test_pregather_plain_matches_pallas_interpret(seed):
+    m = _mk(seed, A=17)
+    xd_j, xd_t = _dense(m)
+    bq, bc = _sorted_blocks(m)
+    xg_j = JM.gather_query_rows(xd_j, jnp.asarray(m["rows"]), jnp.asarray(bq), jnp.asarray(bc))
+    xg_t = TM.gather_query_rows(xd_t, T(m["rows"]), T(bq), T(bc))
+    want = jk.mscm_pregather(xg_j, jnp.asarray(m["vals"]), jnp.asarray(bc), interpret=True)
+    before = tk.PREGATHER_LAUNCHES
+    got = tk.mscm_pregather(xg_t, T(m["vals"]), T(bc).long())
+    assert tk.PREGATHER_LAUNCHES == before
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL, atol=ATOL)
+
+
+def test_fused_clips_rows_and_clamps_ids():
+    """Row indices past the table are clipped to its last column and block
+    ids past the last query or chunk are clamped, as the reference's gathers
+    clip and clamp."""
+    m = _mk(34, C=3, A=6)
+    xd_j, xd_t = _dense(m)
+    rows = m["rows"].copy()
+    rows[0, :3] = m["d"] + 7
+    x = np.asarray(xd_j).copy()
+    x[:, -1] = 0.5  # a nonzero last column makes the clip visible
+    bq = np.array([0, 1, 2, 3, 5, 5], np.int32)
+    bc = np.array([0, 0, 1, 2, 2, 2], np.int32)
+    want = jk.mscm_fused(jnp.asarray(x), jnp.asarray(rows), jnp.asarray(m["vals"]),
+                         jnp.asarray(bq), jnp.asarray(bc), interpret=True)
+    got = tk.mscm_fused(T(x), T(rows), T(m["vals"]), T(bq).long(), T(bc).long())
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL, atol=ATOL)
+    bq_past, bc_past = T(bq).long() + 10, T(bc).long() + 10
+    np.testing.assert_array_equal(
+        tk.mscm_fused(T(x), T(rows), T(m["vals"]), bq_past, bc_past).numpy(),
+        tk.mscm_fused(T(x), T(rows), T(m["vals"]), torch.full_like(bq_past, 5),
+                      torch.full_like(bc_past, 2)).numpy())
+
+
+@pytest.mark.parametrize("variant", ["fused", "pregather"])
+@pytest.mark.parametrize("sort", [True, False])
+def test_mscm_pallas_matches_reference(variant, sort):
+    m = _mk(40 + sort, n=5, d=96, C=6, B=4, A=12)
+    xd_j, xd_t = _dense(m)
+    want = jops.mscm_pallas(xd_j, *[jnp.asarray(m[k]) for k in ("rows", "vals", "bq", "bc")],
+                            variant=variant, sort=sort, interpret=True)
+    got = tops.mscm_pallas(xd_t, *[T(m[k]) for k in ("rows", "vals", "bq", "bc")],
+                           variant=variant, sort=sort)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(
+        got.numpy(), np.asarray(jref.mscm_ref(xd_j, *[jnp.asarray(m[k]) for k in
+                                                      ("rows", "vals", "bq", "bc")])),
+        rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("variant", ["fused", "pregather"])
+def test_mscm_pallas_duplicate_chunks(variant):
+    """Many queries hitting the same chunk (the revisit fast path)."""
+    m = _mk(42, n=8, d=80, C=3, B=8)
+    xd_j, xd_t = _dense(m)
+    bq, bc = np.arange(8, dtype=np.int32), np.zeros(8, np.int32)
+    want = jops.mscm_pallas(xd_j, jnp.asarray(m["rows"]), jnp.asarray(m["vals"]),
+                            jnp.asarray(bq), jnp.asarray(bc), variant=variant, interpret=True)
+    got = tops.mscm_pallas(xd_t, T(m["rows"]), T(m["vals"]), T(bq), T(bc), variant=variant)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL, atol=ATOL)
+
+
+def _bf16(x):
+    """numpy f32 -> (jax bf16, torch bf16), rounded by each framework."""
+    xj = jnp.asarray(x).astype(jnp.bfloat16)
+    xt = T(np.array(x, np.float32)).to(torch.bfloat16)
+    np.testing.assert_array_equal(np.asarray(xj).view(np.uint16),
+                                  xt.view(torch.int16).numpy().view(np.uint16))
+    return xj, xt
+
+
+@pytest.mark.parametrize("variant", ["fused", "pregather"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mscm_pallas_dtype_sweep(variant, dtype):
+    """bf16 query table and weights (mirrors ``test_kernels.py``'s sweep):
+    products and sums in f32, f32 output."""
+    m = _mk(43, n=4, d=64, C=3, B=8, nnz_w=6, nnz_x=8, A=8)
+    xd_j, xd_t = _dense(m)
+    vals_j, vals_t = jnp.asarray(m["vals"]), T(m["vals"])
+    if dtype == "bfloat16":
+        xd_j, xd_t = _bf16(np.asarray(xd_j))
+        vals_j, vals_t = _bf16(m["vals"])
+    args_j = (jnp.asarray(m["rows"]), vals_j, jnp.asarray(m["bq"]), jnp.asarray(m["bc"]))
+    want = np.asarray(jref.mscm_ref(xd_j.astype(jnp.float32), args_j[0],
+                                    vals_j.astype(jnp.float32), *args_j[2:]))
+    ref = np.asarray(jops.mscm_pallas(xd_j, *args_j, variant=variant, interpret=True),
+                     np.float32)
+    got = tops.mscm_pallas(xd_t, T(m["rows"]), vals_t, T(m["bq"]), T(m["bc"]),
+                           variant=variant)
+    assert got.dtype == torch.float32
+    tol = 1e-5 if dtype == "float32" else 2e-2
+    np.testing.assert_allclose(got.numpy(), want, rtol=tol, atol=tol)
+    np.testing.assert_allclose(got.numpy(), ref, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("above", [False, True])
+def test_auto_variant_switch_at_vmem_row_limit(monkeypatch, above):
+    """``variant="auto"`` picks the kernel by the reference's rule: fused up
+    to ``VMEM_ROW_LIMIT`` columns of the table, pregather above it."""
+    m = _mk(44)
+    xd_j, xd_t = _dense(m)
+    dp = xd_t.shape[1]
+    calls = []
+
+    def spy(module, name, tag):
+        fn = getattr(module, name)
+        monkeypatch.setattr(module, name, lambda *a, **k: calls.append(tag) or fn(*a, **k))
+
+    for module, tag in ((jops, "ref"), (tops, "port")):
+        monkeypatch.setattr(module, "VMEM_ROW_LIMIT", dp - 1 if above else dp)
+        spy(module, "mscm_fused", (tag, "fused"))
+        spy(module, "mscm_pregather", (tag, "pregather"))
+    # The unjitted reference, so that the patched limit and spies are read.
+    want = jops.mscm_pallas.__wrapped__(
+        xd_j, *[jnp.asarray(m[k]) for k in ("rows", "vals", "bq", "bc")], interpret=True)
+    got = tops.mscm_pallas(xd_t, *[T(m[k]) for k in ("rows", "vals", "bq", "bc")])
+    variant = "pregather" if above else "fused"
+    assert calls == [("ref", variant), ("port", variant)]
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL, atol=ATOL)
+    with pytest.raises(ValueError, match="variant"):
+        tops.mscm_pallas(xd_t, *[T(m[k]) for k in ("rows", "vals", "bq", "bc")],
+                         variant="tiled")
+
+
+def test_block_wrappers_reject_bad_arguments():
+    x, rows, vals = torch.zeros(2, 10), torch.zeros(3, 8, dtype=torch.int32), torch.zeros(3, 8, 6)
+    bq = bc = torch.zeros(4, dtype=torch.int64)
+    with pytest.raises(TypeError):
+        tk.mscm_fused(x, rows, vals, bq.int(), bc)
+    with pytest.raises(TypeError):
+        tk.mscm_fused(x, rows.long(), vals, bq, bc)
+    with pytest.raises(TypeError):
+        tk.mscm_fused(x.bfloat16(), rows, vals, bq, bc)
+    with pytest.raises(TypeError):
+        tk.mscm_fused(x.double(), rows, vals.double(), bq, bc)
+    with pytest.raises(ValueError, match="shape"):
+        tk.mscm_fused(x, rows[:, :7], vals, bq, bc)
+    with pytest.raises(ValueError, match="shape"):
+        tk.mscm_fused(x, rows, vals, bq[:3], bc)
+    with pytest.raises(ValueError, match="shape"):
+        tk.mscm_pregather(torch.zeros(4, 7), vals, bc)
+    with pytest.raises(TypeError):
+        tk.mscm_pregather(torch.zeros(4, 8), vals, bc.int())
+    with pytest.raises(ValueError, match="expected"):
+        tk.mscm_pregather(torch.zeros(4, 8), vals[0], bc)
+
+
+# ---------------------------------------------------------------------------
+# The plain-tensor methods: searchsorted, vanilla, cost counters
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("case", ["uniform", "ragged"])
+def test_searchsorted_and_vanilla_match_reference(case):
+    """Against the reference and the dense oracle. The ragged layer (L % B
+    != 0) has phantom columns, and its block list names chunks past the
+    last, which both packages clamp."""
+    if case == "uniform":
+        m = _mk(50, n=6, d=120, C=5, B=8, nnz_w=10, nnz_x=15, A=12)
+    else:
+        m = _mk(51, n=6, d=100, C=6, B=8, nnz_w=9, nnz_x=14, A=14, L=43)
+        m["bc"][:3] = [6, 7, 9]  # 6 chunks: past the last one
+    d, B = m["d"], m["B"]
+    xi_j, xv_j = jnp.asarray(m["xi"]), jnp.asarray(m["xv"])
+    xi_t, xv_t = T(m["xi"]), T(m["xv"])
+    ids_j = [jnp.asarray(m[k]) for k in ("bq", "bc")]
+    ids_t = [T(m[k]) for k in ("bq", "bc")]
+    want_ss = JM.mscm_searchsorted(xi_j, xv_j, jnp.asarray(m["rows"]), jnp.asarray(m["vals"]),
+                                   *ids_j, d)
+    got_ss = TM.mscm_searchsorted(xi_t, xv_t, T(m["rows"]), T(m["vals"]), *ids_t, d)
+    np.testing.assert_allclose(got_ss.numpy(), np.asarray(want_ss), rtol=RTOL, atol=ATOL)
+    want_v = JM.vanilla_columns(xi_j, xv_j, jnp.asarray(m["col_rows"]),
+                                jnp.asarray(m["col_vals"]), *ids_j, B, d)
+    got_v = TM.vanilla_columns(xi_t, xv_t, T(m["col_rows"]), T(m["col_vals"]), *ids_t, B, d)
+    np.testing.assert_allclose(got_v.numpy(), np.asarray(want_v), rtol=RTOL, atol=ATOL)
+    # Within range all three iterators compute the same product.
+    xd_t = TM.scatter_dense(xi_t, xv_t, d)
+    ok = m["bc"] < m["rows"].shape[0]
+    dense = TM.mscm_dense_lookup(xd_t, T(m["rows"]), T(m["vals"]), *ids_t).numpy()
+    np.testing.assert_allclose(got_ss.numpy()[ok], dense[ok], rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(got_v.numpy()[ok], dense[ok], rtol=RTOL, atol=ATOL)
+
+
+def test_cost_counters_equal():
+    for method in ("marching", "binsearch", "searchsorted", "hash", "dense", "dense_lookup"):
+        for nnz_x, nnz_k, n in ((10, 1000, 1), (1000, 10, 100), (0, 0, 0), (4, 1024, 3)):
+            assert (TM.iterator_cost(method, nnz_x, nnz_k, n_queries=n)
+                    == JM.iterator_cost(method, nnz_x, nnz_k, n_queries=n))
+    with pytest.raises(ValueError):
+        TM.iterator_cost("bogus", 1, 1)
+    rng = np.random.default_rng(52)
+    w = random_sparse_csc(256, 32, 16, rng, sibling_groups=32, sibling_overlap=0.9)
+    ch = ChunkedLayer.from_csc(w, 32)
+    got = TM.chunk_vs_column_traversals(ch.R, w.col_nnz(), 32)
+    assert got == JM.chunk_vs_column_traversals(ch.R, w.col_nnz(), 32)
+    assert got[0] < got[1]

@@ -3,8 +3,8 @@
 Both engines get the same ``ServeConfig`` knobs, weights and queries and
 serve them in the batch and online settings; results agree under the rule
 of ``test_torch_tree.py`` (scores within ``rtol=1e-5, atol=1e-6``, labels
-equal wherever the reference's score gap exceeds that). Options this slice
-does not port raise ``NotImplementedError``.
+equal wherever the reference's score gap exceeds that). Options and methods
+not ported yet raise ``NotImplementedError``.
 """
 
 import numpy as np
@@ -19,7 +19,7 @@ from repro_torch.core.tree import XMRTree
 from repro_torch.serving import LatencyStats, ServeConfig, XMRServingEngine, resolve_method
 from repro_torch.sparse.csr import CSR
 from tests.conftest import make_tree_weights
-from tests.test_torch_tree import assert_same_ranking, port_csc
+from tests.test_torch_tree import ONLINE_METHODS, assert_same_ranking, port_csc
 
 KNOBS = dict(beam=10, topk=5, ell_width=32, max_batch=16)
 
@@ -75,6 +75,32 @@ def test_serve_online_matches_batch_and_reference(setup):
     assert summary["count"] == 5 and summary["amortized"]["calls"] == 1
 
 
+@pytest.mark.parametrize("method", ONLINE_METHODS)
+def test_serve_online_methods_match_reference(setup, method):
+    """The online setting (bucket 1) through each method, in both packages."""
+    jt, tt, xq, tq, perm = setup
+    ref = JEngine(jt, JConfig(method=method, **KNOBS), label_perm=perm)
+    eng = XMRServingEngine(tt, ServeConfig(method=method, **KNOBS), label_perm=perm,
+                           device="cpu")
+    eng.warmup(tt.d)
+    s_j, l_j = ref.serve_online(xq, limit=4)
+    s_t, l_t = eng.serve_online(tq, limit=4)
+    assert_same_ranking(s_t, l_t, s_j, l_j)
+    assert eng.latency_summary()["count"] == 4
+
+
+@pytest.mark.parametrize("method", ONLINE_METHODS)
+def test_serve_batch_methods_match_reference(setup, method):
+    jt, tt, xq, tq, perm = setup
+    ref = JEngine(jt, JConfig(method=method, **KNOBS), label_perm=perm)
+    eng = XMRServingEngine(tt, ServeConfig(method=method, **KNOBS), label_perm=perm,
+                           device="cpu")
+    xs = xq.slice_rows(np.arange(20))
+    s_j, l_j = ref.serve_batch(xs)
+    s_t, l_t = eng.serve_batch(port_csr(xs))
+    assert_same_ranking(s_t, l_t, s_j, l_j)
+
+
 def test_warmup_and_probe_run(setup):
     _, tt, _, _, _ = setup
     eng = XMRServingEngine(tt, ServeConfig(method="mscm_pallas_grouped", **KNOBS), device="cpu")
@@ -107,8 +133,7 @@ def test_unported_options_raise(kwargs):
         ServeConfig(**kwargs)
 
 
-@pytest.mark.parametrize("method", ["vanilla", "mscm_searchsorted", "mscm_pallas",
-                                    "mscm_pallas_pregather", "mscm_pallas_grouped_q"])
+@pytest.mark.parametrize("method", ["mscm_pallas_grouped_q"])
 def test_unported_methods_raise_at_engine_build(setup, method):
     _, tt, _, _, _ = setup
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):

@@ -1,11 +1,11 @@
 """PyTorch port, tree inference: the port's beam search against the reference.
 
-Both packages score the same queries on the same weights. The port runs on
-the CPU (the grouped kernel's plain version); the reference's grouped
-kernel runs in Pallas interpret mode, as its own tests run it. Scores agree
-within ``rtol=1e-5, atol=1e-6`` (the tolerance ``test_tree.py`` uses across
-methods); labels agree wherever the reference's score gap to a neighbour
-exceeds that tolerance.
+Both packages score the same queries on the same weights, through the same
+method. The port runs on the CPU (each kernel's plain version); the
+reference's Pallas kernels run in interpret mode, as its own tests run them.
+Scores agree within ``rtol=1e-5, atol=1e-6`` (the tolerance ``test_tree.py``
+uses across methods); labels agree wherever the reference's score gap to a
+neighbour exceeds that tolerance (``repro_torch.parity.check_ranking``).
 """
 
 import jax.numpy as jnp
@@ -16,24 +16,14 @@ import torch
 from repro.core import XMRTree as JTree
 from repro.sparse import random_sparse_csc, random_sparse_csr
 from repro_torch.convert import LAYER_FIELDS, tree_from_numpy
+from repro_torch.core import mscm as TM
 from repro_torch.core.tree import XMRTree
+from repro_torch.parity import check_ranking as assert_same_ranking
 from repro_torch.sparse.csr import CSC
 from tests.conftest import brute_force_scores, make_tree_weights
 
-RTOL, ATOL = 1e-5, 1e-6
-
-
-def assert_same_ranking(s, l, s_ref, l_ref, rtol=RTOL, atol=ATOL):
-    """Scores within tolerance; labels equal wherever the reference's score
-    gap to both neighbours in its ranked list exceeds the tolerance."""
-    s, l, s_ref, l_ref = (np.asarray(a) for a in (s, l, s_ref, l_ref))
-    assert s.shape == s_ref.shape and l.shape == l_ref.shape
-    np.testing.assert_allclose(s, s_ref, rtol=rtol, atol=atol)
-    tol = atol + rtol * np.abs(s_ref)
-    gap = np.abs(np.diff(s_ref, axis=1))
-    inf = np.full((s_ref.shape[0], 1), np.inf)
-    decided = (np.concatenate([inf, gap], 1) > tol) & (np.concatenate([gap, inf], 1) > tol)
-    np.testing.assert_array_equal(l[decided], l_ref[decided])
+#: The methods this file holds against the reference, besides the grouped one.
+ONLINE_METHODS = ("vanilla", "mscm_searchsorted", "mscm_pallas", "mscm_pallas_pregather")
 
 
 def port_csc(w):
@@ -80,6 +70,31 @@ def test_grouped_matches_reference(small, beam, qt, score_mode):
     assert_same_ranking(*got, *want)
 
 
+@pytest.mark.parametrize("score_mode", ["prod", "logsum"])
+@pytest.mark.parametrize("method", ONLINE_METHODS)
+def test_methods_match_reference(small, method, score_mode):
+    jt, tt, _, _, xi, xv = small
+    got, want = _run(jt, tt, xi, xv, beam=10, topk=5, method=method, score_mode=score_mode)
+    assert_same_ranking(*got, *want)
+
+
+def test_vanilla_and_searchsorted_build_no_dense_table(small, monkeypatch):
+    """Only the methods that read the dense query table build it."""
+    jt, tt, _, _, xi, xv = small
+    want = _run(jt, tt, xi, xv, beam=10, topk=5, method="mscm_dense")[1]
+
+    def no_table(*args):
+        raise AssertionError("scatter_dense called")
+
+    monkeypatch.setattr(TM, "scatter_dense", no_table)
+    for method in ("vanilla", "mscm_searchsorted"):
+        s, l = tt.infer(torch.from_numpy(xi), torch.from_numpy(xv), beam=10, topk=5,
+                        method=method)
+        assert_same_ranking(s.numpy(), l.numpy(), *want)
+    with pytest.raises(AssertionError, match="scatter_dense"):
+        tt.infer(torch.from_numpy(xi), torch.from_numpy(xv), method="mscm_pallas")
+
+
 def test_exact_search_equals_brute_force(small):
     _, tt, ws, x, xi, xv = small
     ref = brute_force_scores(x.to_dense(), ws)
@@ -89,8 +104,7 @@ def test_exact_search_equals_brute_force(small):
     assert_same_ranking(s.numpy(), l.numpy(), np.take_along_axis(ref, ref_top, 1), ref_top)
 
 
-@pytest.mark.parametrize("kind", ["ragged", "nonuniform"])
-def test_grouped_ragged_and_nonuniform_trees(kind):
+def _odd_tree(kind):
     rng = np.random.default_rng(99)
     if kind == "ragged":  # L % B != 0 (phantom columns) and beam % qt != 0
         d = 80
@@ -102,8 +116,23 @@ def test_grouped_ragged_and_nonuniform_trees(kind):
         branching, kw = [4, 8], dict(beam=3, topk=4, qt=8)
     jt, tt = both_trees(ws, branching)
     x = random_sparse_csr(20, d, 12, rng)
-    xi, xv = x.to_ell()
+    return jt, tt, ws, x.to_ell(), kw
+
+
+@pytest.mark.parametrize("kind", ["ragged", "nonuniform"])
+def test_grouped_ragged_and_nonuniform_trees(kind):
+    jt, tt, ws, (xi, xv), kw = _odd_tree(kind)
     got, want = _run(jt, tt, xi, xv, method="mscm_pallas_grouped", **kw)
+    assert_same_ranking(*got, *want)
+    assert got[1].max() < ws[-1].shape[1]
+
+
+@pytest.mark.parametrize("method", ONLINE_METHODS)
+@pytest.mark.parametrize("kind", ["ragged", "nonuniform"])
+def test_methods_on_ragged_and_nonuniform_trees(kind, method):
+    jt, tt, ws, (xi, xv), kw = _odd_tree(kind)
+    kw.pop("qt")
+    got, want = _run(jt, tt, xi, xv, method=method, **kw)
     assert_same_ranking(*got, *want)
     assert got[1].max() < ws[-1].shape[1]
 
@@ -118,7 +147,7 @@ def test_continuation_with_clamped_chunks(small):
     sj, lj = jt.infer(jnp.asarray(xi), jnp.asarray(xv), beam=6, topk=4,
                       method="mscm_dense", init_parent_ids=jnp.asarray(init_ids),
                       init_scores=jnp.asarray(init_s), clamp_chunks=True)
-    for method in ("mscm_dense", "mscm_pallas_grouped"):
+    for method in ("mscm_dense", "mscm_pallas_grouped") + ONLINE_METHODS:
         st, lt = tt.infer(torch.from_numpy(xi), torch.from_numpy(xv), beam=6, topk=4,
                           method=method, init_parent_ids=torch.from_numpy(init_ids),
                           init_scores=torch.from_numpy(init_s), clamp_chunks=True)
@@ -136,8 +165,9 @@ def test_tree_from_numpy_round_trip(small):
             assert ta.dtype == tb.dtype
             assert torch.equal(ta, tb)
     assert conv.memory_bytes() == jt.memory_bytes()
-    got, want = _run(jt, conv, xi, xv, beam=10, topk=5, method="mscm_pallas_grouped")
-    assert_same_ranking(*got, *want)
+    for method in ("mscm_pallas_grouped",) + ONLINE_METHODS:
+        got, want = _run(jt, conv, xi, xv, beam=10, topk=5, method=method)
+        assert_same_ranking(*got, *want)
     with pytest.raises(ValueError):
         tree_from_numpy(layers[:1], jt.n_cols, jt.branching, jt.d, device="cpu")
 
@@ -152,8 +182,7 @@ def test_entry_points_need_a_gpu_or_explicit_cpu(small, monkeypatch):
         tree_from_numpy(layers, jt.n_cols, jt.branching, jt.d)
 
 
-@pytest.mark.parametrize("method", ["vanilla", "mscm_searchsorted", "mscm_pallas",
-                                    "mscm_pallas_pregather", "mscm_pallas_grouped_q"])
+@pytest.mark.parametrize("method", ["mscm_pallas_grouped_q"])
 def test_unported_methods_raise(small, method):
     _, tt, _, _, xi, xv = small
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
