@@ -11,10 +11,12 @@ Phases, in order; any failure raises and the script exits non-zero:
             off so every f32 matrix product on the card is true f32;
 2. build    compile every kernel from ``src/repro_torch/kernels/csrc``, one
             ``nvcc`` per source, all started together;
-3. kernels  hold each kernel (grouped, fused, pregather) against its plain
-            PyTorch version on the card, at the paths' shapes and at edge
-            shapes; time kernel, plain version and library call with CUDA
-            events, behind a sleep kernel so that only device time counts;
+3. kernels  hold each kernel (grouped, fused, pregather, and grouped_q in
+            int8 and fp8) against its plain PyTorch version on the card, at
+            the paths' shapes and at edge shapes, and grouped_q bitwise
+            against grouped on the dequantized tiles; time kernel, plain
+            version and library call with CUDA events, behind a sleep kernel
+            so that only device time counts;
 4. small    exact beam search on a small tree, on the card, through every
             ported method, against a numpy brute-force scorer;
 5. path     build the ``search-1m`` model (seed 0, random weights at the real
@@ -22,7 +24,16 @@ Phases, in order; any failure raises and the script exits non-zero:
             ``XMRServingEngine.serve_batch`` with ``method="auto"``; check that
             it resolved to the grouped kernel and launched it depth x batches
             times, and that it agrees with the ``mscm_dense`` oracle on the card;
-6. online   serve 64 of those queries one at a time (``serve_online``) with
+6. quant    on that tree, check the card's int8/fp8 codes and pruned re-pack
+            against the CPU's on one level; serve the 256 queries through
+            ``ServeConfig(quant=QuantConfig(tier="int8"))`` (quantized on the
+            card at engine build, ``method="auto"`` -> ``mscm_pallas_grouped_q``)
+            four times, in turns with the exact path; check the grouped_q
+            launches (depth x batches, none of the f32 kernel) and that it is
+            bitwise ``mscm_pallas_grouped`` on the dequantized tree; report
+            recall@10 and score MAE against the exact path, memory, ms/query;
+            then the same checks once each for ``fp8`` and ``int8_pruned``;
+7. online   serve 64 of those queries one at a time (``serve_online``) with
             ``method="mscm_pallas"``, which takes the pregather kernel at
             d = 4M, then through every other method, each held against
             ``mscm_dense`` and profiled; then build ``search-32k`` (d = 337,067)
@@ -30,8 +41,9 @@ Phases, in order; any failure raises and the script exits non-zero:
             fused kernel there.
 
 The line before last is a JSON object with one entry per kernel, whose
-``launches`` count that kernel's path (grouped: path; pregather: search-1m
-online; fused: search-32k online); the last is ``{"ok": true, "device": {...}}``.
+``launches`` count that kernel's path (grouped: path; grouped_q: the int8
+tier; pregather: search-1m online; fused: search-32k online); the last is
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -59,6 +71,16 @@ ONLINE_QUERIES, PROFILED_QUERIES = 64, 16
 # The online panel: the paper's method and the baselines it is compared with.
 ONLINE_PANEL = ("mscm_pallas", "mscm_pallas_pregather", "vanilla", "mscm_searchsorted",
                 "mscm_pallas_grouped", "mscm_dense")
+# The grouped kernels' shapes: (T, QT, R, B, C, repeated chunks).
+GROUPED_SHAPES = [
+    (640, 8, 496, 32, 32768, 160),   # main path, leaf level
+    (1, 4, 8, 6, 3, 0),              # edge: B = 6 (ragged tree test)
+    (1, 4, 8, 8, 3, 0),              # edge: B = 8
+    (3, 16, 100, 70, 4, 1),          # QT*B > one pass of outputs, ragged slab
+]
+# The reference's quality envelope of each tier on its quant-4k model
+# (benchmarks/bench_quant.py): (recall@k floor, score MAE bound).
+QUANT_ENVELOPE = {"int8": (0.95, 2e-3), "int8_pruned": (0.80, 2e-2), "fp8": None}
 
 
 def log(msg: str) -> None:
@@ -145,28 +167,25 @@ def device_profile(fn):
     return wall, sum(r[1] for r in rows), sum(r[0] for r in rows), rows
 
 
+def grouped_inputs(torch, g, t, qt, r, b, c, runs):
+    """Inputs of the grouped kernels: xg [T, QT, R], f32 tiles [C, R, B],
+    sorted tile chunks [T] of which ``runs`` repeat, parent scores [T, QT]."""
+    dev = g.device
+    xg = torch.rand(t, qt, r, generator=g, device=dev)
+    vals = torch.randn(c, r, b, generator=g, device=dev)
+    base = torch.randint(0, c, (t - runs,), generator=g, device=dev)
+    tc = torch.sort(torch.cat([base, base[:runs]])).values  # some chunks repeat
+    ps = torch.rand(t, qt, generator=g, device=dev) + 1e-3
+    return [x.cuda() for x in (xg, vals, tc, ps)]
+
+
 def kernel_check(torch, mk):
     """Phase 3a: the grouped kernel against its plain version, then timings
     at the batch path's shapes."""
     g = torch.Generator().manual_seed(0)
-
-    def inputs(t, qt, r, b, c, runs):
-        xg = torch.rand(t, qt, r, generator=g)
-        vals = torch.randn(c, r, b, generator=g)
-        base = torch.randint(0, c, (t - runs,), generator=g)
-        tc = torch.sort(torch.cat([base, base[:runs]])).values  # some chunks repeat
-        ps = torch.rand(t, qt, generator=g) + 1e-3
-        return [x.cuda() for x in (xg, vals, tc, ps)]
-
-    shapes = [  # (T, QT, R, B, C, repeated chunks)
-        (640, 8, 496, 32, 32768, 160),   # main path, leaf level
-        (1, 4, 8, 6, 3, 0),              # edge: B = 6 (ragged tree test)
-        (1, 4, 8, 8, 3, 0),              # edge: B = 8
-        (3, 16, 100, 70, 4, 1),          # QT*B > one pass of outputs, ragged slab
-    ]
     max_err = 0.0
-    for t, qt, r, b, c, runs in shapes:
-        xg, vals, tc, ps = inputs(t, qt, r, b, c, runs)
+    for t, qt, r, b, c, runs in GROUPED_SHAPES:
+        xg, vals, tc, ps = grouped_inputs(torch, g, t, qt, r, b, c, runs)
         for mode in ("none", "prod", "logsum"):
             p = None if mode == "none" else ps
             got = mk.mscm_grouped(xg, vals, tc, p, mode=mode)
@@ -176,8 +195,8 @@ def kernel_check(torch, mk):
                                         KERNEL_RTOL, KERNEL_ATOL))
 
     # Timings at the main path's shapes, in the path's epilogue mode.
-    t, qt, r, b, c, runs = shapes[0]
-    xg, vals, tc, ps = inputs(t, qt, r, b, c, runs)
+    t, qt, r, b, c, runs = GROUPED_SHAPES[0]
+    xg, vals, tc, ps = grouped_inputs(torch, g, t, qt, r, b, c, runs)
     vals_g = vals[tc]
     ms = time_ms(lambda: mk.mscm_grouped(xg, vals, tc, ps, mode="prod"))
     plain_ms = time_ms(lambda: mk.mscm_grouped_plain(xg, vals, tc, ps, mode="prod"))
@@ -203,6 +222,73 @@ def kernel_check(torch, mk):
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": library_ms,
+    }
+
+
+def quant_kernel_check(torch, mk, qk, quantize_chunks):
+    """Phase 3c: the quantized grouped kernel in int8 and fp8 against its
+    plain version, and bitwise against the f32 grouped kernel on the
+    dequantized tiles (one routine serves both), at the grouped shapes and
+    with chunk ids past C; then timings at the batch path's shape."""
+    g = torch.Generator(device="cuda").manual_seed(0)
+    cases = [shape + (False,) for shape in GROUPED_SHAPES] + [(6, 4, 24, 16, 5, 1, True)]
+    err = {"int8": 0.0, "fp8": 0.0}
+    timed = {}
+    for dtype in err:
+        for t, qt, r, b, c, runs, past in cases:
+            xg, f32, tc, ps = grouped_inputs(torch, g, t, qt, r, b, c, runs)
+            if past:
+                tc[-2:] = c + 2  # clamped to the last chunk
+            vals, scales = quantize_chunks(f32, dtype)
+            deq = vals.float() * scales[:, None, :]
+            for mode in ("none", "prod", "logsum"):
+                p = None if mode == "none" else ps
+                got = qk.mscm_grouped_q(xg, vals, scales, tc, p, mode=mode)
+                want = qk.mscm_grouped_q_plain(xg, vals, scales, tc, p, mode=mode)
+                what = (f"mscm_grouped_q {dtype} T={t} QT={qt} R={r} B={b}"
+                        f"{' chunk ids past C' if past else ''} mode={mode}")
+                err[dtype] = max(err[dtype], held(torch, got, want, what,
+                                                  KERNEL_RTOL, KERNEL_ATOL))
+                if not torch.equal(got, mk.mscm_grouped(xg, deq, tc, p, mode=mode)):
+                    raise AssertionError(f"{what}: not bitwise mscm_grouped on the "
+                                         "dequantized tiles")
+            del deq
+        log(f"  mscm_grouped_q {dtype}: bitwise mscm_grouped on the dequantized tiles "
+            f"at every shape and mode")
+
+        # Timings at the main path's shape, in the path's epilogue mode.
+        t, qt, r, b, c, runs = GROUPED_SHAPES[0]
+        xg, f32, tc, ps = grouped_inputs(torch, g, t, qt, r, b, c, runs)
+        vals, scales = quantize_chunks(f32, dtype)
+        del f32
+        deq_g = vals[tc].float() * scales[tc][:, None, :]  # pre-gathered, dequantized
+        ms = time_ms(lambda: qk.mscm_grouped_q(xg, vals, scales, tc, ps, mode="prod"))
+        plain_ms = time_ms(lambda: qk.mscm_grouped_q_plain(xg, vals, scales, tc, ps,
+                                                           mode="prod"))
+        library_ms = time_ms(lambda: torch.bmm(xg, deq_g))
+        n_chunks = int(torch.unique(tc).numel())
+        nbytes = (4 * (t * qt * r + n_chunks * b + t * qt + t * qt * b) + n_chunks * r * b
+                  + 8 * t)
+        flops = 2 * t * qt * r * b + n_chunks * r * b
+        bound_ms, bound_by = bound(nbytes, flops)
+        timed[dtype] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                            bound_ms=bound_ms, bound_by=bound_by)
+        log(f"  timing mscm_grouped_q {dtype} T={t} QT={qt} R={r} B={b} ({n_chunks} distinct "
+            f"chunks, {nbytes / 1e6:.2f} MB, {flops / 1e6:.1f} MFLOP): kernel {ms:.5f} ms, "
+            f"plain {plain_ms:.5f} ms, torch.bmm on pre-gathered dequantized tiles "
+            f"{library_ms:.5f} ms, bound {bound_ms:.5f} ms ({bound_by})")
+        del vals, deq_g
+    return {
+        "name": "mscm_grouped_q",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/mscm_grouped.cu",
+        "replaces": "src/repro/quant/kernels.py:66",
+        "max_abs_err": max(err.values()),
+        "max_err": max(err.values()),
+        **timed["int8"],
+        "kernel_ms": timed["int8"]["ms"],
+        **{f"fp8_{k}": v for k, v in timed["fp8"].items()},
+        "fp8_max_abs_err": err["fp8"],
     }
 
 
@@ -481,8 +567,127 @@ def path(torch, mk, gpu: str):
     return launches, tree, queries
 
 
+def quant_codes_check(torch, layer, d: int) -> None:
+    """The card's int8/fp8 codes and scales, and its pruned re-pack, against
+    the CPU's on one level: bitwise."""
+    from repro_torch.quant.storage import prune_chunks, quantize_chunks
+
+    cpu_vals = layer.chunk_vals.cpu()
+    for dtype in ("int8", "fp8"):
+        (qg, sg), (qc, sc) = quantize_chunks(layer.chunk_vals, dtype), quantize_chunks(
+            cpu_vals, dtype)
+        if not (torch.equal(qg.cpu().view(torch.uint8), qc.view(torch.uint8))
+                and torch.equal(sg.cpu(), sc)):
+            raise AssertionError(f"{dtype} codes or scales on the card differ from the CPU's")
+    (rg, vg), (rc, vc) = (prune_chunks(layer.chunk_rows, layer.chunk_vals, 0.5, sentinel=d),
+                          prune_chunks(layer.chunk_rows.cpu(), cpu_vals, 0.5, sentinel=d))
+    if not (torch.equal(rg.cpu(), rc) and torch.equal(vg.cpu(), vc)):
+        raise AssertionError("pruned re-pack on the card differs from the CPU's")
+    c, r, b = layer.chunk_vals.shape
+    log(f"  codes: int8 and fp8 codes and scales, and the pruned re-pack (R {r} -> "
+        f"{rc.shape[1]}), of a level of {c} chunks x {r} x {b} equal the CPU's bitwise")
+
+
+def quant(torch, mk, qk, gpu: str, tree, queries):
+    """Phase 6: the quantized tiers on search-1m in batch. Returns the
+    grouped_q kernel's launches on the int8 tier."""
+    from repro_torch.quant import dequantize_tree, recall_at_k, score_mae
+    from repro_torch.serving import QuantConfig, ServeConfig, XMRServingEngine
+
+    quant_codes_check(torch, tree.layers[2], tree.d)
+    n = queries.shape[0]
+    n_batches = -(-n // SERVE["max_batch"])
+    exact = XMRServingEngine(tree, ServeConfig(method="auto", **SERVE))
+    exact.warmup(tree.d, batch_sizes=(64,))
+
+    def build(tier):
+        t0 = time.perf_counter()
+        eng = XMRServingEngine(tree, ServeConfig(method="auto", quant=QuantConfig(tier=tier),
+                                                 **SERVE))
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        if eng.method != "mscm_pallas_grouped_q":
+            raise AssertionError(f"tier {tier}: method='auto' resolved to {eng.method!r}")
+        eng.warmup(tree.d, batch_sizes=(64,))
+        return eng, build_s
+
+    def counted(eng, tier):
+        """One serve_batch with the launch counts set to 0 just before."""
+        qk.GROUPED_Q_LAUNCHES = mk.GROUPED_LAUNCHES = 0
+        t0 = time.perf_counter()
+        s, l = eng.serve_batch(queries)
+        wall = time.perf_counter() - t0
+        launches = (qk.GROUPED_Q_LAUNCHES, mk.GROUPED_LAUNCHES)
+        if launches != (tree.depth * n_batches, 0):
+            raise AssertionError(f"tier {tier}: (grouped_q, grouped) launches {launches}, "
+                                 f"want {(tree.depth * n_batches, 0)}")
+        if s.shape != (n, SERVE["topk"]) or not np.isfinite(s).all():
+            raise AssertionError(f"tier {tier}: bad scores, shape {s.shape}")
+        return s, l, wall, launches[0]
+
+    def against_dequantized(eng, s, l, tier):
+        deq = XMRServingEngine(dequantize_tree(eng.tree),
+                               ServeConfig(method="mscm_pallas_grouped", **SERVE))
+        s_d, l_d = deq.serve_batch(queries)
+        if not (np.array_equal(l, l_d) and np.array_equal(s.view(np.uint32),
+                                                          s_d.view(np.uint32))):
+            raise AssertionError(f"tier {tier}: not bitwise mscm_pallas_grouped on the "
+                                 "dequantized tree")
+
+    def report(eng, tier, s, l, s_x, l_x, build_s):
+        recall, mae = recall_at_k(l_x, l), score_mae(s_x, s)
+        env = QUANT_ENVELOPE[tier]
+        env_txt = (f"reference envelope on its quant-4k model: recall >= {env[0]}, MAE <= "
+                   f"{env[1]}" if env else "the reference states no envelope for fp8")
+        exact_b, q_b = tree.memory_bytes(), eng.tree.memory_bytes()
+        log(f"  tier {tier}: recall@10 {recall:.6f}, score MAE {mae:.6e} against the exact "
+            f"path ({env_txt}; reported, not gated: search-1m's weights are random); "
+            f"memory_bytes {exact_b / 1e9:.4f} GB exact -> {q_b / 1e9:.4f} GB "
+            f"({exact_b / q_b:.3f}x), leaf R {tree.layers[-1].chunk_vals.shape[1]} -> "
+            f"{eng.tree.layers[-1].chunk_vals.shape[1]}; quantized on the card at engine "
+            f"build in {build_s:.3f} s; bitwise mscm_pallas_grouped on the dequantized tree"
+            f"  [{gpu}]")
+
+    # int8: four serve_batch calls in turns with the exact path.
+    eng, build_s = build("int8")
+    s_x, l_x = exact.serve_batch(queries)  # the exact path's results
+    walls = {"exact": [], "int8": []}
+    s = None
+    for which in ("exact", "int8", "int8", "exact", "exact", "int8", "int8", "exact"):
+        if which == "int8" and s is None:
+            torch.cuda.reset_peak_memory_stats()
+            s, l, wall, launches = counted(eng, "int8")
+            peak = torch.cuda.max_memory_allocated()
+        else:
+            t0 = time.perf_counter()
+            (exact if which == "exact" else eng).serve_batch(queries)
+            wall = time.perf_counter() - t0
+        walls[which].append(wall)
+    med = {k: float(np.median(v)) for k, v in walls.items()}
+    log(f"  serve_batch {n} queries, tier int8 (method=auto -> {eng.method}, {n_batches} "
+        f"batches of {SERVE['max_batch']}): {launches} grouped_q launches, 0 grouped; wall s "
+        f"per call int8 {[round(w, 6) for w in walls['int8']]}, exact "
+        f"{[round(w, 6) for w in walls['exact']]} (in turns); median "
+        f"{1e3 * med['int8'] / n:.5f} ms/query int8 ({n / med['int8']:.1f} QPS) against "
+        f"{1e3 * med['exact'] / n:.5f} exact ({n / med['exact']:.1f} QPS); peak device memory "
+        f"{peak / 1e9:.3f} GB (exact and int8 trees resident)  [{gpu}]")
+    against_dequantized(eng, s, l, "int8")
+    report(eng, "int8", s, l, s_x, l_x, build_s)
+    log_profile("one serve_batch, tier int8",
+                *device_profile(lambda: eng.serve_batch(queries)), gpu, 12)
+    del eng
+
+    for tier in ("fp8", "int8_pruned"):
+        eng, build_s = build(tier)
+        s, l, _, _ = counted(eng, tier)
+        against_dequantized(eng, s, l, tier)
+        report(eng, tier, s, l, s_x, l_x, build_s)
+        del eng
+    return launches
+
+
 def online(torch, mk, gpu: str, tree, queries):
-    """Phase 6: the online setting, one query at a time. Returns the
+    """Phase 7: the online setting, one query at a time. Returns the
     pregather kernel's launches on search-1m and the fused kernel's on
     search-32k."""
     from repro_torch.data.build import build_benchmark_tree
@@ -577,6 +782,8 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import build, ops
     from repro_torch.kernels import mscm_kernel as mk
+    from repro_torch.quant import kernels as qk
+    from repro_torch.quant.storage import quantize_chunks
 
     t_all = time.perf_counter()
     gpu = gpu_line()
@@ -600,14 +807,17 @@ def main() -> int:
     log("phase kernels")
     grouped = kernel_check(torch, mk)
     fused, pregather = block_kernel_check(torch, mk, ops)
+    grouped_q = quant_kernel_check(torch, mk, qk, quantize_chunks)
     log("phase small")
     small_check(torch)
     log("phase path")
     grouped["launches"], tree, queries = path(torch, mk, gpu)
+    log("phase quant")
+    grouped_q["launches"] = quant(torch, mk, qk, gpu, tree, queries)
     log("phase online")
     pregather["launches"], fused["launches"] = online(torch, mk, gpu, tree, queries)
     log(f"done in {time.perf_counter() - t_all:.1f} s")
-    print(json.dumps({"kernels": [grouped, fused, pregather]}))
+    print(json.dumps({"kernels": [grouped, fused, pregather, grouped_q]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -4,6 +4,9 @@
 ``np.asarray`` of a reference ``TreeLayerArrays``' ``chunk_rows``,
 ``chunk_vals``, ``col_rows`` and ``col_vals`` — and returns the port's
 :class:`~repro_torch.core.tree.XMRTree` with the same values.
+:func:`quantized_tree_from_numpy` does the same for a quantized tree
+(``chunk_rows``, ``chunk_vals`` codes, ``chunk_scales``), with fp8 codes
+crossing as their uint8 bit patterns, so no fp8 numpy type is needed.
 """
 
 from __future__ import annotations
@@ -14,12 +17,17 @@ import numpy as np
 import torch
 
 from repro_torch.core.tree import TreeLayerArrays, XMRTree, resolve_device
+from repro_torch.quant.storage import QUANT_DTYPES, QuantizedTree, QuantLayerArrays, tier_dtype
 
 LAYER_FIELDS = ("chunk_rows", "chunk_vals", "col_rows", "col_vals")
 _DTYPES = {
     "chunk_rows": np.int32, "chunk_vals": np.float32,
     "col_rows": np.int32, "col_vals": np.float32,
 }
+
+
+def _tensor(a, dtype, dev: torch.device) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, dtype=dtype, order="C")).to(dev)
 
 
 def tree_from_numpy(
@@ -43,8 +51,47 @@ def tree_from_numpy(
         if missing:
             raise ValueError(f"layer arrays lack {sorted(missing)}")
         out.append(TreeLayerArrays(**{
-            f: torch.from_numpy(np.array(arrays[f], dtype=_DTYPES[f], order="C")).to(dev)
-            for f in LAYER_FIELDS
+            f: _tensor(arrays[f], _DTYPES[f], dev) for f in LAYER_FIELDS
         }))
     return XMRTree(layers=out, n_cols=tuple(int(c) for c in n_cols),
                    branching=tuple(int(b) for b in branching), d=int(d))
+
+
+QUANT_LAYER_FIELDS = ("chunk_rows", "chunk_vals", "chunk_scales")
+
+
+def quantized_tree_from_numpy(
+    layers: Sequence[Mapping[str, np.ndarray]],
+    n_cols: Sequence[int],
+    branching: Sequence[int],
+    d: int,
+    tier: str,
+    *,
+    device: str | torch.device | None = None,
+) -> QuantizedTree:
+    """Build the port's :class:`QuantizedTree` from per-level arrays (keys
+    :data:`QUANT_LAYER_FIELDS`) on ``device`` (CUDA unless named).
+    ``chunk_vals`` holds int8 codes, or for ``tier="fp8"`` the uint8 bit
+    patterns of the fp8-e4m3 codes (``.view(np.uint8)`` of the reference's)."""
+    dev = resolve_device(device)
+    if not len(layers) == len(n_cols) == len(branching):
+        raise ValueError(
+            f"{len(layers)} layers, {len(n_cols)} n_cols, {len(branching)} branching"
+        )
+    qdtype, _ = QUANT_DTYPES[tier_dtype(tier)]
+    raw = np.uint8 if qdtype == torch.float8_e4m3fn else np.int8
+    out = []
+    for arrays in layers:
+        missing = set(QUANT_LAYER_FIELDS) - set(arrays)
+        if missing:
+            raise ValueError(f"layer arrays lack {sorted(missing)}")
+        codes = np.asarray(arrays["chunk_vals"])
+        if codes.dtype != raw:
+            raise TypeError(f"tier {tier!r} codes cross as {np.dtype(raw)}; got {codes.dtype}")
+        out.append(QuantLayerArrays(
+            chunk_rows=_tensor(arrays["chunk_rows"], np.int32, dev),
+            chunk_vals=_tensor(codes, raw, dev).view(qdtype),
+            chunk_scales=_tensor(arrays["chunk_scales"], np.float32, dev),
+        ))
+    return QuantizedTree(layers=out, n_cols=tuple(int(c) for c in n_cols),
+                         branching=tuple(int(b) for b in branching), d=int(d), tier=tier)

@@ -6,10 +6,11 @@ search, with each level's masked product through one of the reference's
 methods: ``vanilla`` (per-column baseline), ``mscm_dense`` (gather + einsum,
 the exact oracle), ``mscm_searchsorted`` (binary search, no dense table),
 ``mscm_pallas``/``mscm_pallas_pregather`` (the per-block CUDA kernels of the
-online path) or ``mscm_pallas_grouped`` (the grouped CUDA kernel of the
-batch path). Kernels run on a GPU, their plain versions on the CPU. The
-method strings are the reference's, so one configuration drives both
-packages.
+online path), ``mscm_pallas_grouped`` (the grouped CUDA kernel of the batch
+path) or ``mscm_pallas_grouped_q`` (the same kernel over the int8/fp8 tiles
+of a :class:`~repro_torch.quant.storage.QuantizedTree`). Kernels run on a
+GPU, their plain versions on the CPU. The method strings are the
+reference's, so one configuration drives both packages.
 
 Label layout: the children of node p at level l are [p*B, (p+1)*B) at
 level l+1, so chunk id == parent id.
@@ -41,24 +42,19 @@ METHODS = (
     "mscm_pallas_grouped_q",
 )
 
-#: Methods not ported yet, with the ROADMAP.md item that ports each.
-_UNPORTED = {
-    "mscm_pallas_grouped_q": "queue 1 item 8 with queue 2 item 4 (mscm_grouped_q)",
-}
-
 #: Methods that read the dense [n, d+1] query table (the others read the
 #: ELL rows and must not allocate it: 1.02 GB at 64 queries and d = 4M).
 _NEEDS_DENSE = (
     "mscm_dense", "mscm_pallas", "mscm_pallas_pregather", "mscm_pallas_grouped",
+    "mscm_pallas_grouped_q",
 )
+
+#: Methods that run the grouped kernel, which keeps the beam id-sorted.
+_GROUPED = ("mscm_pallas_grouped", "mscm_pallas_grouped_q")
 
 
 def check_method(method: str) -> None:
     """Raise unless ``method`` is one this port runs."""
-    if method in _UNPORTED:
-        raise NotImplementedError(
-            f"method {method!r} is not ported yet: ROADMAP.md {_UNPORTED[method]}"
-        )
     if method not in METHODS:
         raise ValueError(f"unknown method {method!r}; choose from {METHODS}")
 
@@ -150,10 +146,12 @@ class XMRTree:
         return dataclasses.replace(self, layers=[l.to(dev) for l in self.layers])
 
     def memory_bytes(self) -> int:
+        """Bytes of the chunk tiles, their rows and (quantized) scales."""
         return sum(
             t.numel() * t.element_size()
             for l in self.layers
-            for t in (l.chunk_rows, l.chunk_vals)
+            for t in (l.chunk_rows, l.chunk_vals, getattr(l, "chunk_scales", None))
+            if t is not None
         )
 
     def infer(
@@ -226,6 +224,16 @@ def _masked_matmul(
     raise ValueError(f"{method} is dispatched in level_combined, with its epilogue")
 
 
+def _scales_of(layer) -> torch.Tensor:
+    scales = getattr(layer, "chunk_scales", None)
+    if scales is None:
+        raise ValueError(
+            "method 'mscm_pallas_grouped_q' reads int8/fp8 chunk tiles and their "
+            "scales: quantize the tree first (repro_torch.quant.quantize_tree)"
+        )
+    return scales
+
+
 def level_combined(
     layer: TreeLayerArrays,
     branching: int,
@@ -252,6 +260,15 @@ def level_combined(
         return ops.mscm_grouped_level(
             x_dense, layer.chunk_rows, layer.chunk_vals, block_q, block_c,
             parent_scores.reshape(-1), qt=qt, mode=score_mode,
+        ).reshape(n, b_cur, branching)
+    if method == "mscm_pallas_grouped_q":
+        from repro_torch.quant import kernels as qkernels
+
+        # The same grouping and fused epilogue over the int8/fp8 tiles,
+        # dequantized against their scale row as the kernel stages them.
+        return qkernels.mscm_grouped_q_level(
+            x_dense, layer.chunk_rows, layer.chunk_vals, _scales_of(layer), block_q,
+            block_c, parent_scores.reshape(-1), qt=qt, mode=score_mode,
         ).reshape(n, b_cur, branching)
     logits = _masked_matmul(
         layer, x_idx, x_val, x_dense, block_q, block_c, branching, d, method
@@ -303,7 +320,7 @@ def _tree_infer(
             method=method, score_mode=score_mode, qt=qt,
         )
         parent_ids, scores = beam_select(chunk_ids, combined, n_cols[li], next_b)
-        if method == "mscm_pallas_grouped" and not is_last:
+        if method in _GROUPED and not is_last:
             # Keep the beam id-ascending so the next level's block list is
             # already chunk-major within each query; selection is canonical,
             # so the order cannot change results.

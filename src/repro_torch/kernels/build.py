@@ -32,6 +32,8 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
     "mscm_grouped": {
         # xg, vals, tile_chunk, ps, out, T, QT, R, B, C, mode, stream
         "mscm_grouped_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+        # xg, vals, scales, tile_chunk, ps, out, T, QT, R, B, C, mode, dtype, stream
+        "mscm_grouped_q_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     },
     "mscm_block": {
         # x_dense, rows, vals, block_q, block_c, out, A, Dp, R, B, C, n, dtype, stream

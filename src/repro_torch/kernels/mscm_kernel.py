@@ -14,6 +14,10 @@ the Pallas TPU kernel of the same name:
 ``mscm_pregather``  (``csrc/mscm_block.cu``) the same product over query
                     values gathered beforehand: the online path above it.
 
+The fourth TPU kernel, ``mscm_grouped_q``, is the grouped kernel over
+int8/fp8 tiles: its wrapper is in ``repro_torch.quant.kernels``, its entry
+point in ``csrc/mscm_grouped.cu``.
+
 Each wrapper takes the plain version for tensors on the CPU and launches
 its CUDA kernel for tensors on a GPU, raising if it cannot; it never falls
 back from one to the other. ``*_LAUNCHES`` count each kernel's launches, so
@@ -72,7 +76,24 @@ def group_blocks_by_chunk(
     return np.asarray(tiles_c, np.int32), np.stack(tiles_s)
 
 
-def _check_args(xg_tiles, vals, tile_chunk, parent_scores, mode) -> None:
+def common_device(tensors, name: str) -> torch.device:
+    """The one device of ``tensors``: raise if they lie on several, on one
+    that is neither the CPU nor a GPU, or on a GPU and not contiguous."""
+    devices = {x.device for x in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"tensors on several devices: {sorted(map(str, devices))}")
+    dev = tensors[0].device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name} runs on cpu or cuda tensors; got {dev}")
+    if dev.type == "cuda" and not all(x.is_contiguous() for x in tensors):
+        raise ValueError(f"{name} needs contiguous tensors")
+    return dev
+
+
+def check_grouped_args(xg_tiles, vals, tile_chunk, parent_scores, mode,
+                       vals_dtypes=(torch.float32,)) -> None:
+    """Checks shared by :func:`mscm_grouped` and the quantized
+    ``repro_torch.quant.kernels.mscm_grouped_q`` (``vals_dtypes`` differ)."""
     if mode not in MODES:
         raise ValueError(f"unknown epilogue mode {mode!r}")
     if parent_scores is None and mode != "none":
@@ -95,9 +116,12 @@ def _check_args(xg_tiles, vals, tile_chunk, parent_scores, mode) -> None:
         raise ValueError(
             f"parent_scores must be [T, QT] = {(t, qt)}; got {tuple(parent_scores.shape)}"
         )
-    floats = [xg_tiles, vals] + ([parent_scores] if parent_scores is not None else [])
-    if any(x.dtype != torch.float32 for x in floats):
-        raise TypeError("xg_tiles, vals and parent_scores must be float32")
+    floats = [xg_tiles] + ([parent_scores] if parent_scores is not None else [])
+    if any(x.dtype != torch.float32 for x in floats) or vals.dtype not in vals_dtypes:
+        raise TypeError(
+            f"xg_tiles and parent_scores must be float32 and vals one of {vals_dtypes}; "
+            f"got {xg_tiles.dtype}, {vals.dtype}"
+        )
     if tile_chunk.dtype != torch.int64:
         raise TypeError(f"tile_chunk must be int64; got {tile_chunk.dtype}")
 
@@ -134,20 +158,12 @@ def mscm_grouped(
     ``mode``: ``none`` raw logits; ``prod`` σ(logit) · parent_score;
     ``logsum`` logσ(logit) + parent_score. Returns f32 [T, QT, B].
     """
-    _check_args(xg_tiles, vals, tile_chunk, parent_scores, mode)
+    check_grouped_args(xg_tiles, vals, tile_chunk, parent_scores, mode)
     tensors = [xg_tiles, vals, tile_chunk] + (
         [parent_scores] if parent_scores is not None else []
     )
-    devices = {x.device for x in tensors}
-    if len(devices) != 1:
-        raise ValueError(f"tensors on several devices: {sorted(map(str, devices))}")
-    dev = xg_tiles.device
-    if dev.type == "cpu":
+    if common_device(tensors, "mscm_grouped").type == "cpu":
         return mscm_grouped_plain(xg_tiles, vals, tile_chunk, parent_scores, mode=mode)
-    if dev.type != "cuda":
-        raise ValueError(f"mscm_grouped runs on cpu or cuda tensors; got {dev}")
-    if not all(x.is_contiguous() for x in tensors):
-        raise ValueError("mscm_grouped needs contiguous tensors")
     return _launch(xg_tiles, vals, tile_chunk, parent_scores, mode)
 
 
@@ -213,18 +229,6 @@ def _check_block_args(x, vals, block_c, rows=None, block_q=None) -> None:
         raise TypeError(f"rows must be int32; got {rows.dtype}")
 
 
-def _block_device(tensors, name: str) -> torch.device:
-    devices = {x.device for x in tensors}
-    if len(devices) != 1:
-        raise ValueError(f"tensors on several devices: {sorted(map(str, devices))}")
-    dev = tensors[0].device
-    if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"{name} runs on cpu or cuda tensors; got {dev}")
-    if dev.type == "cuda" and not all(x.is_contiguous() for x in tensors):
-        raise ValueError(f"{name} needs contiguous tensors")
-    return dev
-
-
 def mscm_pregather_plain(
     xg: torch.Tensor,       # [A, R] pre-gathered query values
     vals: torch.Tensor,     # [C, R, B]
@@ -263,7 +267,7 @@ def mscm_fused(
     """Per-block ``x_dense[q][rows[c]] [1, R] @ vals[c] [R, B]``, the gather
     inside the kernel. Returns f32 [A, B]."""
     _check_block_args(x_dense, vals, block_c, rows, block_q)
-    dev = _block_device([x_dense, rows, vals, block_q, block_c], "mscm_fused")
+    dev = common_device([x_dense, rows, vals, block_q, block_c], "mscm_fused")
     if dev.type == "cpu":
         return mscm_fused_plain(x_dense, rows, vals, block_q, block_c)
     return _launch_block(x_dense, vals, block_c, rows, block_q)
@@ -276,7 +280,7 @@ def mscm_pregather(
 ) -> torch.Tensor:
     """Per-block ``xg[a] [1, R] @ vals[c] [R, B]``. Returns f32 [A, B]."""
     _check_block_args(xg, vals, block_c)
-    dev = _block_device([xg, vals, block_c], "mscm_pregather")
+    dev = common_device([xg, vals, block_c], "mscm_pregather")
     if dev.type == "cpu":
         return mscm_pregather_plain(xg, vals, block_c)
     return _launch_block(xg, vals, block_c)

@@ -13,7 +13,7 @@ enqueued on the GPU without a synchronisation.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -129,11 +129,16 @@ def mscm_grouped_level(
     *,
     qt: int = DEFAULT_QT,
     mode: str = "none",
+    product: Optional[Callable[..., torch.Tensor]] = None,
 ) -> torch.Tensor:
     """One tree level through the grouped kernel: group the blocks
     chunk-major, gather the query rows into [T, QT, R] tiles, run one
     [QT, R] x [R, B] product per tile with the epilogue ``mode`` fused, and
-    return the [A, B] block scores in the original block order."""
+    return the [A, B] block scores in the original block order.
+
+    ``product(xg, tile_chunk, parent_scores)`` replaces the tile product
+    (the quantized level passes its kernel over int8/fp8 ``vals``); by
+    default it is :func:`mscm_grouped` over ``vals``."""
     c, _, b = vals.shape
     tile_chunk, tile_src, order, flat_pos = group_blocks_device(block_c, qt, c)
     real = tile_src >= 0                                 # [T, QT]
@@ -147,7 +152,10 @@ def mscm_grouped_level(
     ps = None
     if parent_scores is not None:
         ps = torch.where(real, parent_scores[safe_src], 0.0)
-    tiles = mscm_grouped(xg, vals, tc, ps, mode=mode)    # [T, QT, B]
+    if product is None:
+        tiles = mscm_grouped(xg, vals, tc, ps, mode=mode)  # [T, QT, B]
+    else:
+        tiles = product(xg, tc, ps)
     flat = tiles.reshape(-1, b)
     # Sorted block i lives at flat slot flat_pos[i]; composing with the
     # inverse permutation restores the block order (clamped like the

@@ -1,0 +1,154 @@
+"""Quantized grouped MSCM: the grouped kernel over int8/fp8 chunk tiles.
+
+Counterpart of ``repro.quant.kernels``. ``mscm_grouped_q`` replaces the
+Pallas TPU kernel of that name with the CUDA entry point
+``mscm_grouped_q_launch`` of ``kernels/csrc/mscm_grouped.cu``: the grouped
+kernel's routine, which widens each int8/fp8 weight to f32 and multiplies it
+by its (chunk, column) scale as it stages the chunk tile into shared memory.
+So device memory carries one byte per weight, and the result is bitwise the
+f32 kernel's on the dequantized tiles (``float(q) * scale``,
+:func:`repro_torch.quant.storage.dequantize_layer`): quantization error
+comes from storage, never from the kernel.
+
+The wrapper takes the plain version for tensors on the CPU and launches the
+kernel for tensors on a GPU, raising if it cannot. ``GROUPED_Q_LAUNCHES``
+counts its launches. The level around it is
+:func:`repro_torch.kernels.ops.mscm_grouped_level` with this product in
+place of the f32 one: same grouping, staging and unsort.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import ops
+from repro_torch.kernels.mscm_kernel import (
+    MODES,
+    check_grouped_args,
+    common_device,
+    mscm_grouped_plain,
+)
+
+#: Launches of the CUDA kernel since import (or since a caller reset it).
+GROUPED_Q_LAUNCHES = 0
+
+#: Code types the kernel takes, by their code in the C interface.
+Q_DTYPES = {torch.int8: 0, torch.float8_e4m3fn: 1}
+
+
+def _check_scales(vals: torch.Tensor, scales: torch.Tensor) -> None:
+    if scales.dtype != torch.float32:
+        raise TypeError(f"scales must be float32; got {scales.dtype}")
+    if tuple(scales.shape) != (vals.shape[0], vals.shape[2]):
+        raise ValueError(
+            f"scales must be [C, B] = {(vals.shape[0], vals.shape[2])}; "
+            f"got {tuple(scales.shape)}"
+        )
+
+
+def mscm_grouped_q_plain(
+    xg_tiles: torch.Tensor,    # f32 [T, QT, R]
+    vals: torch.Tensor,        # int8/fp8 [C, R, B]
+    scales: torch.Tensor,      # f32 [C, B]
+    tile_chunk: torch.Tensor,  # int [T]
+    parent_scores: Optional[torch.Tensor] = None,  # f32 [T, QT]
+    *,
+    mode: str = "none",
+) -> torch.Tensor:
+    """The plain PyTorch version: ``bmm(xg, vals[tc].float() * scales[tc])``
+    and the epilogue, chunk ids clamped; bitwise
+    :func:`~repro_torch.kernels.mscm_kernel.mscm_grouped_plain` on the
+    dequantized tiles."""
+    tc = tile_chunk.clamp(0, vals.shape[0] - 1)
+    tiles = vals[tc].to(torch.float32) * scales[tc][:, None, :]   # [T, R, B]
+    own = torch.arange(tc.shape[0], device=tc.device)
+    return mscm_grouped_plain(xg_tiles, tiles, own, parent_scores, mode=mode)
+
+
+def mscm_grouped_q(
+    xg_tiles: torch.Tensor,    # f32 [T, QT, R] gathered query rows per tile
+    vals: torch.Tensor,        # int8 or float8_e4m3fn [C, R, B]
+    scales: torch.Tensor,      # f32 [C, B]
+    tile_chunk: torch.Tensor,  # int64 [T]
+    parent_scores: Optional[torch.Tensor] = None,  # f32 [T, QT] beam scores
+    *,
+    mode: str = "none",
+) -> torch.Tensor:
+    """Quantized chunk-major tile product with the fused beam epilogue; the
+    contract of ``mscm_grouped`` (``mode`` none/prod/logsum, f32 [T, QT, B])."""
+    check_grouped_args(xg_tiles, vals, tile_chunk, parent_scores, mode,
+                       vals_dtypes=tuple(Q_DTYPES))
+    _check_scales(vals, scales)
+    tensors = [xg_tiles, vals, scales, tile_chunk] + (
+        [parent_scores] if parent_scores is not None else []
+    )
+    if common_device(tensors, "mscm_grouped_q").type == "cpu":
+        return mscm_grouped_q_plain(xg_tiles, vals, scales, tile_chunk, parent_scores,
+                                    mode=mode)
+    return _launch(xg_tiles, vals, scales, tile_chunk, parent_scores, mode)
+
+
+def _launch(xg_tiles, vals, scales, tile_chunk, parent_scores, mode) -> torch.Tensor:
+    global GROUPED_Q_LAUNCHES
+    from repro_torch.kernels.build import load_library
+
+    t, qt, r = xg_tiles.shape
+    c, _, b = vals.shape
+    dev = xg_tiles.device
+    out = torch.empty((t, qt, b), dtype=torch.float32, device=dev)
+    lib = load_library("mscm_grouped")
+    with torch.cuda.device(dev):
+        err = lib.mscm_grouped_q_launch(
+            xg_tiles.data_ptr(), vals.data_ptr(), scales.data_ptr(), tile_chunk.data_ptr(),
+            parent_scores.data_ptr() if parent_scores is not None else None,
+            out.data_ptr(), t, qt, r, b, c, MODES[mode], Q_DTYPES[vals.dtype],
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(
+            f"mscm_grouped_q launch failed with CUDA error {err} "
+            f"(T={t}, QT={qt}, R={r}, B={b}, C={c}, mode={mode}, {vals.dtype})"
+        )
+    GROUPED_Q_LAUNCHES += 1
+    return out
+
+
+def mscm_grouped_q_level(
+    x_dense: torch.Tensor,        # f32 [n, Dp]
+    rows: torch.Tensor,           # int [C, R]
+    vals: torch.Tensor,           # int8/fp8 [C, R, B]
+    scales: torch.Tensor,         # f32 [C, B]
+    block_q: torch.Tensor,        # int [A]
+    block_c: torch.Tensor,        # int [A]
+    parent_scores: Optional[torch.Tensor] = None,  # f32 [A] (beam scores)
+    *,
+    qt: int = ops.DEFAULT_QT,
+    mode: str = "none",
+) -> torch.Tensor:
+    """One tree level through the quantized grouped kernel: the grouping,
+    staging and unsort of ``ops.mscm_grouped_level``. Returns f32 [A, B]."""
+    def product(xg, tc, ps):
+        return mscm_grouped_q(xg, vals, scales, tc, ps, mode=mode)
+
+    return ops.mscm_grouped_level(x_dense, rows, vals, block_q, block_c, parent_scores,
+                                  qt=qt, mode=mode, product=product)
+
+
+def mscm_pallas_grouped_q(
+    x_dense: torch.Tensor,
+    rows: torch.Tensor,
+    vals: torch.Tensor,
+    scales: torch.Tensor,
+    block_q: torch.Tensor,
+    block_c: torch.Tensor,
+    parent_scores: Optional[torch.Tensor] = None,
+    *,
+    qt: int = ops.DEFAULT_QT,
+    mode: str = "none",
+) -> torch.Tensor:
+    """The reference's entry point of this name. Returns f32 [A, B] in the
+    original block order."""
+    return mscm_grouped_q_level(x_dense, rows, vals, scales, block_q, block_c,
+                                parent_scores, qt=qt, mode=mode)

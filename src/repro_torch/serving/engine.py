@@ -11,6 +11,11 @@ reference relies on JAX's asynchronous dispatch: the traversal reads
 nothing back to the host, queries go to the device through pinned memory
 with ``non_blocking=True``, and the engine waits only when it copies a
 finished chunk's results back.
+
+A quantized tier (``ServeConfig(quant=QuantConfig(tier=...))`` other than
+``exact``) quantizes the tree once, on its device, when the engine is built,
+and serves it through ``method="mscm_pallas_grouped_q"``, as the reference
+does.
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.tree import XMRTree, check_method, resolve_device
+from repro_torch.quant.storage import QuantizedTree, quantize_tree
 from repro_torch.serving.config import ServeConfig
 from repro_torch.serving.metrics import LatencyStats
 from repro_torch.sparse.csr import CSR, rows_to_ell
@@ -55,7 +61,24 @@ class XMRServingEngine:
         self.device = resolve_device(device)
         self.method = resolve_method(self.config.method, self.device)
         check_method(self.method)
+        qc = self.config.quant
+        if qc.tier != "exact":
+            # Only the quantized grouped kernel reads int8/fp8 tiles: "auto"
+            # resolves there, and an explicit exact method contradicts the tier.
+            if self.config.method not in ("auto", "mscm_pallas_grouped_q"):
+                raise ValueError(
+                    f"quant tier {qc.tier!r} serves via method='mscm_pallas_grouped_q'; "
+                    f"got explicit method={self.config.method!r}"
+                )
+            self.method = "mscm_pallas_grouped_q"
+        elif self.method == "mscm_pallas_grouped_q" and not isinstance(tree, QuantizedTree):
+            raise ValueError(
+                "method='mscm_pallas_grouped_q' serves a quantized tree: set "
+                "ServeConfig(quant=QuantConfig(tier=...)) or pass a QuantizedTree"
+            )
         self.tree = tree.to(self.device)
+        if qc.tier != "exact":
+            self.tree = quantize_tree(self.tree, tier=qc.tier, prune_keep=qc.prune_keep)
         self.label_perm = label_perm  # leaf position -> original label id
         self.stats = LatencyStats()
 

@@ -6,10 +6,11 @@ machine that has only the port's dependencies:
 
     PYTHONPATH=src python -m pytest tests/test_torch_cuda.py -q
 
-Each kernel is held against its plain version; the traversal on the card
-against the same traversal on the CPU, by the ranking rule of
-``repro_torch.parity`` (scores within rtol 1e-5 / atol 1e-6, labels equal
-outside near-ties).
+Each kernel is held against its plain version; the quantized grouped
+kernel also bitwise against the f32 grouped kernel on the dequantized
+tiles; the traversal on the card against the same traversal on the CPU, by
+the ranking rule of ``repro_torch.parity`` (scores within rtol 1e-5 / atol
+1e-6, labels equal outside near-ties).
 """
 
 import numpy as np
@@ -20,6 +21,8 @@ from repro_torch.core.tree import XMRTree
 from repro_torch.kernels import mscm_kernel as tk
 from repro_torch.kernels import ops
 from repro_torch.parity import check_ranking
+from repro_torch.quant import kernels as qk
+from repro_torch.quant.storage import quantize_chunks, quantize_tree
 from repro_torch.sparse.csr import random_sparse_csc, random_sparse_csr
 
 # R-term f32 sums in different orders (see chip_smoke.py).
@@ -141,3 +144,49 @@ def test_online_traversal_on_card_matches_cpu(cuda_device, method, score_mode):
         if method == "mscm_pallas_pregather":
             assert (tk.FUSED_LAUNCHES, tk.PREGATHER_LAUNCHES) == (fused, pregather + gpu.depth)
         check_ranking(s1.cpu().numpy(), l1.cpu().numpy(), s0.numpy(), l0.numpy(), method)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["int8", "fp8"])
+@pytest.mark.parametrize("shape", [  # (T, QT, R, B, C)
+    (640, 8, 496, 32, 300), (1, 4, 8, 6, 3), (1, 4, 8, 8, 3), (3, 16, 100, 70, 4),
+])
+def test_grouped_q_kernel_matches_plain_and_dequantized(cuda_device, shape, dtype):
+    t, qt, r, b, c = shape
+    g = torch.Generator().manual_seed(3)
+    xg = torch.rand(t, qt, r, generator=g).to(cuda_device)
+    vals, scales = quantize_chunks(torch.randn(c, r, b, generator=g).to(cuda_device), dtype)
+    tc = torch.sort(torch.randint(0, c + 1, (t,), generator=g)).values.to(cuda_device)
+    ps = torch.rand(t, qt, generator=g).to(cuda_device)
+    deq = vals.float() * scales[:, None, :]
+    for mode in ("none", "prod", "logsum"):
+        p = None if mode == "none" else ps
+        before = qk.GROUPED_Q_LAUNCHES
+        got = qk.mscm_grouped_q(xg, vals, scales, tc, p, mode=mode)
+        assert qk.GROUPED_Q_LAUNCHES == before + 1
+        want = qk.mscm_grouped_q_plain(xg, vals, scales, tc, p, mode=mode)
+        torch.testing.assert_close(got, want, rtol=KERNEL_RTOL, atol=KERNEL_ATOL)
+        # One routine: the dequantized tiles through the f32 kernel, bitwise.
+        assert torch.equal(got, tk.mscm_grouped(xg, deq, tc, p, mode=mode))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tier", ["int8", "int8_pruned", "fp8"])
+def test_quantized_traversal_on_card_matches_cpu(cuda_device, tier):
+    rng = np.random.default_rng(29)
+    d, B = 200, 8
+    ws = [random_sparse_csc(d, L, 10, rng, sibling_groups=B) for L in (8, 64, 512)]
+    x = random_sparse_csr(16, d, 15, rng)
+    xi, xv = (torch.from_numpy(a) for a in x.to_ell(32))
+    cpu = quantize_tree(XMRTree.from_weight_matrices(ws, B, device="cpu"), tier=tier)
+    gpu = quantize_tree(XMRTree.from_weight_matrices(ws, B), tier=tier)
+    for lc, lg in zip(cpu.layers, gpu.layers):  # the card's codes are the CPU's
+        assert torch.equal(lc.chunk_rows, lg.chunk_rows.cpu())
+        assert torch.equal(lc.chunk_vals.view(torch.uint8), lg.chunk_vals.cpu().view(torch.uint8))
+        assert torch.equal(lc.chunk_scales, lg.chunk_scales.cpu())
+    s0, l0 = cpu.infer(xi, xv, beam=10, topk=5, method="mscm_pallas_grouped_q")
+    before = qk.GROUPED_Q_LAUNCHES
+    s1, l1 = gpu.infer(xi, xv, beam=10, topk=5, method="mscm_pallas_grouped_q", qt=4)
+    assert qk.GROUPED_Q_LAUNCHES == before + gpu.depth
+    check_ranking(s1.cpu().numpy(), l1.cpu().numpy(), s0.numpy(), l0.numpy(), tier)

@@ -3,8 +3,9 @@
 Both engines get the same ``ServeConfig`` knobs, weights and queries and
 serve them in the batch and online settings; results agree under the rule
 of ``test_torch_tree.py`` (scores within ``rtol=1e-5, atol=1e-6``, labels
-equal wherever the reference's score gap exceeds that). Options and methods
-not ported yet raise ``NotImplementedError``.
+equal wherever the reference's score gap exceeds that). Options not ported
+yet raise ``NotImplementedError``; the quantized tiers are held against the
+reference in ``test_torch_quant.py``.
 """
 
 import numpy as np
@@ -125,8 +126,8 @@ def test_engine_needs_a_gpu_or_explicit_cpu(setup, monkeypatch):
 
 
 @pytest.mark.parametrize("kwargs", [
-    dict(shards=2), dict(partitions=2), dict(tier="int8"), dict(target_p99_ms=50.0),
-    dict(quant=object()), dict(partition=object()), dict(slo=object()),
+    dict(shards=2), dict(partitions=2), dict(fleet=object()), dict(target_p99_ms=50.0),
+    dict(admission=object()), dict(partition=object()), dict(slo=object()),
 ])
 def test_unported_options_raise(kwargs):
     with pytest.raises(NotImplementedError):
@@ -135,13 +136,15 @@ def test_unported_options_raise(kwargs):
 
 @pytest.mark.parametrize("method", ["mscm_pallas_grouped_q"])
 def test_unported_methods_raise_at_engine_build(setup, method):
+    """Every method is ported; the quantized one still refuses, at engine
+    build, an f32 tree that no quant tier will quantize."""
     _, tt, _, _, _ = setup
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(ValueError, match="QuantConfig"):
         XMRServingEngine(tt, ServeConfig(method=method), device="cpu")
 
 
 def test_config_defaults_and_unknown_options():
-    c, j = ServeConfig(partitions=1, tier="exact", target_p99_ms=None), JConfig()
+    c, j = ServeConfig(partitions=1, target_p99_ms=None), JConfig()
     for k in ("beam", "topk", "method", "ell_width", "max_batch", "score_mode", "qt", "shards"):
         assert getattr(c, k) == getattr(j, k)
     with pytest.raises(TypeError):

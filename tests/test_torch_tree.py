@@ -184,6 +184,10 @@ def test_entry_points_need_a_gpu_or_explicit_cpu(small, monkeypatch):
 
 @pytest.mark.parametrize("method", ["mscm_pallas_grouped_q"])
 def test_unported_methods_raise(small, method):
+    """Every method is ported; the quantized one raises on an f32 tree,
+    which has no scales to dequantize with."""
     _, tt, _, _, xi, xv = small
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(ValueError, match="quantize_tree"):
         tt.infer(torch.from_numpy(xi), torch.from_numpy(xv), method=method)
+    with pytest.raises(ValueError, match="unknown method"):
+        tt.infer(torch.from_numpy(xi), torch.from_numpy(xv), method="mscm_pallas_grouped_q8")
