@@ -3,7 +3,8 @@
 
 Run from the root of a checkout, on a machine with a CUDA device and nvcc:
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                  # every phase
+    python3 chip_smoke.py --kernels-only   # phases 1-3
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -13,10 +14,12 @@ Phases, in order; any failure raises and the script exits non-zero:
             ``nvcc`` per source, all started together;
 3. kernels  hold each kernel (grouped, fused, pregather, and grouped_q in
             int8 and fp8) against its plain PyTorch version on the card, at
-            the paths' shapes and at edge shapes, and grouped_q bitwise
-            against grouped on the dequantized tiles; time kernel, plain
-            version and library call with CUDA events, behind a sleep kernel
-            so that only device time counts;
+            the paths' shapes and at edge shapes, grouped_q bitwise against
+            grouped on the dequantized tiles, and fused and pregather bitwise
+            against a second launch; print the per-block launch plans and
+            ptxas lines; time kernel, plain version, library call and the
+            launch floor with CUDA events, behind a sleep kernel so that only
+            device time counts;
 4. small    exact beam search on a small tree, on the card, through every
             ported method, against a numpy brute-force scorer;
 5. path     build the ``search-1m`` model (seed 0, random weights at the real
@@ -38,7 +41,8 @@ Phases, in order; any failure raises and the script exits non-zero:
             d = 4M, then through every other method, each held against
             ``mscm_dense`` and profiled; then build ``search-32k`` (d = 337,067)
             and serve 64 queries with ``method="mscm_pallas"``, which takes the
-            fused kernel there.
+            fused kernel there; profile both online paths and report the
+            per-block kernel's device time a launch.
 
 The line before last is a JSON object with one entry per kernel, whose
 ``launches`` count that kernel's path (grouped: path; grouped_q: the int8
@@ -348,42 +352,92 @@ def block_timing(torch, mk, name, x, rows, vals, bq, bc) -> dict:
     return out
 
 
-def block_kernel_check(torch, mk, ops):
+def repeat_bitwise(torch, fn, what: str):
+    """Run ``fn`` twice; raise unless the two results are bitwise equal
+    (the per-block kernels sum in a fixed order and use no atomics)."""
+    first, second = fn(), fn()
+    torch.cuda.synchronize()
+    if not torch.equal(first, second):
+        raise AssertionError(f"{what}: two launches differ")
+    return first
+
+
+def block_plans(torch, mk, build, shapes) -> None:
+    """Log each entry point's launch plan at ``shapes`` (label -> A, R, B)
+    and the per-block kernels' ptxas lines from the build."""
+    for label, (a, r, b) in shapes.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            p = mk.block_launch_plan(a, r, b, dtype.itemsize)
+            log(f"  plan {label} {str(dtype)[6:]} (fused and pregather): S={p.cluster} "
+                f"(grid {p.grid(a)}), {p.rows_per_slice} rows a slice in slabs of "
+                f"{p.slab_rows} x {p.stages} stage(s), "
+                f"{'bulk copies' if p.bulk else 'ordinary loads'}, {p.smem_bytes} B shared")
+    kernel = None
+    for line in build.BUILD_LOGS.get("mscm_block", "").splitlines():
+        if "Compiling entry function" in line:
+            kernel = line.split("'")[1]
+        elif kernel and ("registers" in line or "spill" in line):
+            kind = ("fused" if "Lb1E" in kernel else "pregather") + (
+                " bf16" if "bfloat16" in kernel else " f32")
+            log(f"  ptxas mscm_block {kind}: {line.replace('ptxas info    :', '').strip()}")
+
+
+def block_kernel_check(torch, mk, ops, build):
     """Phase 3b: the fused and pregather kernels against their plain
-    versions, at the online shape (A = 10 blocks a level), the batch shape
-    (A = 640) and edge shapes, in f32 and (fused) bf16; then timings."""
+    versions, at the online shape (A = 10 blocks a level, and A = 1), the
+    batch shape (A = 640) and edge shapes (unaligned slices that take
+    ordinary loads, a tile streamed through a ring), in f32 and bf16, each
+    launched twice and held bitwise to itself; then the plans and the
+    timings, with the launch floor at the online shape."""
     g = torch.Generator(device="cuda").manual_seed(0)
     big = block_inputs(torch, g, 640, 64, 337_068, 496, 32, 32768, 160)
     x, rows, vals, _, _ = big
     online = (x[:1], rows, vals) + block_list(torch, g, 10, 1, vals.shape[0], 3)
     cases = {  # label -> (x, rows, vals, block_q, block_c)
         "online A=10 R=496 B=32": online,
+        "online A=1 R=496 B=32": (x[:1], rows, vals) + block_list(torch, g, 1, 1,
+                                                                   vals.shape[0], 0),
         "batch A=640 R=496 B=32": big,
         "edge A=1 B=6": block_inputs(torch, g, 1, 1, 50, 8, 6, 3, 0, past=3),
-        "edge B=8 R=37": block_inputs(torch, g, 5, 2, 70, 37, 8, 3, 1, past=3),
-        "edge B=70 R=1037": block_inputs(torch, g, 3, 2, 2000, 1037, 70, 4, 1, past=3),
+        "edge B=8 R=37 (unaligned)": block_inputs(torch, g, 5, 2, 70, 37, 8, 3, 1, past=3),
+        "edge B=70 R=1037 (unaligned)": block_inputs(torch, g, 3, 2, 2000, 1037, 70, 4, 1,
+                                                     past=3),
+        "ring A=200 R=1040 B=72": block_inputs(torch, g, 200, 2, 2000, 1040, 72, 40, 10,
+                                               past=3),
     }
     past = block_inputs(torch, g, 6, 3, 90, 24, 16, 5, 1)
     past[4][-2:] = 7  # chunk ids past C = 5: clamped to the last chunk
     cases["edge chunk id past C"] = past
     err = {"mscm_fused": 0.0, "mscm_pregather": 0.0, "bf16": 0.0}
     for label, (x, rows, vals, bq, bc) in cases.items():
-        got = mk.mscm_fused(x, rows, vals, bq, bc)
+        got = repeat_bitwise(torch, lambda: mk.mscm_fused(x, rows, vals, bq, bc),
+                             f"mscm_fused {label}")
         want = mk.mscm_fused_plain(x, rows, vals, bq, bc)
         err["mscm_fused"] = max(err["mscm_fused"], held(
             torch, got, want, f"mscm_fused {label}", KERNEL_RTOL, KERNEL_ATOL))
         xg = gathered(x, rows, bq, bc)
-        got = mk.mscm_pregather(xg, vals, bc)
+        got = repeat_bitwise(torch, lambda: mk.mscm_pregather(xg, vals, bc),
+                             f"mscm_pregather {label}")
         want = mk.mscm_pregather_plain(xg, vals, bc)
         err["mscm_pregather"] = max(err["mscm_pregather"], held(
             torch, got, want, f"mscm_pregather {label}", KERNEL_RTOL, KERNEL_ATOL))
-    for label in ("online A=10 R=496 B=32", "edge B=70 R=1037"):
+    for label in ("online A=10 R=496 B=32", "online A=1 R=496 B=32",
+                  "edge B=8 R=37 (unaligned)", "edge B=70 R=1037 (unaligned)",
+                  "ring A=200 R=1040 B=72"):
         x, rows, vals, bq, bc = cases[label]
         x16, v16 = x.bfloat16(), vals.bfloat16()
-        got = mk.mscm_fused(x16, rows, v16, bq, bc)
+        got = repeat_bitwise(torch, lambda: mk.mscm_fused(x16, rows, v16, bq, bc),
+                             f"mscm_fused bf16 {label}")
         want = mk.mscm_fused_plain(x16, rows, v16, bq, bc)
         err["bf16"] = max(err["bf16"], held(
             torch, got, want, f"mscm_fused bf16 {label}", BF16_TOL, BF16_TOL))
+        xg16 = gathered(x16, rows, bq, bc)
+        got = repeat_bitwise(torch, lambda: mk.mscm_pregather(xg16, v16, bc),
+                             f"mscm_pregather bf16 {label}")
+        err["bf16"] = max(err["bf16"], held(
+            torch, got, mk.mscm_pregather_plain(xg16, v16, bc),
+            f"mscm_pregather bf16 {label}", BF16_TOL, BF16_TOL))
+    log("  every case of both entry points: two launches bitwise equal")
     # sort=False through ops.mscm_pallas: the block list in arrival order.
     x, rows, vals, bq, bc = cases["online A=10 R=496 B=32"]
     perm = torch.randperm(bc.numel(), device="cuda", generator=g)
@@ -396,9 +450,19 @@ def block_kernel_check(torch, mk, ops):
                 torch, got, want, f"ops.mscm_pallas variant={variant} sort={sort}",
                 KERNEL_RTOL, KERNEL_ATOL))
 
+    block_plans(torch, mk, build, {label: (cases[label][4].numel(),) + cases[label][2].shape[1:]
+                                   for label in ("online A=10 R=496 B=32",
+                                                 "batch A=640 R=496 B=32",
+                                                 "edge B=70 R=1037 (unaligned)",
+                                                 "ring A=200 R=1040 B=72")})
+    # The launch floor: one trivial kernel on the online output [A, B].
+    out = torch.empty(10, 32, device="cuda")
+    floor_ms = time_ms(lambda: out.zero_())
+    log(f"  launch floor at the online shape: out.zero_() on [10, 32] {floor_ms:.5f} ms")
     entries = []
     for name, line in (("mscm_fused", 67), ("mscm_pregather", 111)):
         t_online = block_timing(torch, mk, name, *cases["online A=10 R=496 B=32"])
+        t_one = block_timing(torch, mk, name, *cases["online A=1 R=496 B=32"])
         t_batch = block_timing(torch, mk, name, *cases["batch A=640 R=496 B=32"])
         entry = {
             "name": name,
@@ -409,6 +473,8 @@ def block_kernel_check(torch, mk, ops):
             "max_err": err[name],
             **t_online,
             "kernel_ms": t_online["ms"],
+            "floor_ms": floor_ms,
+            "a1_ms": t_one["ms"],
             **{f"batch_{k}": v for k, v in t_batch.items()},
         }
         if name == "mscm_fused":
@@ -491,6 +557,16 @@ def log_profile(what: str, wall: float, acts: int, busy_us: float, rows, gpu: st
         f"of wall  [{gpu}]")
     for dev_us, count, key in rows[:top]:
         log(f"    {dev_us / 1e3:9.4f} ms {100 * dev_us / busy_us:5.1f}%  x{count:<4d} {key[:90]}")
+
+
+def log_block_kernel(what: str, rows, queries: int) -> None:
+    """The per-block kernel's share of a profile: device time a launch, and
+    launches and device time a query."""
+    hits = [(us, n) for us, n, key in rows if "mscm_block_kernel" in key]
+    us, n = sum(h[0] for h in hits), sum(h[1] for h in hits)
+    if n:
+        log(f"  {what}: the per-block kernel {us / n:.3f} us a launch on the path "
+            f"({n / queries:.1f} launches, {us / queries:.3f} us a query)")
 
 
 def path(torch, mk, gpu: str):
@@ -744,6 +820,7 @@ def online(torch, mk, gpu: str, tree, queries):
         if method == "mscm_pallas":
             log_profile(f"{PROFILED_QUERIES} online queries, mscm_pallas", wall, acts, busy_us,
                         rows, gpu, 10)
+            log_block_kernel("search-1m online mscm_pallas (pregather)", rows, PROFILED_QUERIES)
     ratio = p50["vanilla"] / p50["mscm_pallas"]
     log(f"  search-1m online p50 vanilla / mscm_pallas = {ratio[0]:.3f} / {ratio[1]:.3f} "
         f"(forward / reverse pass; the paper reports 7.28 / 0.88 ms = 8.3x on its "
@@ -770,12 +847,26 @@ def online(torch, mk, gpu: str, tree, queries):
         f"0 pregather; p50 {st['p50_ms']:.5f} ms, p99 {st['p99_ms']:.5f} ms per query "
         f"(mscm_dense p50 {st_d['p50_ms']:.5f}, p99 {st_d['p99_ms']:.5f}); agrees with "
         f"mscm_dense ({n_diff} near-tie label swaps)  [{gpu}]")
+    wall, acts, busy_us, rows = device_profile(
+        lambda: eng.serve_online(q32, limit=PROFILED_QUERIES))
+    log_profile(f"{PROFILED_QUERIES} search-32k online queries, mscm_pallas", wall, acts,
+                busy_us, rows, gpu, 6)
+    log(f"  search-32k online mscm_pallas: {acts / PROFILED_QUERIES:.1f} device activities and "
+        f"{busy_us / 1e3 / PROFILED_QUERIES:.5f} ms device busy per query")
+    log_block_kernel("search-32k online mscm_pallas (fused)", rows, PROFILED_QUERIES)
     return pregather, fused
 
 
 def main() -> int:
+    import argparse
+
     import torch
 
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--kernels-only", action="store_true",
+                    help="stop after the kernels phase: print the kernel line (without "
+                         "path launches) and no ok line; for comparing kernel versions")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
@@ -806,8 +897,11 @@ def main() -> int:
 
     log("phase kernels")
     grouped = kernel_check(torch, mk)
-    fused, pregather = block_kernel_check(torch, mk, ops)
+    fused, pregather = block_kernel_check(torch, mk, ops, build)
     grouped_q = quant_kernel_check(torch, mk, qk, quantize_chunks)
+    if args.kernels_only:
+        print(json.dumps({"kernels": [grouped, fused, pregather, grouped_q]}))
+        return 0
     log("phase small")
     small_check(torch)
     log("phase path")

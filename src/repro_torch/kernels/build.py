@@ -36,10 +36,13 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "mscm_grouped_q_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     },
     "mscm_block": {
-        # x_dense, rows, vals, block_q, block_c, out, A, Dp, R, B, C, n, dtype, stream
-        "mscm_fused_launch": (_P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _I, _I, _I, _P),
-        # xg, vals, block_c, out, A, R, B, C, dtype, stream
-        "mscm_pregather_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+        # x_dense, rows, vals, block_q, block_c, out, A, Dp, R, B, C, n, dtype,
+        # then the launch plan (S, rps, slab, stages, bulk), stream
+        "mscm_fused_launch": (_P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _I, _I, _I,
+                              _I, _I, _I, _I, _I, _P),
+        # xg, vals, block_c, out, A, R, B, C, dtype, S, rps, slab, stages, bulk, stream
+        "mscm_pregather_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                  _I, _I, _I, _I, _I, _P),
     },
 }
 

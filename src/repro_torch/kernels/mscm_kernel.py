@@ -13,6 +13,8 @@ the Pallas TPU kernel of the same name:
                     d up to ``ops.VMEM_ROW_LIMIT``;
 ``mscm_pregather``  (``csrc/mscm_block.cu``) the same product over query
                     values gathered beforehand: the online path above it.
+                    Both split R over a thread-block cluster by the plan of
+                    :func:`block_launch_plan`.
 
 The fourth TPU kernel, ``mscm_grouped_q``, is the grouped kernel over
 int8/fp8 tiles: its wrapper is in ``repro_torch.quant.kernels``, its entry
@@ -26,7 +28,7 @@ a run can show its main path went through it.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -196,6 +198,93 @@ def _launch(xg_tiles, vals, tile_chunk, parent_scores, mode) -> torch.Tensor:
 # fused and pregather: one [1, R] x [R, B] product per block
 # ---------------------------------------------------------------------------
 
+#: Streaming multiprocessors of an H100, which the cluster split fills.
+H100_SMS = 132
+#: Largest thread-block cluster that every Hopper part schedules.
+MAX_CLUSTER = 8
+#: Shared memory one CTA of the per-block kernel may take. Above it a
+#: slice streams through a ring of slabs.
+BLOCK_SMEM_BUDGET = 96 * 1024
+_BLOCK_WARPS = 8  # kWarps in csrc/mscm_block.cu
+
+
+class BlockPlan(NamedTuple):
+    """How ``csrc/mscm_block.cu`` runs A blocks of R rows and B columns.
+
+    Each block is served by a cluster of ``cluster`` CTAs (the grid is
+    ``A * cluster``); CTA ``rank`` takes rows ``[rank * rows_per_slice,
+    (rank + 1) * rows_per_slice)`` of the chunk (the last slice may be
+    shorter, none is empty) and streams them in slabs of ``slab_rows`` rows
+    through ``stages`` shared-memory buffers. ``bulk``: the slabs arrive by
+    16-byte-aligned bulk copies, else by ordinary loads."""
+
+    cluster: int
+    rows_per_slice: int
+    slab_rows: int
+    stages: int
+    bulk: bool
+    smem_bytes: int
+
+    def grid(self, a: int) -> int:
+        return a * self.cluster
+
+    def args(self) -> Tuple[int, int, int, int, int]:
+        """The plan as the C entry points take it: S, rps, slab, stages, bulk."""
+        return (self.cluster, self.rows_per_slice, self.slab_rows, self.stages,
+                int(self.bulk))
+
+
+def _cdiv(n: int, m: int) -> int:
+    return -(-n // m)
+
+
+def _align16(n: int) -> int:
+    return _cdiv(n, 16) * 16
+
+
+def block_smem_bytes(b: int, elem_bytes: int, slab_rows: int, stages: int) -> int:
+    """Shared memory of one CTA (``Layout`` in ``csrc/mscm_block.cu``): two
+    mbarriers a stage and one for the cluster sum, the warps' partials
+    [8, B], the cluster's partials [8, B], and per stage a tile slab, its
+    query values and its rows."""
+    stage = (_align16(slab_rows * b * elem_bytes) + _align16(slab_rows * elem_bytes)
+             + _align16(4 * slab_rows))
+    return (_align16(8 * (2 * stages + 1)) + _align16(4 * _BLOCK_WARPS * b)
+            + _align16(4 * MAX_CLUSTER * b) + stages * stage)
+
+
+def block_launch_plan(a: int, r: int, b: int, elem_bytes: int, *,
+                      aligned: bool = True) -> BlockPlan:
+    """The launch plan of the per-block kernel for A blocks of an [R, B]
+    chunk tile of ``elem_bytes``-byte values.
+
+    ``cluster`` fills the card: ``132 // A`` CTAs a block (the H100's SMs),
+    at most :data:`MAX_CLUSTER`, so 10 blocks take 80 SMs and 132 or more
+    take one CTA each. Slices are a whole number of ``q`` rows (4 in f32, 8
+    in bf16), so that each slice's tile rows, query values and int32 rows
+    start and end on 16 bytes whenever R is a multiple of ``q``; then, and
+    if the caller's pointers are 16-byte aligned (``aligned``), the slabs go
+    by bulk copies. A slice whose buffer exceeds
+    :data:`BLOCK_SMEM_BUDGET` is cut into slabs: a ring of two on the bulk
+    path, one buffer refilled by ordinary loads on the other."""
+    if a < 0 or r < 1 or b < 1 or elem_bytes not in (2, 4):
+        raise ValueError(f"no plan for A={a}, R={r}, B={b}, elem_bytes={elem_bytes}")
+    q = max(4, 16 // elem_bytes)
+    cluster = min(MAX_CLUSTER, max(1, H100_SMS // max(a, 1)))
+    rps = _cdiv(_cdiv(r, cluster), q) * q
+    cluster = _cdiv(r, rps)  # no empty slice
+    bulk = aligned and r % q == 0
+    stages, slab, n_slabs = 1, rps, 1
+    while block_smem_bytes(b, elem_bytes, slab, stages) > BLOCK_SMEM_BUDGET:
+        if slab <= q:
+            raise ValueError(f"B={b} is too wide for {BLOCK_SMEM_BUDGET} bytes of shared memory")
+        stages = 2 if bulk else 1
+        n_slabs += 1
+        slab = min(slab - q, _cdiv(_cdiv(rps, n_slabs), q) * q)
+    return BlockPlan(cluster, rps, slab, stages, bulk,
+                     block_smem_bytes(b, elem_bytes, slab, stages))
+
+
 def _check_block_args(x, vals, block_c, rows=None, block_q=None) -> None:
     """Checks shared by :func:`mscm_fused` (``x`` = x_dense [n, Dp], with
     ``rows`` and ``block_q``) and :func:`mscm_pregather` (``x`` = xg [A, R])."""
@@ -296,6 +385,9 @@ def _launch_block(x, vals, block_c, rows=None, block_q=None) -> torch.Tensor:
     out = torch.empty((a, b), dtype=torch.float32, device=dev)
     lib = load_library("mscm_block")
     dtype = BLOCK_DTYPES[x.dtype]
+    head = rows if rows is not None else x  # what the bulk path copies beside the tile
+    plan = block_launch_plan(a, r, b, x.element_size(),
+                             aligned=head.data_ptr() % 16 == 0 and vals.data_ptr() % 16 == 0)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         if rows is not None:
@@ -303,18 +395,18 @@ def _launch_block(x, vals, block_c, rows=None, block_q=None) -> torch.Tensor:
             err = lib.mscm_fused_launch(
                 x.data_ptr(), rows.data_ptr(), vals.data_ptr(), block_q.data_ptr(),
                 block_c.data_ptr(), out.data_ptr(), a, x.shape[1], r, b, c, x.shape[0],
-                dtype, stream,
+                dtype, *plan.args(), stream,
             )
         else:
             name = "mscm_pregather"
             err = lib.mscm_pregather_launch(
                 x.data_ptr(), vals.data_ptr(), block_c.data_ptr(), out.data_ptr(),
-                a, r, b, c, dtype, stream,
+                a, r, b, c, dtype, *plan.args(), stream,
             )
     if err != 0:
         raise RuntimeError(
             f"{name} launch failed with CUDA error {err} "
-            f"(A={a}, R={r}, B={b}, C={c}, x {tuple(x.shape)} {x.dtype})"
+            f"(A={a}, R={r}, B={b}, C={c}, x {tuple(x.shape)} {x.dtype}, {plan})"
         )
     if rows is not None:
         FUSED_LAUNCHES += 1

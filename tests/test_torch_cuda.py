@@ -77,21 +77,32 @@ def test_traversal_on_card_matches_cpu(cuda_device, score_mode):
     check_ranking(s1.cpu().numpy(), l1.cpu().numpy(), s0.numpy(), l0.numpy(), "grouped")
 
 
+def _block_inputs(device, shape, dtype, seed=1):
+    """Seeded inputs of the per-block kernels: query table, chunk rows (some
+    past the table, clipped), tiles, and a sorted block list naming chunk C
+    (clamped)."""
+    a, n, dp, r, b, c = shape
+    g = torch.Generator().manual_seed(seed)
+    x = torch.rand(n, dp, generator=g).to(dtype)
+    rows = torch.randint(0, dp + 3, (c, r), generator=g, dtype=torch.int32)
+    vals = torch.randn(c, r, b, generator=g).to(dtype)
+    bq = torch.randint(0, n, (a,), generator=g)
+    bc = torch.sort(torch.randint(0, c + 1, (a,), generator=g)).values
+    return tuple(t.to(device) for t in (x, rows, vals, bq, bc))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [  # (A, n, Dp, R, B, C)
     (10, 1, 5000, 496, 32, 300), (640, 64, 900, 96, 32, 40), (1, 1, 50, 8, 6, 3),
     (3, 2, 90, 1100, 70, 4), (5, 2, 70, 37, 8, 3),
+    (1, 1, 5000, 496, 32, 300),       # one block, R split over a cluster of 8
+    (3, 2, 2000, 1037, 70, 4),        # unaligned in f32 and bf16: ordinary loads
+    (200, 2, 2000, 1040, 72, 40),     # one CTA a block, the tile through a ring of slabs
 ])
 def test_block_kernels_match_plain(cuda_device, shape, dtype):
     a, n, dp, r, b, c = shape
-    g = torch.Generator().manual_seed(1)
-    x = torch.rand(n, dp, generator=g).to(dtype)
-    rows = torch.randint(0, dp + 3, (c, r), generator=g, dtype=torch.int32)  # some clipped
-    vals = torch.randn(c, r, b, generator=g).to(dtype)
-    bq = torch.randint(0, n, (a,), generator=g)
-    bc = torch.sort(torch.randint(0, c + 1, (a,), generator=g)).values  # c is clamped
-    x, rows, vals, bq, bc = (t.to(cuda_device) for t in (x, rows, vals, bq, bc))
+    x, rows, vals, bq, bc = _block_inputs(cuda_device, shape, dtype)
     tol = dict(rtol=KERNEL_RTOL, atol=KERNEL_ATOL) if dtype == torch.float32 else dict(
         rtol=BF16_TOL, atol=BF16_TOL)
     before = tk.FUSED_LAUNCHES
@@ -104,6 +115,19 @@ def test_block_kernels_match_plain(cuda_device, shape, dtype):
     assert tk.PREGATHER_LAUNCHES == before + 1
     torch.testing.assert_close(got, tk.mscm_pregather_plain(xg, vals, bc), **tol)
     torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(10, 1, 5000, 496, 32, 300), (640, 64, 900, 96, 32, 40),
+                                   (3, 2, 2000, 1037, 70, 4), (200, 2, 2000, 1040, 72, 40)])
+def test_block_kernels_repeat_bitwise(cuda_device, shape, dtype):
+    """Fixed-order sums, no atomics: two launches on the same inputs agree
+    bit for bit."""
+    x, rows, vals, bq, bc = _block_inputs(cuda_device, shape, dtype, seed=5)
+    assert torch.equal(tk.mscm_fused(x, rows, vals, bq, bc), tk.mscm_fused(x, rows, vals, bq, bc))
+    xg = x[bq[:, None], rows[bc.clamp(max=vals.shape[0] - 1)].long().clamp(max=x.shape[1] - 1)]
+    assert torch.equal(tk.mscm_pregather(xg, vals, bc), tk.mscm_pregather(xg, vals, bc))
 
 
 @pytest.mark.cuda

@@ -354,6 +354,98 @@ def test_block_wrappers_reject_bad_arguments():
 
 
 # ---------------------------------------------------------------------------
+# The per-block kernel's launch plan (index arithmetic of csrc/mscm_block.cu)
+# ---------------------------------------------------------------------------
+
+def plan_slabs(plan, r):
+    """(rank, slab, first row, rows) of every slab one cluster stages, as
+    csrc/mscm_block.cu walks them: CTA ``rank`` takes rows from
+    ``rank * rows_per_slice`` in slabs of ``slab_rows``."""
+    for rank in range(plan.cluster):
+        row0 = rank * plan.rows_per_slice
+        nrows = min(r, row0 + plan.rows_per_slice) - row0
+        for j, first in enumerate(range(0, nrows, plan.slab_rows)):
+            yield rank, j, row0 + first, min(plan.slab_rows, nrows - first)
+
+
+# (A, R, B): online, one block, batch, and the edge shapes of the card tests.
+PLAN_SHAPES = [(10, 496, 32), (1, 496, 32), (640, 496, 32), (132, 496, 32), (66, 496, 32),
+               (1, 8, 6), (5, 37, 8), (3, 1037, 70), (200, 1040, 72), (200, 1037, 70),
+               (6, 24, 16), (0, 496, 32)]
+
+
+@pytest.mark.parametrize("elem_bytes", [4, 2])
+@pytest.mark.parametrize("shape", PLAN_SHAPES)
+def test_block_plan_covers_every_row_once(shape, elem_bytes):
+    a, r, b = shape
+    plan = tk.block_launch_plan(a, r, b, elem_bytes)
+    assert 1 <= plan.cluster <= tk.MAX_CLUSTER
+    assert plan.grid(a) == a * plan.cluster
+    if a >= tk.H100_SMS:
+        assert plan.cluster == 1
+    seen = np.zeros(r, np.int64)
+    slices = {}
+    for rank, _, first, n in plan_slabs(plan, r):
+        assert 1 <= n <= plan.slab_rows
+        seen[first:first + n] += 1
+        slices.setdefault(rank, []).append((first, n))
+    np.testing.assert_array_equal(seen, 1)  # every row in exactly one slice
+    assert sorted(slices) == list(range(plan.cluster))  # no slice empty
+    for rank, slabs in slices.items():  # each slice contiguous, from rank * rps
+        assert slabs[0][0] == rank * plan.rows_per_slice
+        assert all(f0 + n0 == f1 for (f0, n0), (f1, _) in zip(slabs, slabs[1:]))
+    assert plan.smem_bytes <= tk.BLOCK_SMEM_BUDGET
+    assert plan.smem_bytes == tk.block_smem_bytes(b, elem_bytes, plan.slab_rows, plan.stages)
+
+
+def test_block_plan_splits_the_online_shape_over_a_cluster():
+    online = tk.block_launch_plan(10, 496, 32, 4)
+    assert (online.cluster, online.grid(10)) == (8, 80)  # 80 SMs pull bytes, not 10
+    assert tk.block_launch_plan(1, 496, 32, 4).cluster == 8
+    assert tk.block_launch_plan(640, 496, 32, 4).cluster == 1
+    assert tk.block_launch_plan(131, 496, 32, 4).cluster == 1
+
+
+@pytest.mark.parametrize("elem_bytes", [4, 2])
+@pytest.mark.parametrize("shape", PLAN_SHAPES)
+def test_block_plan_bulk_copies_are_16_byte_aligned(shape, elem_bytes):
+    """Every copy of the bulk path (tile slab of vals [C, R, B], query values
+    of xg [A, R], int32 rows of rows [C, R]) starts and ends on 16 bytes,
+    for any chunk c and block a."""
+    a, r, b = shape
+    plan = tk.block_launch_plan(a, r, b, elem_bytes)
+    if not plan.bulk:
+        return
+    for c_or_a in (0, 1, 7):
+        for _, _, first, n in plan_slabs(plan, r):
+            for row_bytes in (b * elem_bytes, elem_bytes, 4):
+                assert (c_or_a * r + first) * row_bytes % 16 == 0
+                assert n * row_bytes % 16 == 0
+    assert plan.stages == 1 or plan.slab_rows < plan.rows_per_slice  # a ring only to stream
+
+
+@pytest.mark.parametrize("shape,elem_bytes", [((3, 1037, 70), 4), ((5, 37, 8), 2),
+                                              ((200, 1037, 70), 4), ((1, 1037, 70), 2)])
+def test_block_plan_unaligned_shapes_take_ordinary_loads(shape, elem_bytes):
+    a, r, b = shape
+    plan = tk.block_launch_plan(a, r, b, elem_bytes)
+    assert not plan.bulk and plan.stages == 1
+    assert not tk.block_launch_plan(10, 496, 32, 4, aligned=False).bulk  # a misaligned view
+    assert tk.block_launch_plan(10, 496, 32, 4).bulk
+
+
+def test_block_plan_streams_large_tiles_through_a_ring():
+    plan = tk.block_launch_plan(200, 1040, 72, 4)  # a 299.5 KB f32 tile, one CTA a block
+    assert plan.cluster == 1 and plan.bulk and plan.stages == 2
+    assert plan.slab_rows < plan.rows_per_slice
+    assert plan.smem_bytes <= tk.BLOCK_SMEM_BUDGET
+    with pytest.raises(ValueError, match="too wide"):
+        tk.block_launch_plan(1, 64, 40_000, 4)
+    with pytest.raises(ValueError):
+        tk.block_launch_plan(1, 0, 32, 4)
+
+
+# ---------------------------------------------------------------------------
 # The plain-tensor methods: searchsorted, vanilla, cost counters
 # ---------------------------------------------------------------------------
 
