@@ -14,12 +14,15 @@ Phases, in order; any failure raises and the script exits non-zero:
             ``nvcc`` per source, all started together;
 3. kernels  hold each kernel (grouped, fused, pregather, and grouped_q in
             int8 and fp8) against its plain PyTorch version on the card, at
-            the paths' shapes and at edge shapes, grouped_q bitwise against
-            grouped on the dequantized tiles, and fused and pregather bitwise
-            against a second launch; print the per-block launch plans and
-            ptxas lines; time kernel, plain version, library call and the
-            launch floor with CUDA events, behind a sleep kernel so that only
-            device time counts;
+            the paths' shapes and at edge shapes, the grouped ones with and
+            without padding tiles, grouped_q bitwise against grouped on the
+            dequantized tiles, every kernel bitwise against a second launch;
+            print the launch plans and ptxas lines (a grouped spill fails);
+            time kernel, plain version, library call and the launch floor
+            with CUDA events, behind a sleep kernel so that only device time
+            counts; the grouped kernels warm (one input set) and cold
+            (rotating six sets that exceed L2), at T = 640 and at the path
+            shape (115 live tiles of 640);
 4. small    exact beam search on a small tree, on the card, through every
             ported method, against a numpy brute-force scorer;
 5. path     build the ``search-1m`` model (seed 0, random weights at the real
@@ -27,6 +30,8 @@ Phases, in order; any failure raises and the script exits non-zero:
             ``XMRServingEngine.serve_batch`` with ``method="auto"``; check that
             it resolved to the grouped kernel and launched it depth x batches
             times, and that it agrees with the ``mscm_dense`` oracle on the card;
+            profile one call and report the grouped kernel's device time a
+            launch and a call;
 6. quant    on that tree, check the card's int8/fp8 codes and pruned re-pack
             against the CPU's on one level; serve the 256 queries through
             ``ServeConfig(quant=QuantConfig(tier="int8"))`` (quantized on the
@@ -80,8 +85,17 @@ GROUPED_SHAPES = [
     (640, 8, 496, 32, 32768, 160),   # main path, leaf level
     (1, 4, 8, 6, 3, 0),              # edge: B = 6 (ragged tree test)
     (1, 4, 8, 8, 3, 0),              # edge: B = 8
-    (3, 16, 100, 70, 4, 1),          # QT*B > one pass of outputs, ragged slab
+    (3, 16, 100, 70, 4, 1),          # QT*B > one pass of outputs, int8/fp8 tiles off 16 bytes
+    # Tiles in passes whose last pass has fewer slabs, CTAs that walk several
+    # live tiles: one stage in f32 (2 passes), two stages in int8/fp8 with 3.
+    (300, 16, 600, 72, 40, 2),
+    (300, 16, 1300, 64, 40, 2),
 ]
+# Input sets rotated for the grouped kernels' cold times: 6 x ~40 MB (f32)
+# or ~18 MB (codes) of distinct tiles and query rows, beyond the 50 MB L2.
+COLD_SETS = 6
+# Tiles holding a block at search-1m level 3 of 640 launched (level_counts).
+PATH_LIVE = 115
 # The reference's quality envelope of each tier on its quant-4k model
 # (benchmarks/bench_quant.py): (recall@k floor, score MAE bound).
 QUANT_ENVELOPE = {"int8": (0.95, 2e-3), "int8_pruned": (0.80, 2e-2), "fp8": None}
@@ -183,36 +197,161 @@ def grouped_inputs(torch, g, t, qt, r, b, c, runs):
     return [x.cuda() for x in (xg, vals, tc, ps)]
 
 
-def kernel_check(torch, mk):
-    """Phase 3a: the grouped kernel against its plain version, then timings
-    at the batch path's shapes."""
-    g = torch.Generator().manual_seed(0)
+def padded(torch, xg, tc, ps, live):
+    """The tiles from ``live`` on made padding, as the grouping leaves them:
+    tile_src -1, the last live tile's chunk, zero query rows and scores; the
+    last live tile part full. Returns (xg, tc, ps, tile_src), new tensors."""
+    t, qt, _ = xg.shape
+    xg, tc, ps = xg.clone(), tc.clone(), ps.clone()
+    src = torch.arange(t * qt, device=xg.device).reshape(t, qt)
+    src[live:] = -1
+    if live:
+        src[live - 1, qt // 2 + 1:] = -1
+        tc[live:] = tc[live - 1]
+    xg[live:] = 0.0
+    ps[live:] = 0.0
+    return xg, tc, ps, src
+
+
+def grouped_sets(torch, g, n, t, qt, r, b, c, runs, live=None):
+    """``n`` input sets of T tiles for one chunk table of C chunks, set i over
+    chunks [i C / n, (i + 1) C / n): (xg, tc, ps, tile_src); with ``live``,
+    the tiles from ``live`` on are padding. Rotating through them keeps
+    the tiles a launch reads out of L2 when the sets exceed it."""
+    out = []
+    for i in range(n):
+        lo, hi = i * c // n, (i + 1) * c // n
+        base = torch.randint(lo, hi, (t - runs,), generator=g, device="cuda")
+        tc = torch.sort(torch.cat([base, base[:runs]])).values
+        xg = torch.rand(t, qt, r, generator=g, device="cuda")
+        ps = torch.rand(t, qt, generator=g, device="cuda") + 1e-3
+        out.append((xg, tc, ps, None) if live is None else padded(torch, xg, tc, ps, live))
+    return out
+
+
+def grouped_bytes(torch, xg, tc, src, b, es):
+    """(bytes, flops) the grouped kernel needs for one input set: each live
+    tile's query rows and parent scores, each distinct chunk of the live
+    tiles once (its codes and, for es = 1, its scale row), the ids, the
+    whole output; 2 flops a multiply-add and, for codes, one a weight."""
+    t, qt, r = xg.shape
+    live = t if src is None else int((src[:, 0] >= 0).sum())
+    chunks = int(torch.unique(tc[:live]).numel())
+    nbytes = (4 * live * qt * (r + 1) + chunks * r * b * es + (4 * chunks * b if es == 1 else 0)
+              + 8 * t * (1 if src is None else 2) + 4 * t * qt * b)
+    flops = 2 * live * qt * r * b + (chunks * r * b if es == 1 else 0)
+    return nbytes, flops
+
+
+def rotation(calls):
+    """One callable that runs ``calls`` in turn, one a call."""
+    state = {"i": 0}
+
+    def run():
+        calls[state["i"] % len(calls)]()
+        state["i"] += 1
+    return run
+
+
+def grouped_timings(torch, label, kernel, sets, path_sets, plain, library):
+    """Times of one grouped entry point at the path's leaf shape: warm (one
+    input set, launched back to back, so much of it stays in L2) and cold
+    (rotating through the sets, which exceed L2), then the same at the path
+    shape, where most tiles are padding. ``kernel(xg, tc, ps, src)`` and
+    ``plain`` take a set; ``library(i)`` is ``torch.bmm`` on set i's
+    operands gathered before (warm and cold)."""
+    def calls(fn, ss):
+        return [lambda s=s: fn(*s) for s in ss]
+
+    out = {}
+    k_full, k_path = calls(kernel, sets), calls(kernel, path_sets)
+    out["warm_ms"] = time_ms(k_full[0])
+    out["ms"] = time_ms(rotation(k_full))
+    out["path_warm_ms"] = time_ms(k_path[0])
+    out["path_ms"] = time_ms(rotation(k_path))
+    out["plain_ms"] = time_ms(rotation(calls(plain, sets)), reps=10, inner=6)
+    lib = [lambda i=i: library(i) for i in range(len(sets))]
+    out["library_warm_ms"] = time_ms(lib[0])
+    out["library_ms"] = time_ms(rotation(lib))
+    log(f"  timing {label}: " + ", ".join(f"{k} {v:.5f}" for k, v in out.items()))
+    return out
+
+
+def grouped_bound(torch, sets, b, es):
+    """The mean bound over the input sets, and what sets it."""
+    pairs = [grouped_bytes(torch, xg, tc, src, b, es) for xg, tc, _, src in sets]
+    nbytes = sum(p[0] for p in pairs) / len(pairs)
+    flops = sum(p[1] for p in pairs) / len(pairs)
+    ms, by = bound(nbytes, flops)
+    return ms, by, nbytes
+
+
+def grouped_plans(torch, mk, build, shapes) -> None:
+    """Log the grouped kernel's launch plan at ``shapes`` (label -> T, QT, R,
+    B) in f32 and int8/fp8, and its ptxas lines; raise on a spill."""
+    for label, (t, qt, r, b) in shapes.items():
+        for es, kind in ((4, "f32"), (1, "int8/fp8")):
+            p = mk.grouped_launch_plan(t, qt, r, b, es)
+            ops = [n for n, on in (("xg", p.bulk_xg), ("tile", p.bulk_tile),
+                                   ("scales", p.bulk_scales)) if on]
+            log(f"  plan {label} {kind}: grid {p.grid}, {p.stages} stage(s), {p.passes} pass(es) "
+                f"of {p.pass_rows} rows, {p.warp_rows} rows a warp, {p.slabs} slab(s) of "
+                f"{p.slab_rows} rows, bulk copies for {', '.join(ops) or 'nothing'}, "
+                f"{p.smem_bytes} B shared")
+    kernel = None
+    for line in build.BUILD_LOGS.get("mscm_grouped", "").splitlines():
+        if "Compiling entry function" in line:
+            kernel = line.split("'")[1]
+        elif kernel and ("registers" in line or "spill" in line):
+            kind = "fp8" if "fp8" in kernel else ("int8" if "IaE" in kernel else "f32")
+            log(f"  ptxas mscm_grouped {kind}: {line.replace('ptxas info    :', '').strip()}")
+            if "spill" in line and not line.strip().startswith("0 bytes stack frame, 0 bytes spill"):
+                raise AssertionError(f"ptxas spills in the grouped kernel ({kind}): {line}")
+
+
+def kernel_check(torch, mk, build):
+    """Phase 3a: the grouped kernel against its plain version at every
+    shape and mode, with and without padding tiles, each launched twice and
+    held bitwise to itself; its plans and ptxas lines; then timings at the
+    batch path's leaf shape (T = 640), warm and cold, and at the path shape
+    (115 live tiles of 640, search-1m level 3)."""
+    g = torch.Generator(device="cuda").manual_seed(0)
     max_err = 0.0
     for t, qt, r, b, c, runs in GROUPED_SHAPES:
         xg, vals, tc, ps = grouped_inputs(torch, g, t, qt, r, b, c, runs)
-        for mode in ("none", "prod", "logsum"):
-            p = None if mode == "none" else ps
-            got = mk.mscm_grouped(xg, vals, tc, p, mode=mode)
-            want = mk.mscm_grouped_plain(xg, vals, tc, p, mode=mode)
-            max_err = max(max_err, held(torch, got, want,
-                                        f"mscm_grouped T={t} QT={qt} R={r} B={b} mode={mode}",
-                                        KERNEL_RTOL, KERNEL_ATOL))
+        for dead in (False, True):
+            live = (max(1, t // 5) if t > 1 else 0) if dead else t
+            x, tcs, p_, src = padded(torch, xg, tc, ps, live) if dead else (xg, tc, ps, None)
+            for mode in ("none", "prod", "logsum"):
+                p = None if mode == "none" else p_
+                what = (f"mscm_grouped T={t} QT={qt} R={r} B={b} mode={mode}"
+                        f"{f' ({live} live tiles)' if dead else ''}")
+                got = repeat_bitwise(torch, lambda: mk.mscm_grouped(x, vals, tcs, p, mode=mode,
+                                                                    tile_src=src), what)
+                want = mk.mscm_grouped_plain(x, vals, tcs, p, mode=mode, tile_src=src)
+                max_err = max(max_err, held(torch, got, want, what, KERNEL_RTOL, KERNEL_ATOL))
+    log("  every grouped case: two launches bitwise equal")
+    t, qt, r, b, c, runs = GROUPED_SHAPES[0]
+    grouped_plans(torch, mk, build, {"T=640 QT=8 R=496 B=32": (t, qt, r, b),
+                                     "int8_pruned R=248": (t, qt, 248, b),
+                                     "edge QT=16 R=100 B=70": (3, 16, 100, 70)})
 
     # Timings at the main path's shapes, in the path's epilogue mode.
-    t, qt, r, b, c, runs = GROUPED_SHAPES[0]
-    xg, vals, tc, ps = grouped_inputs(torch, g, t, qt, r, b, c, runs)
-    vals_g = vals[tc]
-    ms = time_ms(lambda: mk.mscm_grouped(xg, vals, tc, ps, mode="prod"))
-    plain_ms = time_ms(lambda: mk.mscm_grouped_plain(xg, vals, tc, ps, mode="prod"))
-    library_ms = time_ms(lambda: torch.bmm(xg, vals_g))
-    n_chunks = int(torch.unique(tc).numel())
-    nbytes = 4 * (t * qt * r + n_chunks * r * b + t * qt + t * qt * b) + 8 * t
-    flops = 2 * t * qt * r * b
-    bound_ms, bound_by = bound(nbytes, flops)
-    log(f"  timing T={t} QT={qt} R={r} B={b} ({n_chunks} distinct chunks, "
-        f"{nbytes / 1e6:.2f} MB, {flops / 1e6:.1f} MFLOP): kernel {ms:.5f} ms, "
-        f"plain {plain_ms:.5f} ms, torch.bmm on pre-gathered tiles {library_ms:.5f} ms, "
-        f"bound {bound_ms:.5f} ms ({bound_by})")
+    vals = torch.randn(c, r, b, generator=g, device="cuda")
+    sets = grouped_sets(torch, g, COLD_SETS, t, qt, r, b, c, runs)
+    path_sets = grouped_sets(torch, g, COLD_SETS, t, qt, r, b, c, runs, live=PATH_LIVE)
+    gathered = [vals[tc] for _, tc, _, _ in sets]
+    times = grouped_timings(
+        torch, f"mscm_grouped T={t} QT={qt} R={r} B={b}",
+        lambda x, tc, p, src: mk.mscm_grouped(x, vals, tc, p, mode="prod", tile_src=src),
+        sets, path_sets,
+        plain=lambda x, tc, p, src: mk.mscm_grouped_plain(x, vals, tc, p, mode="prod"),
+        library=lambda i: torch.bmm(sets[i][0], gathered[i]))
+    bound_ms, bound_by, nbytes = grouped_bound(torch, sets, b, 4)
+    path_bound_ms, _, path_bytes = grouped_bound(torch, path_sets, b, 4)
+    log(f"  bound T={t}: {nbytes / 1e6:.2f} MB, {bound_ms:.5f} ms ({bound_by}); path shape "
+        f"({PATH_LIVE} live of {t}): {path_bytes / 1e6:.2f} MB, {path_bound_ms:.5f} ms; "
+        f"{COLD_SETS} sets of {nbytes / 1e6:.1f} MB rotated for the cold times")
     return {
         "name": "mscm_grouped",
         "route": "cuda",
@@ -220,12 +359,12 @@ def kernel_check(torch, mk):
         "replaces": "src/repro/kernels/mscm_kernel.py:187",
         "max_abs_err": max_err,
         "max_err": max_err,
-        "ms": ms,
-        "kernel_ms": ms,
-        "plain_ms": plain_ms,
+        **times,
+        "kernel_ms": times["ms"],
         "bound_ms": bound_ms,
         "bound_by": bound_by,
-        "library_ms": library_ms,
+        "path_bound_ms": path_bound_ms,
+        "path_live_tiles": PATH_LIVE,
     }
 
 
@@ -233,7 +372,8 @@ def quant_kernel_check(torch, mk, qk, quantize_chunks):
     """Phase 3c: the quantized grouped kernel in int8 and fp8 against its
     plain version, and bitwise against the f32 grouped kernel on the
     dequantized tiles (one routine serves both), at the grouped shapes and
-    with chunk ids past C; then timings at the batch path's shape."""
+    with chunk ids past C, with and without padding tiles, each launched
+    twice and held bitwise to itself; then the timings of kernel_check."""
     g = torch.Generator(device="cuda").manual_seed(0)
     cases = [shape + (False,) for shape in GROUPED_SHAPES] + [(6, 4, 24, 16, 5, 1, True)]
     err = {"int8": 0.0, "fp8": 0.0}
@@ -245,43 +385,49 @@ def quant_kernel_check(torch, mk, qk, quantize_chunks):
                 tc[-2:] = c + 2  # clamped to the last chunk
             vals, scales = quantize_chunks(f32, dtype)
             deq = vals.float() * scales[:, None, :]
-            for mode in ("none", "prod", "logsum"):
-                p = None if mode == "none" else ps
-                got = qk.mscm_grouped_q(xg, vals, scales, tc, p, mode=mode)
-                want = qk.mscm_grouped_q_plain(xg, vals, scales, tc, p, mode=mode)
-                what = (f"mscm_grouped_q {dtype} T={t} QT={qt} R={r} B={b}"
-                        f"{' chunk ids past C' if past else ''} mode={mode}")
-                err[dtype] = max(err[dtype], held(torch, got, want, what,
-                                                  KERNEL_RTOL, KERNEL_ATOL))
-                if not torch.equal(got, mk.mscm_grouped(xg, deq, tc, p, mode=mode)):
-                    raise AssertionError(f"{what}: not bitwise mscm_grouped on the "
-                                         "dequantized tiles")
+            for dead in (False, True):
+                live = (max(1, t // 5) if t > 1 else 0) if dead else t
+                x, tcs, p_, src = padded(torch, xg, tc, ps, live) if dead else (xg, tc, ps, None)
+                for mode in ("none", "prod", "logsum"):
+                    p = None if mode == "none" else p_
+                    what = (f"mscm_grouped_q {dtype} T={t} QT={qt} R={r} B={b}"
+                            f"{' chunk ids past C' if past else ''}"
+                            f"{f' ({live} live tiles)' if dead else ''} mode={mode}")
+                    got = repeat_bitwise(torch, lambda: qk.mscm_grouped_q(
+                        x, vals, scales, tcs, p, mode=mode, tile_src=src), what)
+                    want = qk.mscm_grouped_q_plain(x, vals, scales, tcs, p, mode=mode,
+                                                   tile_src=src)
+                    err[dtype] = max(err[dtype], held(torch, got, want, what,
+                                                      KERNEL_RTOL, KERNEL_ATOL))
+                    if not torch.equal(got, mk.mscm_grouped(x, deq, tcs, p, mode=mode,
+                                                            tile_src=src)):
+                        raise AssertionError(f"{what}: not bitwise mscm_grouped on the "
+                                             "dequantized tiles")
             del deq
         log(f"  mscm_grouped_q {dtype}: bitwise mscm_grouped on the dequantized tiles "
-            f"at every shape and mode")
+            f"at every shape and mode, and two launches bitwise equal")
 
         # Timings at the main path's shape, in the path's epilogue mode.
         t, qt, r, b, c, runs = GROUPED_SHAPES[0]
-        xg, f32, tc, ps = grouped_inputs(torch, g, t, qt, r, b, c, runs)
-        vals, scales = quantize_chunks(f32, dtype)
-        del f32
-        deq_g = vals[tc].float() * scales[tc][:, None, :]  # pre-gathered, dequantized
-        ms = time_ms(lambda: qk.mscm_grouped_q(xg, vals, scales, tc, ps, mode="prod"))
-        plain_ms = time_ms(lambda: qk.mscm_grouped_q_plain(xg, vals, scales, tc, ps,
-                                                           mode="prod"))
-        library_ms = time_ms(lambda: torch.bmm(xg, deq_g))
-        n_chunks = int(torch.unique(tc).numel())
-        nbytes = (4 * (t * qt * r + n_chunks * b + t * qt + t * qt * b) + n_chunks * r * b
-                  + 8 * t)
-        flops = 2 * t * qt * r * b + n_chunks * r * b
-        bound_ms, bound_by = bound(nbytes, flops)
-        timed[dtype] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                            bound_ms=bound_ms, bound_by=bound_by)
-        log(f"  timing mscm_grouped_q {dtype} T={t} QT={qt} R={r} B={b} ({n_chunks} distinct "
-            f"chunks, {nbytes / 1e6:.2f} MB, {flops / 1e6:.1f} MFLOP): kernel {ms:.5f} ms, "
-            f"plain {plain_ms:.5f} ms, torch.bmm on pre-gathered dequantized tiles "
-            f"{library_ms:.5f} ms, bound {bound_ms:.5f} ms ({bound_by})")
-        del vals, deq_g
+        vals, scales = quantize_chunks(torch.randn(c, r, b, generator=g, device="cuda"), dtype)
+        sets = grouped_sets(torch, g, COLD_SETS, t, qt, r, b, c, runs)
+        path_sets = grouped_sets(torch, g, COLD_SETS, t, qt, r, b, c, runs, live=PATH_LIVE)
+        deq_g = [vals[tc].float() * scales[tc][:, None, :] for _, tc, _, _ in sets]
+        times = grouped_timings(
+            torch, f"mscm_grouped_q {dtype} T={t} QT={qt} R={r} B={b}",
+            lambda x, tc, p, src: qk.mscm_grouped_q(x, vals, scales, tc, p, mode="prod",
+                                                    tile_src=src),
+            sets, path_sets,
+            plain=lambda x, tc, p, src: qk.mscm_grouped_q_plain(x, vals, scales, tc, p,
+                                                                mode="prod"),
+            library=lambda i: torch.bmm(sets[i][0], deq_g[i]))
+        bound_ms, bound_by, nbytes = grouped_bound(torch, sets, b, 1)
+        path_bound_ms, _, path_bytes = grouped_bound(torch, path_sets, b, 1)
+        log(f"  bound {dtype} T={t}: {nbytes / 1e6:.2f} MB, {bound_ms:.5f} ms ({bound_by}); "
+            f"path shape: {path_bytes / 1e6:.2f} MB, {path_bound_ms:.5f} ms")
+        timed[dtype] = dict(times, bound_ms=bound_ms, bound_by=bound_by,
+                            path_bound_ms=path_bound_ms)
+        del vals, scales, deq_g, sets, path_sets
     return {
         "name": "mscm_grouped_q",
         "route": "cuda",
@@ -291,6 +437,7 @@ def quant_kernel_check(torch, mk, qk, quantize_chunks):
         "max_err": max(err.values()),
         **timed["int8"],
         "kernel_ms": timed["int8"]["ms"],
+        "path_live_tiles": PATH_LIVE,
         **{f"fp8_{k}": v for k, v in timed["fp8"].items()},
         "fp8_max_abs_err": err["fp8"],
     }
@@ -559,14 +706,16 @@ def log_profile(what: str, wall: float, acts: int, busy_us: float, rows, gpu: st
         log(f"    {dev_us / 1e3:9.4f} ms {100 * dev_us / busy_us:5.1f}%  x{count:<4d} {key[:90]}")
 
 
-def log_block_kernel(what: str, rows, queries: int) -> None:
-    """The per-block kernel's share of a profile: device time a launch, and
-    launches and device time a query."""
-    hits = [(us, n) for us, n, key in rows if "mscm_block_kernel" in key]
+def log_block_kernel(what: str, rows, queries: int, kernel: str = "mscm_block_kernel",
+                     label: str = "the per-block kernel") -> None:
+    """A kernel's share of a profile: device time a launch, and launches and
+    device time a query."""
+    hits = [(us, n) for us, n, key in rows if kernel in key]
     us, n = sum(h[0] for h in hits), sum(h[1] for h in hits)
     if n:
-        log(f"  {what}: the per-block kernel {us / n:.3f} us a launch on the path "
-            f"({n / queries:.1f} launches, {us / queries:.3f} us a query)")
+        log(f"  {what}: {label} {us / n:.3f} us a launch on the path "
+            f"({n / queries:.3f} launches, {us / queries:.3f} us a query; {n} launches, "
+            f"{us / 1e3:.4f} ms in all)")
 
 
 def path(torch, mk, gpu: str):
@@ -639,7 +788,10 @@ def path(torch, mk, gpu: str):
         f"  [{gpu}]")
 
     # Where the time goes: device time by kernel over one serve_batch.
-    log_profile("one serve_batch", *device_profile(lambda: eng.serve_batch(queries)), gpu, 14)
+    wall, acts, busy_us, rows = device_profile(lambda: eng.serve_batch(queries))
+    log_profile("one serve_batch", wall, acts, busy_us, rows, gpu, 14)
+    log_block_kernel(f"one serve_batch of {n}", rows, n, "mscm_grouped_kernel",
+                     "the grouped kernel")
     return launches, tree, queries
 
 
@@ -749,8 +901,10 @@ def quant(torch, mk, qk, gpu: str, tree, queries):
         f"{peak / 1e9:.3f} GB (exact and int8 trees resident)  [{gpu}]")
     against_dequantized(eng, s, l, "int8")
     report(eng, "int8", s, l, s_x, l_x, build_s)
-    log_profile("one serve_batch, tier int8",
-                *device_profile(lambda: eng.serve_batch(queries)), gpu, 12)
+    wall, acts, busy_us, rows = device_profile(lambda: eng.serve_batch(queries))
+    log_profile("one serve_batch, tier int8", wall, acts, busy_us, rows, gpu, 12)
+    log_block_kernel(f"one serve_batch of {n}, tier int8", rows, n, "mscm_grouped_kernel",
+                     "the grouped_q kernel")
     del eng
 
     for tier in ("fp8", "int8_pruned"):
@@ -896,12 +1050,15 @@ def main() -> int:
     log(f"  built in {time.perf_counter() - t0:.2f} s")
 
     log("phase kernels")
-    grouped = kernel_check(torch, mk)
+    grouped = kernel_check(torch, mk, build)
     fused, pregather = block_kernel_check(torch, mk, ops, build)
     grouped_q = quant_kernel_check(torch, mk, qk, quantize_chunks)
     if args.kernels_only:
         print(json.dumps({"kernels": [grouped, fused, pregather, grouped_q]}))
         return 0
+    # The kernels phase leaves GBs of inputs in PyTorch's caching allocator;
+    # the paths below start from an empty cache, as a server process would.
+    torch.cuda.empty_cache()
     log("phase small")
     small_check(torch)
     log("phase path")

@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface (one or more entry
 points, listed in :data:`SIGNATURES`). At first use it is
 compiled with ``nvcc`` for ``sm_90a`` into ``build/repro_torch/`` at the
-root of the checkout, under a name that carries a hash of the source and
-flags (so an edited source is rebuilt), and loaded with ``ctypes``. Nothing
+root of the checkout, under a name that carries a hash of the source, the
+shared headers (``csrc/*.cuh``) and the flags (so an edited source or header
+is rebuilt), and loaded with ``ctypes``. Nothing
 here runs at import time: the CPU tests import every module of the port on
 machines without ``nvcc``.
 """
@@ -30,10 +31,15 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 #: argtypes of each C entry point, by source name and function name.
 SIGNATURES: Dict[str, Dict[str, tuple]] = {
     "mscm_grouped": {
-        # xg, vals, tile_chunk, ps, out, T, QT, R, B, C, mode, stream
-        "mscm_grouped_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
-        # xg, vals, scales, tile_chunk, ps, out, T, QT, R, B, C, mode, dtype, stream
-        "mscm_grouped_q_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+        # xg, vals, tile_chunk, tile_src, ps, out, T, QT, R, B, C, mode,
+        # then the launch plan (pass_rows, warp_rows, slab_rows, bulk, stages,
+        # grid), stream
+        "mscm_grouped_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                _I, _I, _I, _I, _I, _I, _P),
+        # xg, vals, scales, tile_chunk, tile_src, ps, out, T, QT, R, B, C, mode,
+        # dtype, then the launch plan, stream
+        "mscm_grouped_q_launch": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                                  _I, _I, _I, _I, _I, _I, _P),
     },
     "mscm_block": {
         # x_dense, rows, vals, block_q, block_c, out, A, Dp, R, B, C, n, dtype,
@@ -64,7 +70,8 @@ def _nvcc() -> str:
 
 def _target(name: str) -> Tuple[Path, Path]:
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return src, BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 

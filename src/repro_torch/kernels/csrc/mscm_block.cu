@@ -68,9 +68,13 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "bulk_copy.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
+
+using namespace bulkcopy;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
@@ -99,8 +103,6 @@ struct Args {
   Plan p;
 };
 
-__host__ __device__ constexpr size_t align16(size_t v) { return (v + 15) & ~size_t(15); }
-
 // Shared memory, in order: 2*stages + 1 mbarriers (head, tile, cluster
 // sum), the warps' partials [kWarps, B], the cluster's partials
 // [kMaxCluster, B] (filled in rank 0 only), then `stages` buffers, each a
@@ -126,15 +128,6 @@ __device__ __forceinline__ int64_t clamp64(int64_t v, int64_t hi) {
   return v < 0 ? 0 : (v > hi ? hi : v);
 }
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t arrivals) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(arrivals)
-               : "memory");
-}
-
 // The address of `p` (in this CTA's shared memory) at the same offset in
 // CTA `rank` of the cluster.
 __device__ __forceinline__ uint32_t cluster_addr(const void* p, uint32_t rank) {
@@ -153,43 +146,6 @@ __device__ __forceinline__ void st_async_remote(float* p, float v, uint64_t* bar
       "st.async.shared::cluster.mbarrier::complete_tx::bytes.f32 [%0], %1, [%2];\n" ::"r"(
           cluster_addr(p, rank)),
       "f"(v), "r"(cluster_addr(bar, rank))
-      : "memory");
-}
-
-// One arrival that also expects `bytes` of bulk copies on the barrier.
-__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-// Waits for the phase of `bar` with this parity to complete. A copy that
-// never lands (a fault in the plan) traps after ~2^26 polls, seconds,
-// instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = smem_addr(bar);
-  uint32_t done;
-  for (uint32_t polls = 0;; ++polls) {
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (polls == (1u << 26)) __trap();
-  }
-}
-
-// Global -> shared bulk copy of `bytes` (16-byte aligned, a multiple of 16),
-// completing on `bar`.
-__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
-                                          uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
-      "l"(src), "r"(bytes), "r"(smem_addr(bar))
       : "memory");
 }
 
@@ -298,7 +254,7 @@ __global__ void __launch_bounds__(kThreads) mscm_block_kernel(const Args args) {
       mbar_init(rbar, 1);  // one arrival, and the other ranks' partials as bytes
       mbar_expect(rbar, static_cast<uint32_t>(p.S - 1) * B * 4u);
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    fence_mbar_init();
     if (p.bulk) {
       for (int j = 0; j < first; ++j) issue(j, j);
     }
@@ -331,7 +287,7 @@ __global__ void __launch_bounds__(kThreads) mscm_block_kernel(const Args args) {
       if (j + p.stages < n_slabs) {
         __syncthreads();  // buffer s is consumed: refill it
         if (tid == 0) {
-          asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+          fence_proxy_async();
           issue(j + p.stages, s);
         }
       }
@@ -380,8 +336,6 @@ __global__ void __launch_bounds__(kThreads) mscm_block_kernel(const Args args) {
     args.out[static_cast<size_t>(a) * B + b] = s;
   }
 }
-
-bool aligned16(const void* ptr) { return (reinterpret_cast<uintptr_t>(ptr) & 15) == 0; }
 
 template <typename T, bool kFused>
 int launch_typed(const Args& args, int A, cudaStream_t stream) {

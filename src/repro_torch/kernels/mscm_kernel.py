@@ -6,7 +6,9 @@ the Pallas TPU kernel of the same name:
 ``mscm_grouped``    (``csrc/mscm_grouped.cu``) one [QT, R] x [R, B] product
                     per chunk-major query tile, with the beam epilogue
                     (σ(logit) ⊗ parent score, paper eq. 5) fused before the
-                    store: the batch path;
+                    store: the batch path. Padding tiles (``tile_src``)
+                    return at once; the launch plan is
+                    :func:`grouped_launch_plan`'s;
 ``mscm_fused``      (``csrc/mscm_block.cu``) one [1, R] x [R, B] product per
                     chunk-sorted block, gathering the query values from the
                     dense query row inside the kernel: the online path for
@@ -28,6 +30,7 @@ a run can show its main path went through it.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -43,6 +46,21 @@ PREGATHER_LAUNCHES = 0
 BLOCK_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 MODES = {"none": 0, "prod": 1, "logsum": 2}
+
+#: Code types the quantized grouped entry point takes, by their code in the
+#: C interface.
+Q_DTYPES = {torch.int8: 0, torch.float8_e4m3fn: 1}
+
+#: Streaming multiprocessors of an H100, which the launch plans fill.
+H100_SMS = 132
+
+
+def _cdiv(n: int, m: int) -> int:
+    return -(-n // m)
+
+
+def _align16(n: int) -> int:
+    return _cdiv(n, 16) * 16
 
 
 def group_blocks_by_chunk(
@@ -92,7 +110,7 @@ def common_device(tensors, name: str) -> torch.device:
     return dev
 
 
-def check_grouped_args(xg_tiles, vals, tile_chunk, parent_scores, mode,
+def check_grouped_args(xg_tiles, vals, tile_chunk, parent_scores, mode, tile_src=None,
                        vals_dtypes=(torch.float32,)) -> None:
     """Checks shared by :func:`mscm_grouped` and the quantized
     ``repro_torch.quant.kernels.mscm_grouped_q`` (``vals_dtypes`` differ)."""
@@ -126,6 +144,24 @@ def check_grouped_args(xg_tiles, vals, tile_chunk, parent_scores, mode,
         )
     if tile_chunk.dtype != torch.int64:
         raise TypeError(f"tile_chunk must be int64; got {tile_chunk.dtype}")
+    if tile_src is not None:
+        if tuple(tile_src.shape) != (t, qt):
+            raise ValueError(f"tile_src must be [T, QT] = {(t, qt)}; got {tuple(tile_src.shape)}")
+        if tile_src.dtype != torch.int64:
+            raise TypeError(f"tile_src must be int64; got {tile_src.dtype}")
+
+
+def grouped_tensors(*tensors):
+    """The tensors of a grouped call that are given (None dropped)."""
+    return [x for x in tensors if x is not None]
+
+
+def zero_padding_tiles(out: torch.Tensor, tile_src: Optional[torch.Tensor]) -> torch.Tensor:
+    """``out`` [T, QT, B] with the tiles whose first slot is padding
+    (``tile_src[t, 0] < 0``) set to 0, as the kernel writes them."""
+    if tile_src is None:
+        return out
+    return torch.where(tile_src[:, :1, None] >= 0, out, 0.0)
 
 
 def mscm_grouped_plain(
@@ -135,16 +171,17 @@ def mscm_grouped_plain(
     parent_scores: Optional[torch.Tensor] = None,  # f32 [T, QT]
     *,
     mode: str = "none",
+    tile_src: Optional[torch.Tensor] = None,  # int [T, QT], -1 = padding
 ) -> torch.Tensor:
     """The plain PyTorch version: ``bmm(xg_tiles, vals[tile_chunk])`` and the
-    epilogue. Out-of-range chunk ids are clamped, as the reference's gather
-    clamps them."""
+    epilogue, then zeros for the padding tiles. Out-of-range chunk ids are
+    clamped, as the reference's gather clamps them."""
     acc = torch.bmm(xg_tiles, vals[tile_chunk.clamp(0, vals.shape[0] - 1)])
     if mode == "prod":
-        return torch.sigmoid(acc) * parent_scores[:, :, None]
-    if mode == "logsum":
-        return F.logsigmoid(acc) + parent_scores[:, :, None]
-    return acc
+        acc = torch.sigmoid(acc) * parent_scores[:, :, None]
+    elif mode == "logsum":
+        acc = F.logsigmoid(acc) + parent_scores[:, :, None]
+    return zero_padding_tiles(acc, tile_src)
 
 
 def mscm_grouped(
@@ -154,43 +191,181 @@ def mscm_grouped(
     parent_scores: Optional[torch.Tensor] = None,  # f32 [T, QT] beam scores
     *,
     mode: str = "none",
+    tile_src: Optional[torch.Tensor] = None,  # int64 [T, QT], -1 = padding
 ) -> torch.Tensor:
     """Chunk-major query-tile product with an optionally fused beam epilogue.
 
     ``mode``: ``none`` raw logits; ``prod`` σ(logit) · parent_score;
-    ``logsum`` logσ(logit) + parent_score. Returns f32 [T, QT, B].
+    ``logsum`` logσ(logit) + parent_score. ``tile_src``, as
+    ``ops.group_blocks_device`` returns it, marks the padding tiles
+    (``tile_src[t, 0] < 0``), whose output is 0 and which the kernel skips;
+    None: every tile is live. Returns f32 [T, QT, B].
     """
-    check_grouped_args(xg_tiles, vals, tile_chunk, parent_scores, mode)
-    tensors = [xg_tiles, vals, tile_chunk] + (
-        [parent_scores] if parent_scores is not None else []
-    )
+    check_grouped_args(xg_tiles, vals, tile_chunk, parent_scores, mode, tile_src)
+    tensors = grouped_tensors(xg_tiles, vals, tile_chunk, parent_scores, tile_src)
     if common_device(tensors, "mscm_grouped").type == "cpu":
-        return mscm_grouped_plain(xg_tiles, vals, tile_chunk, parent_scores, mode=mode)
-    return _launch(xg_tiles, vals, tile_chunk, parent_scores, mode)
-
-
-def _launch(xg_tiles, vals, tile_chunk, parent_scores, mode) -> torch.Tensor:
+        return mscm_grouped_plain(xg_tiles, vals, tile_chunk, parent_scores, mode=mode,
+                                  tile_src=tile_src)
     global GROUPED_LAUNCHES
+    out = launch_grouped(xg_tiles, vals, None, tile_chunk, tile_src, parent_scores, mode)
+    GROUPED_LAUNCHES += 1
+    return out
+
+
+#: Largest QT the grouped kernel takes (kMaxQT).
+GROUPED_MAX_QT = 16
+#: Shared memory one CTA of the grouped kernel may take: an H100 block's
+#: opt-in limit, 227 KB.
+GROUPED_SMEM_LIMIT = 232448
+#: Shared memory of one H100 SM, of which each resident CTA also reserves 1 KB.
+H100_SM_SMEM = 233472
+#: Tiles one CTA of the grouped kernel walks at most (kMaxTiles).
+GROUPED_MAX_TILES = 32
+# kWarps, kWarpsPerSlab, kMaxSlabs, kMaxStages in csrc/mscm_grouped.cu.
+_GROUPED_WARPS, _WARPS_PER_SLAB, _MAX_SLABS, _MAX_STAGES = 8, 2, 4, 2
+
+
+class GroupedPlan(NamedTuple):
+    """How ``csrc/mscm_grouped.cu`` runs T tiles of [QT, R] x [R, B].
+
+    ``grid`` persistent CTAs; CTA g walks tiles g, g + grid, ... (at most
+    :data:`GROUPED_MAX_TILES`). R goes in ``passes`` passes of ``pass_rows``
+    rows (one pass whenever the tile fits shared memory); each pass of each
+    live tile is a unit, and the units go through a ring of ``stages``
+    shared-memory stages, so the next unit's copies are in flight while one
+    is computed. Warp w takes rows ``[w * warp_rows, (w + 1) * warp_rows)``
+    of a pass; a pass's tile rows arrive in ``slabs`` slabs of
+    ``slab_rows`` rows (two warps' rows), each on its own barrier.
+    ``bulk_*``: the query rows, the tile rows and the scale row arrive by
+    16-byte-aligned bulk copies, else by ordinary loads."""
+
+    pass_rows: int
+    passes: int
+    warp_rows: int
+    slab_rows: int
+    slabs: int
+    stages: int
+    grid: int
+    bulk_xg: bool
+    bulk_tile: bool
+    bulk_scales: bool
+    smem_bytes: int
+
+    def args(self) -> Tuple[int, ...]:
+        """The plan as the C entry points take it: pass_rows, warp_rows,
+        slab_rows, the bulk operands as bits (1 xg, 2 tile, 4 scales),
+        stages, grid."""
+        bulk = int(self.bulk_xg) | 2 * int(self.bulk_tile) | 4 * int(self.bulk_scales)
+        return (self.pass_rows, self.warp_rows, self.slab_rows, bulk, self.stages, self.grid)
+
+
+def grouped_smem_bytes(qt: int, b: int, elem_bytes: int, pass_rows: int, stages: int) -> int:
+    """Shared memory of one CTA (``Layout`` in ``csrc/mscm_grouped.cu``; the
+    kernel has no other): the mbarriers (5 a stage, room for two stages),
+    the chunk ids [32], tile indices [32] with two counters, and parent
+    scores [32, QT] of the CTA's tiles, the warps' partials [8, QT, B], and
+    per stage the scale row [B], the query rows [QT, pass_rows rounded up to
+    4] and the tile rows [pass_rows, B]."""
+    xr = _cdiv(pass_rows, 4) * 4
+    head = (_align16(8 * _MAX_STAGES * (_MAX_SLABS + 1)) + 8 * GROUPED_MAX_TILES
+            + _align16(4 * (GROUPED_MAX_TILES + 2)) + _align16(4 * GROUPED_MAX_TILES * qt)
+            + _align16(4 * _GROUPED_WARPS * qt * b))
+    stage = _align16(4 * b) + _align16(4 * qt * xr) + _align16(pass_rows * b * elem_bytes)
+    return head + stages * stage
+
+
+def grouped_launch_plan(t: int, qt: int, r: int, b: int, elem_bytes: int, *,
+                        aligned: bool = True, sms: int = H100_SMS) -> GroupedPlan:
+    """The launch plan of the grouped kernel for T tiles of QT rows over
+    [R, B] chunk tiles of ``elem_bytes``-byte weights (4 f32, 1 int8/fp8).
+
+    The whole tile goes in one pass if one stage of it fits
+    :data:`GROUPED_SMEM_LIMIT`, else in passes of a multiple of 32 rows.
+    Passes are sized as for f32 tiles whatever ``elem_bytes`` is, so the
+    quantized entry point sums in the f32 one's order and stays bitwise
+    equal to it on dequantized tiles. Two stages if they fit, else one.
+    ``grid`` fills the card's ``sms`` SMs with as many CTAs as fit one (at
+    most two), and more if a CTA would walk more than
+    :data:`GROUPED_MAX_TILES` tiles. Each warp takes a multiple of 4 rows.
+    An operand goes by bulk copies if every copy of it starts and ends on 16
+    bytes and the caller's pointers are 16-byte aligned (``aligned``)."""
+    if t < 0 or qt < 1 or r < 1 or b < 1 or elem_bytes not in (1, 4):
+        raise ValueError(f"no plan for T={t}, QT={qt}, R={r}, B={b}, elem_bytes={elem_bytes}")
+    if qt > GROUPED_MAX_QT:
+        raise ValueError(f"QT={qt} is above the grouped kernel's cap of {GROUPED_MAX_QT}")
+    step = _GROUPED_WARPS * 4
+    pass_rows = r
+    if grouped_smem_bytes(qt, b, 4, r, 1) > GROUPED_SMEM_LIMIT:
+        pass_rows = (r - 1) // step * step
+        while pass_rows >= step and grouped_smem_bytes(qt, b, 4, pass_rows, 1) > GROUPED_SMEM_LIMIT:
+            pass_rows -= step
+        if pass_rows < step:
+            raise ValueError(f"QT={qt}, B={b} is too wide for {GROUPED_SMEM_LIMIT} bytes of "
+                             "shared memory")
+    stages = 2 if grouped_smem_bytes(qt, b, elem_bytes, pass_rows, 2) <= GROUPED_SMEM_LIMIT else 1
+    smem = grouped_smem_bytes(qt, b, elem_bytes, pass_rows, stages)
+    per_sm = max(1, min(2, H100_SM_SMEM // (smem + 1024)))
+    warp_rows = _cdiv(_cdiv(pass_rows, _GROUPED_WARPS), 4) * 4
+    slab_rows = _WARPS_PER_SLAB * warp_rows
+    row_bytes = b * elem_bytes
+    return GroupedPlan(
+        pass_rows=pass_rows,
+        passes=_cdiv(r, pass_rows),
+        warp_rows=warp_rows,
+        slab_rows=slab_rows,
+        slabs=_cdiv(pass_rows, slab_rows),
+        stages=stages,
+        grid=min(t, max(sms * per_sm, _cdiv(t, GROUPED_MAX_TILES))),
+        bulk_xg=aligned and r % 4 == 0,
+        bulk_tile=aligned and all(n * row_bytes % 16 == 0 for n in (r, pass_rows, slab_rows)),
+        bulk_scales=aligned and elem_bytes == 1 and b % 4 == 0,
+        smem_bytes=smem,
+    )
+
+
+@functools.lru_cache(maxsize=256)
+def _cached_grouped_plan(t, qt, r, b, elem_bytes, aligned) -> GroupedPlan:
+    """:func:`grouped_launch_plan`, once per shape: the batch path launches
+    the same few shapes every level and is short of host time."""
+    return grouped_launch_plan(t, qt, r, b, elem_bytes, aligned=aligned)
+
+
+def launch_grouped(xg_tiles, vals, scales, tile_chunk, tile_src, parent_scores,
+                   mode) -> torch.Tensor:
+    """Launch the grouped routine on checked CUDA tensors: the f32 entry
+    point if ``scales`` is None, else the quantized one. Returns the output;
+    the caller counts the launch."""
     from repro_torch.kernels.build import load_library
 
     t, qt, r = xg_tiles.shape
     c, _, b = vals.shape
     dev = xg_tiles.device
     out = torch.empty((t, qt, b), dtype=torch.float32, device=dev)
+    ptrs = grouped_tensors(xg_tiles, vals, scales)
+    plan = _cached_grouped_plan(t, qt, r, b, vals.element_size(),
+                                all(x.data_ptr() % 16 == 0 for x in ptrs))
     lib = load_library("mscm_grouped")
+
+    def ptr(x):
+        return x.data_ptr() if x is not None else None
+
+    head = (ptr(xg_tiles), ptr(vals)) + ((ptr(scales),) if scales is not None else ())
+    tail = (ptr(tile_chunk), ptr(tile_src), ptr(parent_scores), ptr(out), t, qt, r, b, c,
+            MODES[mode])
     with torch.cuda.device(dev):
-        err = lib.mscm_grouped_launch(
-            xg_tiles.data_ptr(), vals.data_ptr(), tile_chunk.data_ptr(),
-            parent_scores.data_ptr() if parent_scores is not None else None,
-            out.data_ptr(), t, qt, r, b, c, MODES[mode],
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if scales is None:
+            name = "mscm_grouped"
+            err = lib.mscm_grouped_launch(*head, *tail, *plan.args(), stream)
+        else:
+            name = "mscm_grouped_q"
+            err = lib.mscm_grouped_q_launch(*head, *tail, Q_DTYPES[vals.dtype], *plan.args(),
+                                            stream)
     if err != 0:
         raise RuntimeError(
-            f"mscm_grouped launch failed with CUDA error {err} "
-            f"(T={t}, QT={qt}, R={r}, B={b}, C={c}, mode={mode})"
+            f"{name} launch failed with CUDA error {err} "
+            f"(T={t}, QT={qt}, R={r}, B={b}, C={c}, mode={mode}, {vals.dtype}, {plan})"
         )
-    GROUPED_LAUNCHES += 1
     return out
 
 
@@ -198,8 +373,6 @@ def _launch(xg_tiles, vals, tile_chunk, parent_scores, mode) -> torch.Tensor:
 # fused and pregather: one [1, R] x [R, B] product per block
 # ---------------------------------------------------------------------------
 
-#: Streaming multiprocessors of an H100, which the cluster split fills.
-H100_SMS = 132
 #: Largest thread-block cluster that every Hopper part schedules.
 MAX_CLUSTER = 8
 #: Shared memory one CTA of the per-block kernel may take. Above it a
@@ -232,14 +405,6 @@ class BlockPlan(NamedTuple):
         """The plan as the C entry points take it: S, rps, slab, stages, bulk."""
         return (self.cluster, self.rows_per_slice, self.slab_rows, self.stages,
                 int(self.bulk))
-
-
-def _cdiv(n: int, m: int) -> int:
-    return -(-n // m)
-
-
-def _align16(n: int) -> int:
-    return _cdiv(n, 16) * 16
 
 
 def block_smem_bytes(b: int, elem_bytes: int, slab_rows: int, stages: int) -> int:

@@ -136,9 +136,11 @@ def mscm_grouped_level(
     [QT, R] x [R, B] product per tile with the epilogue ``mode`` fused, and
     return the [A, B] block scores in the original block order.
 
-    ``product(xg, tile_chunk, parent_scores)`` replaces the tile product
-    (the quantized level passes its kernel over int8/fp8 ``vals``); by
-    default it is :func:`mscm_grouped` over ``vals``."""
+    ``product(xg, tile_chunk, parent_scores, tile_src)`` replaces the tile
+    product (the quantized level passes its kernel over int8/fp8 ``vals``);
+    by default it is :func:`mscm_grouped` over ``vals``. Both get the
+    grouping's ``tile_src``, so the padding tiles return at once; the unsort
+    reads only live slots, so the [A, B] result does not depend on it."""
     c, _, b = vals.shape
     tile_chunk, tile_src, order, flat_pos = group_blocks_device(block_c, qt, c)
     real = tile_src >= 0                                 # [T, QT]
@@ -153,9 +155,9 @@ def mscm_grouped_level(
     if parent_scores is not None:
         ps = torch.where(real, parent_scores[safe_src], 0.0)
     if product is None:
-        tiles = mscm_grouped(xg, vals, tc, ps, mode=mode)  # [T, QT, B]
+        tiles = mscm_grouped(xg, vals, tc, ps, mode=mode, tile_src=tile_src)  # [T, QT, B]
     else:
-        tiles = product(xg, tc, ps)
+        tiles = product(xg, tc, ps, tile_src)
     flat = tiles.reshape(-1, b)
     # Sorted block i lives at flat slot flat_pos[i]; composing with the
     # inverse permutation restores the block order (clamped like the

@@ -3,10 +3,10 @@
 Counterpart of ``repro.quant.kernels``. ``mscm_grouped_q`` replaces the
 Pallas TPU kernel of that name with the CUDA entry point
 ``mscm_grouped_q_launch`` of ``kernels/csrc/mscm_grouped.cu``: the grouped
-kernel's routine, which widens each int8/fp8 weight to f32 and multiplies it
-by its (chunk, column) scale as it stages the chunk tile into shared memory.
-So device memory carries one byte per weight, and the result is bitwise the
-f32 kernel's on the dequantized tiles (``float(q) * scale``,
+kernel's routine, which copies the int8/fp8 chunk tile into shared memory
+and widens each weight to f32 and multiplies it by its (chunk, column) scale
+as it reads it. So device memory carries one byte per weight, and the
+result is bitwise the f32 kernel's on the dequantized tiles (``float(q) * scale``,
 :func:`repro_torch.quant.storage.dequantize_layer`): quantization error
 comes from storage, never from the kernel.
 
@@ -25,17 +25,16 @@ import torch
 
 from repro_torch.kernels import ops
 from repro_torch.kernels.mscm_kernel import (
-    MODES,
+    Q_DTYPES,
     check_grouped_args,
     common_device,
+    grouped_tensors,
+    launch_grouped,
     mscm_grouped_plain,
 )
 
 #: Launches of the CUDA kernel since import (or since a caller reset it).
 GROUPED_Q_LAUNCHES = 0
-
-#: Code types the kernel takes, by their code in the C interface.
-Q_DTYPES = {torch.int8: 0, torch.float8_e4m3fn: 1}
 
 
 def _check_scales(vals: torch.Tensor, scales: torch.Tensor) -> None:
@@ -56,15 +55,17 @@ def mscm_grouped_q_plain(
     parent_scores: Optional[torch.Tensor] = None,  # f32 [T, QT]
     *,
     mode: str = "none",
+    tile_src: Optional[torch.Tensor] = None,  # int [T, QT], -1 = padding
 ) -> torch.Tensor:
-    """The plain PyTorch version: ``bmm(xg, vals[tc].float() * scales[tc])``
-    and the epilogue, chunk ids clamped; bitwise
+    """The plain PyTorch version: ``bmm(xg, vals[tc].float() * scales[tc])``,
+    the epilogue and zeros for the padding tiles, chunk ids clamped; bitwise
     :func:`~repro_torch.kernels.mscm_kernel.mscm_grouped_plain` on the
     dequantized tiles."""
     tc = tile_chunk.clamp(0, vals.shape[0] - 1)
     tiles = vals[tc].to(torch.float32) * scales[tc][:, None, :]   # [T, R, B]
     own = torch.arange(tc.shape[0], device=tc.device)
-    return mscm_grouped_plain(xg_tiles, tiles, own, parent_scores, mode=mode)
+    return mscm_grouped_plain(xg_tiles, tiles, own, parent_scores, mode=mode,
+                              tile_src=tile_src)
 
 
 def mscm_grouped_q(
@@ -75,42 +76,20 @@ def mscm_grouped_q(
     parent_scores: Optional[torch.Tensor] = None,  # f32 [T, QT] beam scores
     *,
     mode: str = "none",
+    tile_src: Optional[torch.Tensor] = None,  # int64 [T, QT], -1 = padding
 ) -> torch.Tensor:
     """Quantized chunk-major tile product with the fused beam epilogue; the
-    contract of ``mscm_grouped`` (``mode`` none/prod/logsum, f32 [T, QT, B])."""
-    check_grouped_args(xg_tiles, vals, tile_chunk, parent_scores, mode,
+    contract of ``mscm_grouped`` (``mode`` none/prod/logsum, padding tiles
+    by ``tile_src`` zero, f32 [T, QT, B])."""
+    check_grouped_args(xg_tiles, vals, tile_chunk, parent_scores, mode, tile_src,
                        vals_dtypes=tuple(Q_DTYPES))
     _check_scales(vals, scales)
-    tensors = [xg_tiles, vals, scales, tile_chunk] + (
-        [parent_scores] if parent_scores is not None else []
-    )
+    tensors = grouped_tensors(xg_tiles, vals, scales, tile_chunk, parent_scores, tile_src)
     if common_device(tensors, "mscm_grouped_q").type == "cpu":
         return mscm_grouped_q_plain(xg_tiles, vals, scales, tile_chunk, parent_scores,
-                                    mode=mode)
-    return _launch(xg_tiles, vals, scales, tile_chunk, parent_scores, mode)
-
-
-def _launch(xg_tiles, vals, scales, tile_chunk, parent_scores, mode) -> torch.Tensor:
+                                    mode=mode, tile_src=tile_src)
     global GROUPED_Q_LAUNCHES
-    from repro_torch.kernels.build import load_library
-
-    t, qt, r = xg_tiles.shape
-    c, _, b = vals.shape
-    dev = xg_tiles.device
-    out = torch.empty((t, qt, b), dtype=torch.float32, device=dev)
-    lib = load_library("mscm_grouped")
-    with torch.cuda.device(dev):
-        err = lib.mscm_grouped_q_launch(
-            xg_tiles.data_ptr(), vals.data_ptr(), scales.data_ptr(), tile_chunk.data_ptr(),
-            parent_scores.data_ptr() if parent_scores is not None else None,
-            out.data_ptr(), t, qt, r, b, c, MODES[mode], Q_DTYPES[vals.dtype],
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(
-            f"mscm_grouped_q launch failed with CUDA error {err} "
-            f"(T={t}, QT={qt}, R={r}, B={b}, C={c}, mode={mode}, {vals.dtype})"
-        )
+    out = launch_grouped(xg_tiles, vals, scales, tile_chunk, tile_src, parent_scores, mode)
     GROUPED_Q_LAUNCHES += 1
     return out
 
@@ -129,8 +108,8 @@ def mscm_grouped_q_level(
 ) -> torch.Tensor:
     """One tree level through the quantized grouped kernel: the grouping,
     staging and unsort of ``ops.mscm_grouped_level``. Returns f32 [A, B]."""
-    def product(xg, tc, ps):
-        return mscm_grouped_q(xg, vals, scales, tc, ps, mode=mode)
+    def product(xg, tc, ps, tile_src):
+        return mscm_grouped_q(xg, vals, scales, tc, ps, mode=mode, tile_src=tile_src)
 
     return ops.mscm_grouped_level(x_dense, rows, vals, block_q, block_c, parent_scores,
                                   qt=qt, mode=mode, product=product)

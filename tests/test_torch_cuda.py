@@ -6,9 +6,10 @@ machine that has only the port's dependencies:
 
     PYTHONPATH=src python -m pytest tests/test_torch_cuda.py -q
 
-Each kernel is held against its plain version; the quantized grouped
-kernel also bitwise against the f32 grouped kernel on the dequantized
-tiles; the traversal on the card against the same traversal on the CPU, by
+Each kernel is held against its plain version, the grouped ones with and
+without padding tiles (``tile_src``); the quantized grouped kernel also
+bitwise against the f32 grouped kernel on the dequantized tiles; every
+kernel bitwise against a second launch; the traversal on the card against the same traversal on the CPU, by
 the ranking rule of ``repro_torch.parity`` (scores within rtol 1e-5 / atol
 1e-6, labels equal outside near-ties).
 """
@@ -39,23 +40,69 @@ def cuda_device():
     return torch.device("cuda")
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(640, 8, 496, 32, 300), (1, 4, 8, 6, 3), (3, 16, 100, 70, 4)])
-def test_kernel_matches_plain(cuda_device, shape):
+# The grouped kernels' shapes (T, QT, R, B, C): chip_smoke.py's (the path's
+# leaf level with fewer chunks, edge B = 6 and 8, QT*B over one pass of the
+# threads with int8/fp8 tiles off 16 bytes) and two more plans.
+GROUPED_SHAPES = [
+    (640, 8, 496, 32, 300), (1, 4, 8, 6, 3), (1, 4, 8, 8, 3), (3, 16, 100, 70, 4),
+    (5, 2, 37, 8, 3),        # R % 4 != 0: the query rows by ordinary loads
+    (4, 16, 1040, 72, 5),    # a tile over 227 KB: R in passes through the buffers
+    # More tiles than CTAs, in passes whose last pass has fewer slabs: one
+    # stage in f32 (2 passes), two stages in int8/fp8 (3 passes).
+    (300, 16, 600, 72, 40), (300, 16, 1300, 64, 40),
+]
+
+
+def _grouped_inputs(device, shape, seed, dead):
+    """Seeded inputs of the grouped kernels: xg, f32 tiles, sorted chunk ids
+    naming chunk C (clamped), parent scores, and ``tile_src`` (None, or a
+    fifth of the tiles live, the rest padding at the tail as the grouping
+    leaves it, the last live tile part full)."""
     t, qt, r, b, c = shape
-    g = torch.Generator().manual_seed(0)
-    xg = torch.rand(t, qt, r, generator=g).to(cuda_device)
-    vals = torch.randn(c, r, b, generator=g).to(cuda_device)
-    tc = torch.sort(torch.randint(0, c, (t,), generator=g)).values.to(cuda_device)
-    ps = torch.rand(t, qt, generator=g).to(cuda_device)
+    g = torch.Generator().manual_seed(seed)
+    xg = torch.rand(t, qt, r, generator=g)
+    vals = torch.randn(c, r, b, generator=g)
+    tc = torch.sort(torch.randint(0, c + 1, (t,), generator=g)).values
+    ps = torch.rand(t, qt, generator=g)
+    src = None
+    if dead:
+        live = max(1, t // 5) if t > 1 else 0
+        src = torch.arange(t * qt).reshape(t, qt)
+        src[live:] = -1
+        if live:
+            src[live - 1, qt // 2 + 1:] = -1
+    return [x.to(device) if x is not None else None for x in (xg, vals, tc, ps, src)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dead", [False, True])
+@pytest.mark.parametrize("shape", GROUPED_SHAPES)
+def test_kernel_matches_plain(cuda_device, shape, dead):
+    xg, vals, tc, ps, src = _grouped_inputs(cuda_device, shape, 0, dead)
     for mode in ("none", "prod", "logsum"):
         p = None if mode == "none" else ps
         before = tk.GROUPED_LAUNCHES
-        got = tk.mscm_grouped(xg, vals, tc, p, mode=mode)
+        got = tk.mscm_grouped(xg, vals, tc, p, mode=mode, tile_src=src)
         assert tk.GROUPED_LAUNCHES == before + 1
-        want = tk.mscm_grouped_plain(xg, vals, tc, p, mode=mode)
+        want = tk.mscm_grouped_plain(xg, vals, tc, p, mode=mode, tile_src=src)
         torch.cuda.synchronize()
         torch.testing.assert_close(got, want, rtol=KERNEL_RTOL, atol=KERNEL_ATOL)
+        if dead:
+            assert not got[src[:, 0] < 0].any()  # padding tiles: zeros
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dead", [False, True])
+@pytest.mark.parametrize("shape", GROUPED_SHAPES)
+def test_grouped_kernels_repeat_bitwise(cuda_device, shape, dead):
+    """Fixed-order sums, no atomics: two launches agree bit for bit, in f32
+    and int8, with and without padding tiles."""
+    xg, vals, tc, ps, src = _grouped_inputs(cuda_device, shape, 6, dead)
+    first = tk.mscm_grouped(xg, vals, tc, ps, mode="prod", tile_src=src)
+    assert torch.equal(first, tk.mscm_grouped(xg, vals, tc, ps, mode="prod", tile_src=src))
+    q, s = quantize_chunks(vals, "int8")
+    first = qk.mscm_grouped_q(xg, q, s, tc, ps, mode="logsum", tile_src=src)
+    assert torch.equal(first, qk.mscm_grouped_q(xg, q, s, tc, ps, mode="logsum", tile_src=src))
 
 
 @pytest.mark.cuda
@@ -171,27 +218,22 @@ def test_online_traversal_on_card_matches_cpu(cuda_device, method, score_mode):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dead", [False, True])
 @pytest.mark.parametrize("dtype", ["int8", "fp8"])
-@pytest.mark.parametrize("shape", [  # (T, QT, R, B, C)
-    (640, 8, 496, 32, 300), (1, 4, 8, 6, 3), (1, 4, 8, 8, 3), (3, 16, 100, 70, 4),
-])
-def test_grouped_q_kernel_matches_plain_and_dequantized(cuda_device, shape, dtype):
-    t, qt, r, b, c = shape
-    g = torch.Generator().manual_seed(3)
-    xg = torch.rand(t, qt, r, generator=g).to(cuda_device)
-    vals, scales = quantize_chunks(torch.randn(c, r, b, generator=g).to(cuda_device), dtype)
-    tc = torch.sort(torch.randint(0, c + 1, (t,), generator=g)).values.to(cuda_device)
-    ps = torch.rand(t, qt, generator=g).to(cuda_device)
+@pytest.mark.parametrize("shape", GROUPED_SHAPES)
+def test_grouped_q_kernel_matches_plain_and_dequantized(cuda_device, shape, dtype, dead):
+    xg, f32, tc, ps, src = _grouped_inputs(cuda_device, shape, 3, dead)
+    vals, scales = quantize_chunks(f32, dtype)
     deq = vals.float() * scales[:, None, :]
     for mode in ("none", "prod", "logsum"):
         p = None if mode == "none" else ps
         before = qk.GROUPED_Q_LAUNCHES
-        got = qk.mscm_grouped_q(xg, vals, scales, tc, p, mode=mode)
+        got = qk.mscm_grouped_q(xg, vals, scales, tc, p, mode=mode, tile_src=src)
         assert qk.GROUPED_Q_LAUNCHES == before + 1
-        want = qk.mscm_grouped_q_plain(xg, vals, scales, tc, p, mode=mode)
+        want = qk.mscm_grouped_q_plain(xg, vals, scales, tc, p, mode=mode, tile_src=src)
         torch.testing.assert_close(got, want, rtol=KERNEL_RTOL, atol=KERNEL_ATOL)
         # One routine: the dequantized tiles through the f32 kernel, bitwise.
-        assert torch.equal(got, tk.mscm_grouped(xg, deq, tc, p, mode=mode))
+        assert torch.equal(got, tk.mscm_grouped(xg, deq, tc, p, mode=mode, tile_src=src))
     torch.cuda.synchronize()
 
 

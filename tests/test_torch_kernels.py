@@ -179,6 +179,188 @@ def test_grouped_wrapper_rejects_bad_arguments():
 
 
 
+def _padded_tiles(seed, t=6, qt=4, r=16, b=8, c=3, live=3):
+    """Seeded grouped inputs and a ``tile_src`` whose tiles from ``live`` on
+    are padding (as ``group_blocks_device`` leaves them, at the tail), the
+    last live tile part full."""
+    rng = np.random.default_rng(seed)
+    xg = T(rng.random((t, qt, r)).astype(np.float32))
+    vals = T(rng.standard_normal((c, r, b)).astype(np.float32))
+    tc = T(np.sort(rng.integers(0, c, size=t))).long()
+    ps = T(rng.random((t, qt)).astype(np.float32))
+    src = torch.arange(t * qt).reshape(t, qt)
+    src[live:] = -1
+    src[live - 1, qt // 2:] = -1
+    return xg, vals, tc, ps, src
+
+
+@pytest.mark.parametrize("mode", ["none", "prod", "logsum"])
+def test_grouped_plain_zeroes_padding_tiles(mode):
+    """Padding tiles (tile_src[t, 0] < 0) give zeros; live tiles, padding
+    slots included, are the result without tile_src, bitwise."""
+    xg, vals, tc, ps, src = _padded_tiles(40)
+    p = None if mode == "none" else ps
+    got = tk.mscm_grouped(xg, vals, tc, p, mode=mode, tile_src=src)
+    old = tk.mscm_grouped_plain(xg, vals, tc, p, mode=mode)
+    live = src[:, 0] >= 0
+    assert torch.equal(got[live], old[live])
+    assert not got[~live].any()
+    assert torch.equal(got, tk.mscm_grouped_plain(xg, vals, tc, p, mode=mode, tile_src=src))
+
+
+def test_grouped_wrapper_rejects_bad_tile_src():
+    xg, vals, tc, ps, src = _padded_tiles(41)
+    with pytest.raises(ValueError, match="tile_src"):
+        tk.mscm_grouped(xg, vals, tc, ps, mode="prod", tile_src=src[:, :2])
+    with pytest.raises(TypeError, match="tile_src"):
+        tk.mscm_grouped(xg, vals, tc, ps, mode="prod", tile_src=src.int())
+
+
+@pytest.mark.parametrize("mode,qt", [("none", 4), ("prod", 8), ("logsum", 2)])
+def test_grouped_level_passes_tile_src(mode, qt):
+    """The level hands its product the grouping's tile_src, and its [A, B]
+    still matches the reference's."""
+    m = _mk(60 + qt, A=19)
+    xd_j, xd_t = _dense(m)
+    ps_j = None if mode == "none" else jnp.asarray(m["ps"])
+    ps_t = None if mode == "none" else T(m["ps"])
+    seen = []
+
+    def product(xg, tc, ps, tile_src):
+        seen.append(tile_src)
+        return tk.mscm_grouped(xg, T(m["vals"]), tc, ps, mode=mode, tile_src=tile_src)
+
+    got = tops.mscm_grouped_level(xd_t, *[T(m[k]) for k in ("rows", "vals", "bq", "bc")], ps_t,
+                                  qt=qt, mode=mode, product=product)
+    want_src = tops.group_blocks_device(T(m["bc"]).long(), qt, m["vals"].shape[0])[1]
+    assert len(seen) == 1 and torch.equal(seen[0], want_src)
+    want = jops.mscm_pallas_grouped(
+        xd_j, *[jnp.asarray(m[k]) for k in ("rows", "vals", "bq", "bc")], ps_j,
+        qt=qt, mode=mode, interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL, atol=ATOL)
+
+
+# The grouped kernel's launch plan. (T, QT, R, B): the path's leaf level, the
+# pruned tier's R, the card tests' edge shapes, a tile over 227 KB, a grid
+# that needs more CTAs than the card holds, QT = 1.
+GROUPED_PLAN_SHAPES = [(640, 8, 496, 32), (640, 8, 248, 32), (1, 4, 8, 6), (1, 4, 8, 8),
+                       (3, 16, 100, 70), (5, 2, 37, 8), (4, 16, 1040, 72), (100_000, 8, 496, 32),
+                       (7, 1, 4, 1), (300, 16, 600, 72), (300, 16, 1300, 64)]
+
+
+def grouped_ranges(plan, r):
+    """(pass, warp, slab, first row, rows) of every warp range that
+    csrc/mscm_grouped.cu computes: warp w takes rows [w * warp_rows,
+    (w + 1) * warp_rows) of each pass."""
+    for ps in range(plan.passes):
+        r0 = ps * plan.pass_rows
+        nr = min(plan.pass_rows, r - r0)
+        for w in range(8):
+            w0, k1 = w * plan.warp_rows, min(nr, (w + 1) * plan.warp_rows)
+            if w0 < k1:
+                yield ps, w, w0 // plan.slab_rows, r0 + w0, k1 - w0
+
+
+@pytest.mark.parametrize("elem_bytes", [4, 1])
+@pytest.mark.parametrize("shape", GROUPED_PLAN_SHAPES)
+def test_grouped_plan_covers_every_row_once(shape, elem_bytes):
+    t, qt, r, b = shape
+    plan = tk.grouped_launch_plan(t, qt, r, b, elem_bytes)
+    seen = np.zeros(r, np.int64)
+    for ps, _, slab, first, n in grouped_ranges(plan, r):
+        seen[first:first + n] += 1
+        local = first - ps * plan.pass_rows
+        assert slab < plan.slabs <= 4
+        assert (local + n - 1) // plan.slab_rows == slab  # a warp's rows lie in one slab
+    np.testing.assert_array_equal(seen, 1)
+    assert plan.warp_rows % 4 == 0 and plan.slab_rows == 2 * plan.warp_rows
+    assert plan.passes == -(-r // plan.pass_rows)
+    # Every tile has a CTA, and none walks more than GROUPED_MAX_TILES.
+    assert 1 <= plan.grid <= t and plan.grid * tk.GROUPED_MAX_TILES >= t
+    assert plan.stages in (1, 2)
+
+
+@pytest.mark.parametrize("elem_bytes", [4, 1])
+@pytest.mark.parametrize("shape", GROUPED_PLAN_SHAPES)
+def test_grouped_plan_bulk_copies_are_16_byte_aligned(shape, elem_bytes):
+    """Every bulk copy (the query rows of xg [T, QT, R], the tile rows of
+    vals [C, R, B] by slab, the scale row of scales [C, B]) starts and ends
+    on 16 bytes, for any tile t and chunk c."""
+    t, qt, r, b = shape
+    plan = tk.grouped_launch_plan(t, qt, r, b, elem_bytes)
+    xr = -(-plan.pass_rows // 4) * 4
+    for i in (0, 1, 7):
+        for ps in range(plan.passes):
+            r0 = ps * plan.pass_rows
+            nr = min(plan.pass_rows, r - r0)
+            if plan.bulk_xg:
+                copies = ([(i * qt * r, qt * nr)] if xr == r else
+                          [((i * qt + q) * r + r0, nr) for q in range(qt)])
+                for start, n in copies:
+                    assert start * 4 % 16 == 0 and n * 4 % 16 == 0
+            if plan.bulk_tile:
+                for j in range(plan.slabs):
+                    rows = min(plan.slab_rows, nr - j * plan.slab_rows)
+                    if rows > 0:
+                        start = (i * r + r0 + j * plan.slab_rows) * b * elem_bytes
+                        assert start % 16 == 0 and rows * b * elem_bytes % 16 == 0
+        if plan.bulk_scales:
+            assert i * b * 4 % 16 == 0 and b * 4 % 16 == 0
+    assert not (elem_bytes == 4 and plan.bulk_scales)  # f32 tiles have no scale row
+
+
+def test_grouped_plan_unaligned_shapes_take_ordinary_loads():
+    assert not tk.grouped_launch_plan(3, 16, 100, 70, 1).bulk_tile    # 7,000-byte int8 tiles
+    assert not tk.grouped_launch_plan(3, 16, 100, 70, 1).bulk_scales  # 280-byte scale rows
+    assert tk.grouped_launch_plan(3, 16, 100, 70, 4).bulk_tile
+    assert not tk.grouped_launch_plan(5, 2, 37, 8, 4).bulk_xg          # R % 4 != 0
+    none = tk.grouped_launch_plan(640, 8, 496, 32, 1, aligned=False)   # a misaligned view
+    assert not (none.bulk_xg or none.bulk_tile or none.bulk_scales)
+    main = tk.grouped_launch_plan(640, 8, 496, 32, 1)
+    assert main.bulk_xg and main.bulk_tile and main.bulk_scales
+
+
+@pytest.mark.parametrize("elem_bytes", [4, 1])
+@pytest.mark.parametrize("shape", GROUPED_PLAN_SHAPES)
+def test_grouped_plan_fits_shared_memory(shape, elem_bytes):
+    """Within 227 KB; passes only when a tile does not fit, and the same
+    passes for f32 and int8/fp8 tiles (the same order of sums)."""
+    t, qt, r, b = shape
+    plan = tk.grouped_launch_plan(t, qt, r, b, elem_bytes)
+    assert plan.smem_bytes <= tk.GROUPED_SMEM_LIMIT
+    assert plan.smem_bytes == tk.grouped_smem_bytes(qt, b, elem_bytes, plan.pass_rows,
+                                                    plan.stages)
+    f32 = tk.grouped_launch_plan(t, qt, r, b, 4)
+    assert plan.pass_rows == f32.pass_rows
+    if plan.passes > 1:
+        assert tk.grouped_smem_bytes(qt, b, 4, r, 1) > tk.GROUPED_SMEM_LIMIT
+        assert plan.pass_rows % 32 == 0
+
+
+def test_grouped_plan_rejects_qt_above_the_cap():
+    assert tk.grouped_launch_plan(640, tk.GROUPED_MAX_QT, 496, 32, 4).grid == 132
+    with pytest.raises(ValueError, match="cap"):
+        tk.grouped_launch_plan(640, tk.GROUPED_MAX_QT + 1, 496, 32, 4)
+    with pytest.raises(ValueError):
+        tk.grouped_launch_plan(640, 8, 0, 32, 4)
+    with pytest.raises(ValueError):
+        tk.grouped_launch_plan(640, 8, 496, 32, 2)
+    with pytest.raises(ValueError, match="too wide"):
+        tk.grouped_launch_plan(1, 16, 64, 20_000, 4)
+
+
+@pytest.mark.parametrize("qt,b_max", [(1, 1412), (4, 888), (8, 592), (16, 353)])
+@pytest.mark.parametrize("r", [496, 5000])
+def test_grouped_plan_rejects_b_past_its_limit(qt, b_max, r):
+    """The warps' partials [8, QT, B] and one pass of 32 rows must fit in
+    shared memory, so B has a limit for each QT whatever R is; past it the
+    plan raises rather than the launch failing."""
+    for elem_bytes in (4, 1):
+        assert tk.grouped_launch_plan(640, qt, r, b_max, elem_bytes).pass_rows >= 32
+        with pytest.raises(ValueError, match="too wide"):
+            tk.grouped_launch_plan(640, qt, r, b_max + 1, elem_bytes)
+
+
 # ---------------------------------------------------------------------------
 # The online path: fused and pregather kernels, mscm_pallas
 # ---------------------------------------------------------------------------

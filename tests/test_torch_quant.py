@@ -275,6 +275,27 @@ def test_grouped_q_plain_is_grouped_plain_on_dequantized_tiles(mode, dtype):
     assert torch.equal(got, want)
 
 
+@pytest.mark.parametrize("dtype", ["int8", "fp8"])
+@pytest.mark.parametrize("mode", ["none", "prod", "logsum"])
+def test_grouped_q_plain_zeroes_padding_tiles(mode, dtype):
+    """Padding tiles give zeros; live tiles are the result without
+    tile_src, bitwise, and the f32 plain version on the dequantized tiles."""
+    xg, q, s, tc, ps = grouped_inputs(13, dtype)
+    vals, scales = port_codes(q), T(np.array(s))
+    t, qt = xg.shape[:2]
+    src = torch.arange(t * qt).reshape(t, qt)
+    src[t // 2:] = -1
+    p = None if mode == "none" else T(ps)
+    got = qk.mscm_grouped_q(T(xg), vals, scales, T(tc).long(), p, mode=mode, tile_src=src)
+    old = qk.mscm_grouped_q_plain(T(xg), vals, scales, T(tc).long(), p, mode=mode)
+    live = src[:, 0] >= 0
+    assert torch.equal(got[live], old[live])
+    assert not got[~live].any()
+    deq = vals.float() * scales[:, None, :]
+    assert torch.equal(got, tk.mscm_grouped_plain(T(xg), deq, T(tc).long(), p, mode=mode,
+                                                  tile_src=src))
+
+
 def test_grouped_q_wrapper_rejects_bad_arguments():
     xg, vals = torch.zeros(2, 4, 8), torch.zeros(3, 8, 6, dtype=torch.int8)
     s, tc, ps = torch.ones(3, 6), torch.zeros(2, dtype=torch.int64), torch.zeros(2, 4)
