@@ -7,17 +7,22 @@
 :func:`quantized_tree_from_numpy` does the same for a quantized tree
 (``chunk_rows``, ``chunk_vals`` codes, ``chunk_scales``), with fp8 codes
 crossing as their uint8 bit patterns, so no fp8 numpy type is needed.
+:func:`trained_model_from_numpy` carries a trained model across: its tree
+as :func:`tree_from_numpy` does and its label tree structure copied, so a
+model the reference trained serves in the port.
 """
 
 from __future__ import annotations
 
-from typing import Mapping, Sequence
+from typing import Any, Mapping, Sequence
 
 import numpy as np
 import torch
 
 from repro_torch.core.tree import TreeLayerArrays, XMRTree, resolve_device
 from repro_torch.quant.storage import QUANT_DTYPES, QuantizedTree, QuantLayerArrays, tier_dtype
+from repro_torch.trees.cluster import TreeStructure
+from repro_torch.trees.train import TrainedXMRModel
 
 LAYER_FIELDS = ("chunk_rows", "chunk_vals", "col_rows", "col_vals")
 _DTYPES = {
@@ -55,6 +60,38 @@ def tree_from_numpy(
         }))
     return XMRTree(layers=out, n_cols=tuple(int(c) for c in n_cols),
                    branching=tuple(int(b) for b in branching), d=int(d))
+
+
+STRUCTURE_FIELDS = ("label_perm", "level_sizes", "branching", "n_labels")
+
+
+def trained_model_from_numpy(
+    layers: Sequence[Mapping[str, np.ndarray]],
+    n_cols: Sequence[int],
+    branching: Sequence[int],
+    d: int,
+    structure: Mapping[str, Any],
+    *,
+    device: str | torch.device | None = None,
+) -> TrainedXMRModel:
+    """The port's :class:`TrainedXMRModel` from a trained model's arrays:
+    the tree's per-level arrays as for :func:`tree_from_numpy`, and its
+    ``TreeStructure`` fields (keys :data:`STRUCTURE_FIELDS`, e.g.
+    ``dataclasses.asdict`` of the reference's), copied."""
+    missing = set(STRUCTURE_FIELDS) - set(structure)
+    if missing:
+        raise ValueError(f"structure lacks {sorted(missing)}")
+    tree = tree_from_numpy(layers, n_cols, branching, d, device=device)
+    ts = TreeStructure(
+        label_perm=np.array(structure["label_perm"], dtype=np.int64),
+        level_sizes=tuple(int(s) for s in structure["level_sizes"]),
+        branching=int(structure["branching"]),
+        n_labels=int(structure["n_labels"]),
+    )
+    if len(ts.label_perm) != ts.level_sizes[-1] or tuple(tree.n_cols) != ts.level_sizes:
+        raise ValueError(f"structure of {ts.level_sizes} levels and {len(ts.label_perm)} leaf "
+                         f"slots does not fit a tree of {tree.n_cols} columns")
+    return TrainedXMRModel(tree=tree, structure=ts)
 
 
 QUANT_LAYER_FIELDS = ("chunk_rows", "chunk_vals", "chunk_scales")

@@ -33,22 +33,23 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
     "mscm_grouped": {
         # xg, vals, tile_chunk, tile_src, ps, out, T, QT, R, B, C, mode,
         # then the launch plan (pass_rows, warp_rows, slab_rows, bulk, stages,
-        # grid), stream
+        # grid, group_rows, window_cols), stream
         "mscm_grouped_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                                _I, _I, _I, _I, _I, _I, _P),
+                                _I, _I, _I, _I, _I, _I, _I, _I, _P),
         # xg, vals, scales, tile_chunk, tile_src, ps, out, T, QT, R, B, C, mode,
         # dtype, then the launch plan, stream
         "mscm_grouped_q_launch": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                                  _I, _I, _I, _I, _I, _I, _P),
+                                  _I, _I, _I, _I, _I, _I, _I, _I, _P),
     },
     "mscm_block": {
         # x_dense, rows, vals, block_q, block_c, out, A, Dp, R, B, C, n, dtype,
-        # then the launch plan (S, rps, slab, stages, bulk), stream
+        # then the launch plan (S, rps, slab, stages, bulk, window_cols), stream
         "mscm_fused_launch": (_P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _I, _I, _I,
-                              _I, _I, _I, _I, _I, _P),
-        # xg, vals, block_c, out, A, R, B, C, dtype, S, rps, slab, stages, bulk, stream
+                              _I, _I, _I, _I, _I, _I, _P),
+        # xg, vals, block_c, out, A, R, B, C, dtype, S, rps, slab, stages, bulk,
+        # window_cols, stream
         "mscm_pregather_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                  _I, _I, _I, _I, _I, _P),
+                                  _I, _I, _I, _I, _I, _I, _P),
     },
 }
 

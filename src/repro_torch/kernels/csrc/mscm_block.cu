@@ -55,6 +55,13 @@
 //   arrival early, behind the loads. No atomics, no second launch: for one
 //   plan, two launches are bitwise equal.
 //
+// Any B: columns go in windows of `cols` columns (one window of all B
+// whenever its buffers fit), cluster u = a * windows + w serving window w
+// of block a with its own partials. A window splits columns, never R, so
+// each output is summed in the same order as without windows. A window's
+// tile rows lie at stride B, so they arrive one bulk copy a row, spread
+// over warp 0's lanes.
+//
 // Chunk and query ids are clamped into range and rows clipped to
 // [0, Dp-1], as the reference's gathers clamp. Padding rows hold the
 // sentinel, whose query value is 0. The block list arrives sorted by chunk,
@@ -84,11 +91,11 @@ constexpr size_t kMaxSmem = 232448;  // 227 KB, an H100 block's opt-in limit
 
 enum DType { kF32 = 0, kBF16 = 1 };
 
-// The launch plan (block_launch_plan): S CTAs a block, `rps` rows a slice,
-// streamed in slabs of `slab` rows through `stages` buffers; `bulk` picks
-// the staging path.
+// The launch plan (block_launch_plan): S CTAs a block and window, `rps`
+// rows a slice, streamed in slabs of `slab` rows through `stages` buffers;
+// `bulk` picks the staging path; windows of `cols` columns.
 struct Plan {
-  int S, rps, slab, stages, bulk;
+  int S, rps, slab, stages, bulk, cols;
 };
 
 struct Args {
@@ -106,8 +113,8 @@ struct Args {
 // Shared memory, in order: 2*stages + 1 mbarriers (head, tile, cluster
 // sum), the warps' partials [kWarps, B], the cluster's partials
 // [kMaxCluster, B] (filled in rank 0 only), then `stages` buffers, each a
-// tile slab [slab, B], its query values [slab] and its rows [slab].
-// block_smem_bytes in mscm_kernel.py repeats this sum.
+// tile slab [slab, B], its query values [slab] and its rows [slab], where B
+// is a window's (cols). block_smem_bytes in mscm_kernel.py repeats this sum.
 struct Layout {
   size_t part, red, stage0, stage, xs, rows, total;  // the tile slab is at 0
   __host__ __device__ Layout(const Plan& p, int B, int es) {
@@ -177,13 +184,20 @@ __device__ __forceinline__ void slab_product(const T* tile, const T* xs, int n, 
 }
 
 // kFused: x is x_dense [n, Dp] and rows [C, R] gives the gather positions.
-// Otherwise x is xg [A, R] and rows / block_q are unused.
-template <typename T, bool kFused>
+// Otherwise x is xg [A, R] and rows / block_q are unused. kWindowed: the
+// plan cuts B into windows; without them a cluster serves a block, whole,
+// and thread 0 issues the copies.
+template <typename T, bool kFused, bool kWindowed>
 __global__ void __launch_bounds__(kThreads) mscm_block_kernel(const Args args) {
   extern __shared__ __align__(128) unsigned char smem[];
   const Plan p = args.p;
   const int R = args.R, B = args.B;
-  const Layout lay(p, B, static_cast<int>(sizeof(T)));
+  const Layout lay(p, kWindowed ? p.cols : B, static_cast<int>(sizeof(T)));
+  const int windows = kWindowed ? (B + p.cols - 1) / p.cols : 1;
+  const int unit = static_cast<int>(blockIdx.x / p.S);  // this cluster: block a, window w
+  const int a = kWindowed ? unit / windows : unit;
+  const int b0 = kWindowed ? (unit - a * windows) * p.cols : 0;  // this window's first column
+  const int Bw = kWindowed ? min(p.cols, B - b0) : B;
   uint64_t* hbar = reinterpret_cast<uint64_t*>(smem);  // [stages] head landed
   uint64_t* tbar = hbar + p.stages;                     // [stages] tile landed
   uint64_t* rbar = tbar + p.stages;                     // the other ranks' partials landed
@@ -196,14 +210,13 @@ __global__ void __launch_bounds__(kThreads) mscm_block_kernel(const Args args) {
 
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
-  const int a = blockIdx.x / p.S;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int row0 = rank * p.rps;
   const int nrows = min(R, row0 + p.rps) - row0;  // >= 1: the plan leaves no slice empty
   const int n_slabs = (nrows + p.slab - 1) / p.slab;
 
   const int64_t c = clamp64(args.block_c[a], args.C - 1);
-  const T* vt = static_cast<const T*>(args.vals) + (static_cast<size_t>(c) * R + row0) * B;
+  const T* vt = static_cast<const T*>(args.vals) + (static_cast<size_t>(c) * R + row0) * B + b0;
   const T* xrow;  // fused: the query's dense row; pregather: the slice of xg[a]
   const int32_t* rsl = nullptr;
   if constexpr (kFused) {
@@ -215,23 +228,35 @@ __global__ void __launch_bounds__(kThreads) mscm_block_kernel(const Args args) {
   }
   const int64_t dmax = args.Dp - 1;
 
-  float* part_w = part + warp * B;
-  for (int b = lane; b < B; b += 32) part_w[b] = 0.0f;
+  float* part_w = part + warp * Bw;
+  for (int b = lane; b < Bw; b += 32) part_w[b] = 0.0f;
 
   auto slab_rows = [&](int j) { return min(p.slab, nrows - j * p.slab); };
-  // Bulk path: thread 0 puts slab j of the slice in flight into buffer s.
+  // Bulk path: thread 0 (kWindowed: warp 0) puts slab j of the slice in
+  // flight into buffer s. Thread 0 arms both barriers and copies the head;
+  // a window's tile rows go one copy a row, over warp 0's lanes.
   auto issue = [&](int j, int s) {
     const int r0 = j * p.slab, nr = slab_rows(j);
-    const uint32_t tile_bytes = static_cast<uint32_t>(nr) * B * sizeof(T);
-    if constexpr (kFused) {
-      mbar_expect(&hbar[s], nr * 4u);
-      bulk_load(rows_of(s), rsl + r0, nr * 4u, &hbar[s]);
-    } else {
-      mbar_expect(&hbar[s], nr * static_cast<uint32_t>(sizeof(T)));
-      bulk_load(xs_of(s), xrow + r0, nr * static_cast<uint32_t>(sizeof(T)), &hbar[s]);
+    const uint32_t row_bytes = static_cast<uint32_t>(Bw) * sizeof(T);
+    if (lane == 0) {
+      if constexpr (kFused) {
+        mbar_expect(&hbar[s], nr * 4u);
+        bulk_load(rows_of(s), rsl + r0, nr * 4u, &hbar[s]);
+      } else {
+        mbar_expect(&hbar[s], nr * static_cast<uint32_t>(sizeof(T)));
+        bulk_load(xs_of(s), xrow + r0, nr * static_cast<uint32_t>(sizeof(T)), &hbar[s]);
+      }
+      mbar_expect(&tbar[s], nr * row_bytes);
     }
-    mbar_expect(&tbar[s], tile_bytes);
-    bulk_load(tile_of(s), vt + static_cast<size_t>(r0) * B, tile_bytes, &tbar[s]);
+    if constexpr (!kWindowed) {
+      bulk_load(tile_of(s), vt + static_cast<size_t>(r0) * B, nr * row_bytes, &tbar[s]);
+    } else {
+      __syncwarp();
+      for (int k = lane; k < nr; k += 32) {
+        bulk_load(tile_of(s) + static_cast<size_t>(k) * Bw, vt + static_cast<size_t>(r0 + k) * B,
+                  row_bytes, &tbar[s]);
+      }
+    }
   };
   // Fused: the query values of slab j from its rows in buffer s.
   auto gather = [&](int j, int s) {
@@ -252,12 +277,16 @@ __global__ void __launch_bounds__(kThreads) mscm_block_kernel(const Args args) {
     }
     if (rank == 0 && p.S > 1) {
       mbar_init(rbar, 1);  // one arrival, and the other ranks' partials as bytes
-      mbar_expect(rbar, static_cast<uint32_t>(p.S - 1) * B * 4u);
+      mbar_expect(rbar, static_cast<uint32_t>(p.S - 1) * Bw * 4u);
     }
     fence_mbar_init();
-    if (p.bulk) {
+    if (!kWindowed && p.bulk) {
       for (int j = 0; j < first; ++j) issue(j, j);
     }
+  }
+  if (kWindowed && warp == 0 && p.bulk) {
+    __syncwarp();
+    for (int j = 0; j < first; ++j) issue(j, j);
   }
   __syncthreads();  // the barriers are initialised before anyone waits
   // Rank 0's barrier is initialised before another rank stores to it: this
@@ -283,10 +312,10 @@ __global__ void __launch_bounds__(kThreads) mscm_block_kernel(const Args args) {
       }
       if (!kFused) mbar_wait(&hbar[s], parity);
       mbar_wait(&tbar[s], parity);
-      slab_product(tile_of(s), xs_of(s), slab_rows(j), B, part_w, warp, lane);
+      slab_product(tile_of(s), xs_of(s), slab_rows(j), Bw, part_w, warp, lane);
       if (j + p.stages < n_slabs) {
         __syncthreads();  // buffer s is consumed: refill it
-        if (tid == 0) {
+        if (kWindowed ? warp == 0 : tid == 0) {
           fence_proxy_async();
           issue(j + p.stages, s);
         }
@@ -299,7 +328,14 @@ __global__ void __launch_bounds__(kThreads) mscm_block_kernel(const Args args) {
     for (int j = 0; j < n_slabs; ++j) {
       const int r0 = j * p.slab, nr = slab_rows(j);
       const T* src = vt + static_cast<size_t>(r0) * B;
-      for (int i = tid; i < nr * B; i += kThreads) tile[i] = src[i];
+      for (int i = tid; i < nr * Bw; i += kThreads) {
+        if constexpr (kWindowed) {
+          const int k = i / Bw;
+          tile[i] = src[static_cast<size_t>(k) * B + (i - k * Bw)];
+        } else {
+          tile[i] = src[i];
+        }
+      }
       for (int k = tid; k < nr; k += kThreads) {
         if constexpr (kFused) {
           xs[k] = xrow[clamp64(rsl[r0 + k], dmax)];
@@ -308,7 +344,7 @@ __global__ void __launch_bounds__(kThreads) mscm_block_kernel(const Args args) {
         }
       }
       __syncthreads();
-      slab_product(tile, xs, nr, B, part_w, warp, lane);
+      slab_product(tile, xs, nr, Bw, part_w, warp, lane);
       __syncthreads();  // the slab is consumed before the next overwrites it
     }
   }
@@ -318,38 +354,41 @@ __global__ void __launch_bounds__(kThreads) mscm_block_kernel(const Args args) {
   // The CTA's partial, warps in order, into row `rank` of rank 0's partials:
   // the other ranks store theirs asynchronously, counted by rank 0's barrier,
   // and exit; rank 0 outlives them, since it waits for their bytes.
-  for (int b = tid; b < B; b += kThreads) {
+  for (int b = tid; b < Bw; b += kThreads) {
     float s = 0.0f;
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) s += part[w * B + b];
+    for (int w = 0; w < kWarps; ++w) s += part[w * Bw + b];
     if (rank == 0) {
       red[b] = s;
     } else {
-      st_async_remote(red + rank * B + b, s, rbar, 0);
+      st_async_remote(red + rank * Bw + b, s, rbar, 0);
     }
   }
   if (rank != 0) return;
   if (p.S > 1) mbar_wait(rbar, 0);  // each thread reads back its own red[b]
-  for (int b = tid; b < B; b += kThreads) {
+  for (int b = tid; b < Bw; b += kThreads) {
     float s = 0.0f;
-    for (int r = 0; r < p.S; ++r) s += red[r * B + b];
-    args.out[static_cast<size_t>(a) * B + b] = s;
+    for (int r = 0; r < p.S; ++r) s += red[r * Bw + b];
+    args.out[static_cast<size_t>(a) * B + b0 + b] = s;
   }
 }
 
 template <typename T, bool kFused>
 int launch_typed(const Args& args, int A, cudaStream_t stream) {
   const Plan& p = args.p;
-  const size_t smem = Layout(p, args.B, static_cast<int>(sizeof(T))).total;
+  const size_t smem = Layout(p, p.cols, static_cast<int>(sizeof(T))).total;
   if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = mscm_block_kernel<T, kFused>;
+  auto kernel = p.cols < args.B ? mscm_block_kernel<T, kFused, true>
+                                : mscm_block_kernel<T, kFused, false>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(static_cast<unsigned>(A) * p.S);
+  const int64_t grid = static_cast<int64_t>(A) * p.S * ((args.B + p.cols - 1) / p.cols);
+  if (grid > INT32_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  cfg.gridDim = dim3(static_cast<unsigned>(grid));
   cfg.blockDim = dim3(kThreads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
@@ -366,21 +405,26 @@ int launch_typed(const Args& args, int A, cudaStream_t stream) {
 }
 
 // Rejects a plan the kernel cannot run: slices that miss rows or leave one
-// empty, and, for the bulk path, a slab or address off 16 bytes.
+// empty, windows that miss columns, and, for the bulk
+// path, a slab, a window's row or an address off 16 bytes.
 bool plan_ok(const Args& args, int es, bool fused) {
   const Plan& p = args.p;
   if (p.S < 1 || p.S > kMaxCluster || p.rps < 1 || p.slab < 1 || p.stages < 1 ||
       p.stages > kMaxStages || static_cast<int64_t>(p.S - 1) * p.rps >= args.R ||
-      static_cast<int64_t>(p.S) * p.rps < args.R) {
+      static_cast<int64_t>(p.S) * p.rps < args.R || p.cols < 1 || p.cols > args.B ||
+      (p.cols < args.B && p.cols % 16 != 0)) {
     return false;
   }
   if (!p.bulk) return true;
   const int head = fused ? 4 : es;  // bytes a row of the slice's head
+  // A window's tile rows go one copy a row: only B's rows need 16 bytes.
+  const int64_t tile_row = p.cols < args.B ? 0 : static_cast<int64_t>(args.B) * es;
   auto rows16 = [&](int64_t rows) {
-    return (rows * args.B * es) % 16 == 0 && (rows * head) % 16 == 0;
+    return (rows * tile_row) % 16 == 0 && (rows * head) % 16 == 0;
   };
-  return rows16(args.R) && rows16(p.rps) && rows16(p.slab) && aligned16(args.vals) &&
-         aligned16(fused ? static_cast<const void*>(args.rows) : args.x);
+  return rows16(args.R) && rows16(p.rps) && rows16(p.slab) &&
+         (p.cols == args.B || (static_cast<int64_t>(args.B) * es) % 16 == 0) &&
+         aligned16(args.vals) && aligned16(fused ? static_cast<const void*>(args.rows) : args.x);
 }
 
 template <bool kFused>
@@ -399,24 +443,27 @@ int launch(const Args& args, int A, int dtype, void* stream) {
 }  // namespace
 
 // Both launch on `stream` and return the launch's CUDA error (0 on
-// success). The plan (S, rps, slab, stages, bulk) is block_launch_plan's.
+// success). The plan (S, rps, slab, stages, bulk, cols) is
+// block_launch_plan's.
 // The caller allocates `out`; nothing here allocates or synchronises.
 extern "C" int mscm_fused_launch(const void* x_dense, const int32_t* rows, const void* vals,
                                  const int64_t* block_q, const int64_t* block_c, float* out,
                                  int A, int64_t Dp, int R, int B, int C, int n, int dtype, int S,
-                                 int rps, int slab, int stages, int bulk, void* stream) {
+                                 int rps, int slab, int stages, int bulk, int cols,
+                                 void* stream) {
   if (rows == nullptr || block_q == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const Args args{x_dense, rows, vals, block_q, block_c, out, R, B, C, n, Dp,
-                  Plan{S, rps, slab, stages, bulk}};
+                  Plan{S, rps, slab, stages, bulk, cols}};
   return launch<true>(args, A, dtype, stream);
 }
 
 extern "C" int mscm_pregather_launch(const void* xg, const void* vals, const int64_t* block_c,
                                      float* out, int A, int R, int B, int C, int dtype, int S,
-                                     int rps, int slab, int stages, int bulk, void* stream) {
+                                     int rps, int slab, int stages, int bulk, int cols,
+                                     void* stream) {
   const Args args{xg, nullptr, vals, nullptr, block_c, out, R, B, C, 1, 1,
-                  Plan{S, rps, slab, stages, bulk}};
+                  Plan{S, rps, slab, stages, bulk, cols}};
   return launch<false>(args, A, dtype, stream);
 }

@@ -70,7 +70,18 @@
 // The grouping upstream is chunk-major, so tiles of one chunk are adjacent
 // and run at about the same time on neighbouring CTAs; L2 serves the
 // repeats. Chunk ids are clamped into range, as the reference's gather
-// clamps them. QT is a runtime value up to kMaxQT, in blocks of 8 rows.
+// clamps them.
+//
+// Any QT and B. A tile runs as items: row groups of up to kMaxQT rows (the
+// last one short) by windows of `window_cols` columns (the last one
+// narrower), item v = (t * windows + w) * row_groups + g, each with its own
+// partials and stages. Below QT = 16 and the widest B whose partials and a
+// pass of 32 rows fit, a tile is one item, as before. An item is live when
+// its tile is (tile_src[t, 0] >= 0), whatever its rows hold, so a row group
+// of padding slots in a live tile computes what the plain version does. A
+// window splits columns, never R: each output is summed in the same order
+// as without windows. A window's tile rows lie at stride B in vals, so they
+// arrive one bulk copy a row, spread over a warp's lanes.
 //
 // Plain C interface, loaded with ctypes (repro_torch/kernels/build.py).
 
@@ -110,24 +121,26 @@ enum QDtype { kInt8 = 0, kFp8E4M3 = 1 };
 // Bits of Plan::bulk: which operands arrive by bulk copies.
 enum BulkOperand { kBulkXg = 1, kBulkTile = 2, kBulkScales = 4 };
 
-// The launch plan (grouped_launch_plan): `grid` CTAs, CTA g taking tiles g,
-// g + grid, ... (at most kMaxTiles); R in passes of `pass_rows` rows, each
-// pass of each live tile a unit that goes through a ring of `stages`
-// shared-memory stages; warp w takes rows [w * warp_rows, (w + 1) *
-// warp_rows) of a pass; the tile rows of a pass arrive in slabs of
-// `slab_rows` = 2 * warp_rows rows.
+// The launch plan (grouped_launch_plan): items of `group_rows` rows by
+// `window_cols` columns; `grid` CTAs, CTA g taking items g, g + grid, ...
+// (at most kMaxTiles); R in passes of `pass_rows` rows, each pass of each
+// live item a unit that goes through a ring of `stages` shared-memory
+// stages; warp w takes rows [w * warp_rows, (w + 1) * warp_rows) of a
+// pass; the tile rows of a pass arrive in slabs of `slab_rows` = 2 *
+// warp_rows rows.
 struct Plan {
-  int pass_rows, warp_rows, slab_rows, bulk, stages, grid;
+  int pass_rows, warp_rows, slab_rows, bulk, stages, grid, group_rows, window_cols;
 };
 
 // Shared memory, in order: the mbarriers (kMaxSlabs + 1 a stage: the head,
 // query rows and scales, then one a slab), the chunk ids of the CTA's live
-// tiles [kMaxTiles], their indices among its tiles [kMaxTiles] with the
-// padding tiles' mask and the live count, its parent scores
+// items [kMaxTiles], their indices among its items [kMaxTiles] with the
+// padding items' mask and the live count, its parent scores
 // [kMaxTiles, QT], the warps' partials
 // [kWarps, QT, B], then `stages` stages, each the scale row [B], the query
 // rows [QT, xr] (xr = pass_rows rounded up to 4) and the tile rows
-// [pass_rows, B] of W. grouped_smem_bytes in mscm_kernel.py repeats this sum.
+// [pass_rows, B] of W, where QT and B are an item's (group_rows and
+// window_cols). grouped_smem_bytes in mscm_kernel.py repeats this sum.
 struct Layout {
   size_t chunks, idx, ps, part, stage0, stage, xs, tile, total;
   int xr;
@@ -169,6 +182,30 @@ struct Args {
   int T, QT, R, B, C, mode;
   Plan p;
 };
+
+// One item of the launch: tile t's rows [row0, row0 + h) and columns
+// [b0, b0 + bw). grouped_item in mscm_kernel.py repeats this decode.
+// Without row groups or windows (kSplit false) item v is tile v, whole,
+// and the decode folds away.
+struct Item {
+  int t, row0, h, b0, bw;
+};
+
+template <bool kSplit>
+__device__ __forceinline__ Item item_of(const Args& a, int v) {
+  if constexpr (!kSplit) return Item{v, 0, a.QT, 0, a.B};
+  const int groups = (a.QT + a.p.group_rows - 1) / a.p.group_rows;
+  const int windows = (a.B + a.p.window_cols - 1) / a.p.window_cols;
+  const int g = v % groups, rest = v / groups;
+  const int w = rest % windows;
+  Item it;
+  it.t = rest / windows;
+  it.row0 = g * a.p.group_rows;
+  it.h = min(a.p.group_rows, a.QT - it.row0);
+  it.b0 = w * a.p.window_cols;
+  it.bw = min(a.p.window_cols, a.B - it.b0);
+  return it;
+}
 
 // Code j of the four int8 or fp8-e4m3 codes in v, as f32, exactly (the
 // value static_cast<float> gives), with integer and full-rate float
@@ -342,26 +379,32 @@ __device__ __forceinline__ void warp_product(const W* tile, const float* xs, con
 }
 
 // W is float (scales unused), int8_t or __nv_fp8_e4m3. One CTA walks its
-// tiles; each pass of each live tile is a unit. With two stages unit u + 1
+// items; each pass of each live item is a unit. With two stages unit u + 1
 // is put in flight as each warp's part of unit u lands, with one stage once
-// unit u is consumed.
-template <typename W>
+// unit u is consumed. kSplit: the plan has row groups or windows; without
+// them an item is a tile and the kernel keeps QT and B in its parameters,
+// as the registers of the product need.
+template <typename W, bool kSplit>
 __global__ void __launch_bounds__(kThreads) mscm_grouped_kernel(const Args args) {
   extern __shared__ __align__(128) unsigned char smem[];
   constexpr bool kQuant = !std::is_same<W, float>::value;
   const Plan p = args.p;
   const int QT = args.QT, R = args.R, B = args.B, G = p.grid;
+  const int GR = kSplit ? p.group_rows : QT;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int n_out = QT * B;
-  const int n_mine = (args.T - static_cast<int>(blockIdx.x) + G - 1) / G;  // <= kMaxTiles
-  auto tile_of = [&](int i) { return static_cast<int>(blockIdx.x) + i * G; };
+  const int n_items =
+      kSplit ? args.T * ((QT + GR - 1) / GR) * ((B + p.window_cols - 1) / p.window_cols)
+             : args.T;
+  const int n_mine = (n_items - static_cast<int>(blockIdx.x) + G - 1) / G;  // <= kMaxTiles
+  auto item_at = [&](int i) {
+    return item_of<kSplit>(args, static_cast<int>(blockIdx.x) + i * G);
+  };
 
-  const Layout lay(p, QT, B, static_cast<int>(sizeof(W)));
+  const Layout lay(p, GR, kSplit ? p.window_cols : B, static_cast<int>(sizeof(W)));
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem);  // [stages][head, kMaxSlabs slabs]
   int64_t* chunk_s = reinterpret_cast<int64_t*>(smem + lay.chunks);
   float* ps_s = reinterpret_cast<float*>(smem + lay.ps);
   float* part = reinterpret_cast<float*>(smem + lay.part);
-  float* part_w = part + static_cast<size_t>(warp) * n_out;
   auto stage = [&](int s) { return smem + lay.stage0 + s * lay.stage; };
   const int xr = lay.xr;
   const bool bx = p.bulk & kBulkXg, bw = p.bulk & kBulkTile;
@@ -370,9 +413,9 @@ __global__ void __launch_bounds__(kThreads) mscm_grouped_kernel(const Args args)
   const int w0 = warp * p.warp_rows;  // this warp's first row of a pass
   const int slab = w0 / p.slab_rows;  // the slab that holds its rows
 
-  // Warp 0: lane i reads the ids of the CTA's tile i, and the live tiles'
-  // chunks are packed in order into chunk_s; live_idx[j] is the j-th live
-  // tile's index among the CTA's tiles.
+  // Warp 0: lane i reads the ids of the CTA's item i (those of its tile), and
+  // the live items' chunks are packed in order into chunk_s; live_idx[j] is
+  // the j-th live item's index among the CTA's items.
   int* live_idx = reinterpret_cast<int*>(smem + lay.idx);
   uint32_t& dead_mask = reinterpret_cast<uint32_t*>(live_idx)[kMaxTiles];
   int& n_live = live_idx[kMaxTiles + 1];
@@ -380,7 +423,7 @@ __global__ void __launch_bounds__(kThreads) mscm_grouped_kernel(const Args args)
     bool live = false;
     int64_t c = 0;
     if (lane < n_mine) {
-      const int t = tile_of(lane);
+      const int t = item_at(lane).t;
       live = args.tile_src == nullptr || args.tile_src[static_cast<size_t>(t) * QT] >= 0;
       c = args.tile_chunk[t];
       c = c < 0 ? 0 : (c >= args.C ? args.C - 1 : c);
@@ -399,37 +442,43 @@ __global__ void __launch_bounds__(kThreads) mscm_grouped_kernel(const Args args)
       fence_mbar_init();
     }
   }
-  // The CTA's parent scores, for the epilogues.
+  // The CTA's parent scores, [item, row of its group], for the epilogues.
   if (args.mode != kNone) {
-    for (int i = tid; i < n_mine * QT; i += kThreads) {
-      ps_s[i] = args.ps[static_cast<size_t>(tile_of(i / QT)) * QT + i % QT];
+    for (int e = tid; e < n_mine * GR; e += kThreads) {
+      const Item it = item_at(e / GR);
+      const int q = e % GR;
+      ps_s[e] = q < it.h ? args.ps[static_cast<size_t>(it.t) * QT + it.row0 + q] : 0.0f;
     }
   }
   __syncthreads();
   const int n_units = n_live * n_pass;
 
-  // Lane 0 of warp j puts slab j of unit u in flight; warp 0's also the
+  // Warp j (all its lanes) puts slab j of unit u in flight; warp 0 also the
   // head (the query rows, one copy when they are contiguous as in xg, and
-  // the scale row).
+  // the scale row). Lane 0 arms each barrier before any copy to it is
+  // issued; a window's tile rows go one copy a row, over the warp's lanes.
   auto issue = [&](int u) {
     const int s = u % p.stages, pass = u % n_pass;
-    const int t = tile_of(live_idx[u / n_pass]);
+    const Item it = item_at(live_idx[u / n_pass]);
     const int r0 = pass * p.pass_rows, nr = min(p.pass_rows, R - r0);
     unsigned char* st = stage(s);
     uint64_t* hbar = bars + s * (kMaxSlabs + 1);
     const int64_t c = chunk_s[u / n_pass];
     if (warp == 0 && (bx || bs)) {
-      const float* xt = args.xg + static_cast<size_t>(t) * QT * R;
+      const float* xt = args.xg + (static_cast<size_t>(it.t) * QT + it.row0) * R;
       float* xs = reinterpret_cast<float*>(st + lay.xs);
-      mbar_expect(hbar, (bx ? QT * nr * 4u : 0u) + (bs ? B * 4u : 0u));
+      if (lane == 0) mbar_expect(hbar, (bx ? it.h * nr * 4u : 0u) + (bs ? it.bw * 4u : 0u));
+      __syncwarp();
       if (bx && xr == R) {
-        bulk_load(xs, xt, QT * nr * 4u, hbar);
+        if (lane == 0) bulk_load(xs, xt, it.h * nr * 4u, hbar);
       } else if (bx) {
-        for (int q = 0; q < QT; ++q) {
+        for (int q = lane; q < it.h; q += 32) {
           bulk_load(xs + q * xr, xt + static_cast<size_t>(q) * R + r0, nr * 4u, hbar);
         }
       }
-      if (bs) bulk_load(st, args.scales + static_cast<size_t>(c) * B, B * 4u, hbar);
+      if (bs && lane == 0) {
+        bulk_load(st, args.scales + static_cast<size_t>(c) * B + it.b0, it.bw * 4u, hbar);
+      }
     }
     // Every slab barrier completes one phase a unit, so that the waiters'
     // parity (u / stages) & 1 holds for each of them: a slab this pass does
@@ -437,50 +486,68 @@ __global__ void __launch_bounds__(kThreads) mscm_grouped_kernel(const Args args)
     const int j = warp;
     if (bw && j < kMaxSlabs) {
       const int rows = max(0, min(p.slab_rows, nr - j * p.slab_rows));
-      const uint32_t bytes = static_cast<uint32_t>(rows) * B * sizeof(W);
-      const W* vt = static_cast<const W*>(args.vals) + static_cast<size_t>(c) * R * B;
-      mbar_expect(&hbar[1 + j], bytes);
-      if (rows > 0) {
-        bulk_load(reinterpret_cast<W*>(st + lay.tile) + static_cast<size_t>(j) * p.slab_rows * B,
-                  vt + static_cast<size_t>(r0 + j * p.slab_rows) * B, bytes, &hbar[1 + j]);
+      const uint32_t row_bytes = static_cast<uint32_t>(it.bw) * sizeof(W);
+      const W* vt = static_cast<const W*>(args.vals) +
+                    (static_cast<size_t>(c) * R + r0 + j * p.slab_rows) * B + it.b0;
+      W* dst = reinterpret_cast<W*>(st + lay.tile) + static_cast<size_t>(j) * p.slab_rows * it.bw;
+      if (lane == 0) mbar_expect(&hbar[1 + j], rows * row_bytes);
+      __syncwarp();
+      if (!kSplit || it.bw == B) {  // the slab's rows are contiguous: one copy
+        if (lane == 0 && rows > 0) bulk_load(dst, vt, rows * row_bytes, &hbar[1 + j]);
+      } else {
+        for (int k = lane; k < rows; k += 32) {
+          bulk_load(dst + static_cast<size_t>(k) * it.bw, vt + static_cast<size_t>(k) * B,
+                    row_bytes, &hbar[1 + j]);
+        }
       }
     }
   };
-  if (lane == 0 && n_units > 0) issue(0);
+  if (n_units > 0) issue(0);
 
-  // Padding tiles: zeros, while the first units arrive.
+  // Padding items: zeros, while the first units arrive.
   for (uint32_t m = dead_mask; m != 0; m &= m - 1) {
-    float* o = args.out + static_cast<size_t>(tile_of(__ffs(m) - 1)) * n_out;
-    for (int i = tid; i < n_out; i += kThreads) o[i] = 0.0f;
+    const Item it = item_at(__ffs(m) - 1);
+    float* o = args.out + (static_cast<size_t>(it.t) * QT + it.row0) * B + it.b0;
+    for (int e = tid; e < it.h * it.bw; e += kThreads) {
+      o[kSplit ? (e / it.bw) * B + e % it.bw : e] = 0.0f;
+    }
   }
 
   for (int u = 0; u < n_units; ++u) {
     const int s = u % p.stages, pass = u % n_pass, i = live_idx[u / n_pass];
     const uint32_t parity = (u / p.stages) & 1;
-    const int t = tile_of(i);
+    const Item it = item_at(i);
+    const int h = it.h, ib = it.bw, n_out = h * ib;
     const int r0 = pass * p.pass_rows, nr = min(p.pass_rows, R - r0);
     unsigned char* st = stage(s);
     uint64_t* hbar = bars + s * (kMaxSlabs + 1);
     float* ss = reinterpret_cast<float*>(st);
     float* xs = reinterpret_cast<float*>(st + lay.xs);
     W* tile = reinterpret_cast<W*>(st + lay.tile);
+    float* part_w = part + static_cast<size_t>(warp) * n_out;
     // Ordinary loads, by every thread, for the operands the plan does not
     // bulk-copy; the same condition on every thread, so the barrier is safe.
     if (!bx || !bw || (kQuant && !bs)) {
       const int64_t c = chunk_s[u / n_pass];
       if (!bx) {
-        const float* xt = args.xg + static_cast<size_t>(t) * QT * R;
-        for (int e = tid; e < QT * nr; e += kThreads) {
+        const float* xt = args.xg + (static_cast<size_t>(it.t) * QT + it.row0) * R;
+        for (int e = tid; e < h * nr; e += kThreads) {
           const int q = e / nr, k = e - q * nr;
           xs[q * xr + k] = xt[static_cast<size_t>(q) * R + r0 + k];
         }
       }
       if (kQuant && !bs) {
-        for (int b = tid; b < B; b += kThreads) ss[b] = args.scales[static_cast<size_t>(c) * B + b];
+        for (int b = tid; b < ib; b += kThreads) {
+          ss[b] = args.scales[static_cast<size_t>(c) * B + it.b0 + b];
+        }
       }
       if (!bw) {
-        const W* src = static_cast<const W*>(args.vals) + (static_cast<size_t>(c) * R + r0) * B;
-        for (int e = tid; e < nr * B; e += kThreads) tile[e] = src[e];
+        const W* src = static_cast<const W*>(args.vals) + (static_cast<size_t>(c) * R + r0) * B +
+                       it.b0;
+        for (int e = tid; e < nr * ib; e += kThreads) {
+          const int k = e / ib;
+          tile[e] = src[static_cast<size_t>(k) * B + (e - k * ib)];
+        }
       }
       __syncthreads();
     }
@@ -493,50 +560,64 @@ __global__ void __launch_bounds__(kThreads) mscm_grouped_kernel(const Args args)
     // With two stages, unit u + 1 goes in flight as soon as this warp's part
     // of unit u has landed: its stage was consumed by unit u - 1, before the
     // last barrier.
-    if (p.stages == 2 && lane == 0 && u + 1 < n_units) {
+    if (p.stages == 2 && u + 1 < n_units) {
       fence_proxy_async();
       issue(u + 1);
     }
     if (w0 < k1) {
-      warp_product(tile, xs, ss, part_w, w0, k1, xr, QT, B, pass == 0, lane);
+      warp_product(tile, xs, ss, part_w, w0, k1, xr, h, ib, pass == 0, lane);
     } else if (pass == 0) {
       for (int e = lane; e < n_out; e += 32) part_w[e] = 0.0f;
     }
     __syncthreads();  // the stage is consumed; every warp's partial is in place
-    if (p.stages == 1 && lane == 0 && u + 1 < n_units) {
+    if (p.stages == 1 && u + 1 < n_units) {
       fence_proxy_async();
       issue(u + 1);
     }
     if (pass == n_pass - 1) {
-      float* o = args.out + static_cast<size_t>(t) * n_out;
+      float* o = args.out + (static_cast<size_t>(it.t) * QT + it.row0) * B + it.b0;
       for (int e = tid; e < n_out; e += kThreads) {
         float sum = 0.0f;
 #pragma unroll
         for (int w = 0; w < kWarps; ++w) sum += part[static_cast<size_t>(w) * n_out + e];
-        o[e] = apply_epilogue(sum, args.mode == kNone ? 0.0f : ps_s[i * QT + e / B], args.mode);
+        const int q = e / ib;
+        o[kSplit ? q * B + (e - q * ib) : e] =
+            apply_epilogue(sum, args.mode == kNone ? 0.0f : ps_s[i * GR + q], args.mode);
       }
-      __syncthreads();  // the partials are read before the next tile writes them
+      __syncthreads();  // the partials are read before the next item writes them
     }
   }
 }
 
 // Rejects a plan the kernel cannot run: passes or warp ranges that miss
-// rows, a CTA with more tiles than kMaxTiles, more stages than barriers,
-// and bulk copies off 16 bytes.
+// rows, row groups or windows that miss rows or columns, a CTA with more
+// items than kMaxTiles, more stages than barriers, and bulk copies off 16
+// bytes.
 bool plan_ok(const Args& a, int es) {
   const Plan& p = a.p;
   if (p.pass_rows < 1 || p.pass_rows > a.R || p.warp_rows < 4 || p.warp_rows % 4 != 0 ||
       static_cast<int64_t>(kWarps) * p.warp_rows < p.pass_rows ||
       p.slab_rows != kWarpsPerSlab * p.warp_rows || (p.bulk & ~7) != 0 ||
       (p.pass_rows < a.R && p.pass_rows % 4 != 0) || p.stages < 1 || p.stages > kMaxStages ||
-      p.grid < 1 || p.grid > a.T || static_cast<int64_t>(p.grid) * kMaxTiles < a.T) {
+      p.group_rows < 1 || p.group_rows > kMaxQT || p.group_rows > a.QT ||
+      (p.group_rows < a.QT && p.group_rows != kMaxQT) || p.window_cols < 1 ||
+      p.window_cols > a.B || (p.window_cols < a.B && p.window_cols % 16 != 0)) {
+    return false;
+  }
+  const int64_t items = static_cast<int64_t>(a.T) * ((a.QT + p.group_rows - 1) / p.group_rows) *
+                        ((a.B + p.window_cols - 1) / p.window_cols);
+  if (items > INT32_MAX || p.grid < 1 || p.grid > items ||
+      static_cast<int64_t>(p.grid) * kMaxTiles < items) {
     return false;
   }
   if ((p.bulk & kBulkXg) && (a.R % 4 != 0 || !aligned16(a.xg))) return false;
   const int64_t row = static_cast<int64_t>(a.B) * es;
-  if ((p.bulk & kBulkTile) && ((a.R * row) % 16 != 0 || (p.pass_rows * row) % 16 != 0 ||
-                               (p.slab_rows * row) % 16 != 0 || !aligned16(a.vals))) {
-    return false;
+  if (p.bulk & kBulkTile) {
+    const bool rows_ok = p.window_cols < a.B
+                             ? row % 16 == 0  // one copy a row of a window
+                             : (a.R * row) % 16 == 0 && (p.pass_rows * row) % 16 == 0 &&
+                                   (p.slab_rows * row) % 16 == 0;
+    if (!rows_ok || !aligned16(a.vals)) return false;
   }
   if ((p.bulk & kBulkScales) && (a.scales == nullptr || a.B % 4 != 0 || !aligned16(a.scales))) {
     return false;
@@ -546,24 +627,26 @@ bool plan_ok(const Args& a, int es) {
 
 template <typename W>
 int launch(const Args& a, void* stream) {
-  if (a.T < 0 || a.QT <= 0 || a.QT > kMaxQT || a.R <= 0 || a.B <= 0 || a.C <= 0 ||
-      a.mode < kNone || a.mode > kLogsum || (a.mode != kNone && a.ps == nullptr)) {
+  if (a.T < 0 || a.QT <= 0 || a.R <= 0 || a.B <= 0 || a.C <= 0 || a.mode < kNone ||
+      a.mode > kLogsum || (a.mode != kNone && a.ps == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (a.T == 0) return 0;
   if (!plan_ok(a, static_cast<int>(sizeof(W)))) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = Layout(a.p, a.QT, a.B, static_cast<int>(sizeof(W))).total;
+  const size_t smem =
+      Layout(a.p, a.p.group_rows, a.p.window_cols, static_cast<int>(sizeof(W))).total;
   if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = mscm_grouped_kernel<W>;
+  const bool split = a.p.group_rows < a.QT || a.p.window_cols < a.B;
+  auto kernel = split ? mscm_grouped_kernel<W, true> : mscm_grouped_kernel<W, false>;
   // Raise the kernel's dynamic shared-memory limit only when a launch needs
   // more than this device already allows it: the call costs host time, which
   // the batch path is short of.
   constexpr int kMaxDevices = 64;
-  static std::atomic<int> allowed[kMaxDevices] = {};
+  static std::atomic<int> allowed[2][kMaxDevices] = {};
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return static_cast<int>(e);
-  std::atomic<int>& have = allowed[dev % kMaxDevices];
+  std::atomic<int>& have = allowed[split][dev % kMaxDevices];
   if (smem > 48 * 1024 && static_cast<int>(smem) > have.load()) {
     e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));
@@ -578,17 +661,18 @@ int launch(const Args& a, void* stream) {
 
 // Each entry point launches on `stream` and returns the launch's CUDA error
 // (0 on success). tile_src may be null (every tile live); the plan
-// (pass_rows, warp_rows, slab_rows, bulk, stages, grid) is
-// grouped_launch_plan's. The caller allocates `out`; nothing here allocates
+// (pass_rows, warp_rows, slab_rows, bulk, stages, grid, group_rows,
+// window_cols) is grouped_launch_plan's. The caller allocates `out`; nothing here allocates
 // or synchronises.
 extern "C" int mscm_grouped_launch(const float* xg, const float* vals,
                                    const int64_t* tile_chunk, const int64_t* tile_src,
                                    const float* ps, float* out, int T, int QT, int R, int B,
                                    int C, int mode, int pass_rows, int warp_rows,
                                    int slab_rows, int bulk, int stages, int grid,
-                                   void* stream) {
+                                   int group_rows, int window_cols, void* stream) {
   const Args a{xg, vals, nullptr, tile_chunk, tile_src, ps, out, T, QT, R, B, C, mode,
-               Plan{pass_rows, warp_rows, slab_rows, bulk & ~kBulkScales, stages, grid}};
+               Plan{pass_rows, warp_rows, slab_rows, bulk & ~kBulkScales, stages, grid,
+                    group_rows, window_cols}};
   return launch<float>(a, stream);
 }
 
@@ -599,10 +683,11 @@ extern "C" int mscm_grouped_q_launch(const float* xg, const void* vals, const fl
                                      const float* ps, float* out, int T, int QT, int R, int B,
                                      int C, int mode, int dtype, int pass_rows, int warp_rows,
                                      int slab_rows, int bulk, int stages, int grid,
-                                     void* stream) {
+                                     int group_rows, int window_cols, void* stream) {
   if (scales == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   const Args a{xg, vals, scales, tile_chunk, tile_src, ps, out, T, QT, R, B, C, mode,
-               Plan{pass_rows, warp_rows, slab_rows, bulk, stages, grid}};
+               Plan{pass_rows, warp_rows, slab_rows, bulk, stages, grid, group_rows,
+                    window_cols}};
   if (dtype == kInt8) return launch<int8_t>(a, stream);
   if (dtype == kFp8E4M3) return launch<__nv_fp8_e4m3>(a, stream);
   return static_cast<int>(cudaErrorInvalidValue);

@@ -212,14 +212,18 @@ def mscm_grouped(
     return out
 
 
-#: Largest QT the grouped kernel takes (kMaxQT).
+#: Rows of a tile one unit of the grouped kernel computes (kMaxQT): a tile
+#: of QT rows runs as ceil(QT / 16) row groups, the last one short.
 GROUPED_MAX_QT = 16
+#: Columns of a window are a multiple of this many (16 bytes of codes), so
+#: that every window's rows start on 16 bytes in f32 and in int8/fp8.
+GROUPED_WINDOW_STEP = 16
 #: Shared memory one CTA of the grouped kernel may take: an H100 block's
 #: opt-in limit, 227 KB.
 GROUPED_SMEM_LIMIT = 232448
 #: Shared memory of one H100 SM, of which each resident CTA also reserves 1 KB.
 H100_SM_SMEM = 233472
-#: Tiles one CTA of the grouped kernel walks at most (kMaxTiles).
+#: Items one CTA of the grouped kernel walks at most (kMaxTiles).
 GROUPED_MAX_TILES = 32
 # kWarps, kWarpsPerSlab, kMaxSlabs, kMaxStages in csrc/mscm_grouped.cu.
 _GROUPED_WARPS, _WARPS_PER_SLAB, _MAX_SLABS, _MAX_STAGES = 8, 2, 4, 2
@@ -228,16 +232,24 @@ _GROUPED_WARPS, _WARPS_PER_SLAB, _MAX_SLABS, _MAX_STAGES = 8, 2, 4, 2
 class GroupedPlan(NamedTuple):
     """How ``csrc/mscm_grouped.cu`` runs T tiles of [QT, R] x [R, B].
 
-    ``grid`` persistent CTAs; CTA g walks tiles g, g + grid, ... (at most
-    :data:`GROUPED_MAX_TILES`). R goes in ``passes`` passes of ``pass_rows``
-    rows (one pass whenever the tile fits shared memory); each pass of each
-    live tile is a unit, and the units go through a ring of ``stages``
-    shared-memory stages, so the next unit's copies are in flight while one
-    is computed. Warp w takes rows ``[w * warp_rows, (w + 1) * warp_rows)``
-    of a pass; a pass's tile rows arrive in ``slabs`` slabs of
-    ``slab_rows`` rows (two warps' rows), each on its own barrier.
-    ``bulk_*``: the query rows, the tile rows and the scale row arrive by
-    16-byte-aligned bulk copies, else by ordinary loads."""
+    A tile is cut into ``row_groups`` groups of ``group_rows`` rows (the
+    last may be shorter) and its columns into ``windows`` windows of
+    ``window_cols`` columns (the last may be narrower); each (tile, window,
+    row group) is an item, numbered ``(t * windows + w) * row_groups + g``.
+    A window splits columns, never R, so each output is summed in the same
+    order whatever the windows. ``grid`` persistent CTAs; CTA g walks items
+    g, g + grid, ... (at most :data:`GROUPED_MAX_TILES`). R goes in
+    ``passes`` passes of ``pass_rows`` rows (one pass whenever the item fits
+    shared memory); each pass of each live item is a unit, and the units go
+    through a ring of ``stages`` shared-memory stages, so the next unit's
+    copies are in flight while one is computed. Warp w takes rows
+    ``[w * warp_rows, (w + 1) * warp_rows)`` of a pass; a pass's tile rows
+    arrive in ``slabs`` slabs of ``slab_rows`` rows (two warps' rows), each
+    on its own barrier. ``bulk_*``: the query rows, the tile rows and the
+    scale row arrive by 16-byte-aligned bulk copies, else by ordinary
+    loads. Below QT = 16 and the widest B that fits in one window, a plan
+    has one row group and one window: the plan of every such shape is the
+    one it had before row groups and windows existed."""
 
     pass_rows: int
     passes: int
@@ -250,22 +262,41 @@ class GroupedPlan(NamedTuple):
     bulk_tile: bool
     bulk_scales: bool
     smem_bytes: int
+    group_rows: int
+    row_groups: int
+    window_cols: int
+    windows: int
+
+    def items(self, t: int) -> int:
+        """Items of T tiles: each tile's row groups times its windows."""
+        return t * self.row_groups * self.windows
 
     def args(self) -> Tuple[int, ...]:
         """The plan as the C entry points take it: pass_rows, warp_rows,
         slab_rows, the bulk operands as bits (1 xg, 2 tile, 4 scales),
-        stages, grid."""
+        stages, grid, group_rows, window_cols."""
         bulk = int(self.bulk_xg) | 2 * int(self.bulk_tile) | 4 * int(self.bulk_scales)
-        return (self.pass_rows, self.warp_rows, self.slab_rows, bulk, self.stages, self.grid)
+        return (self.pass_rows, self.warp_rows, self.slab_rows, bulk, self.stages, self.grid,
+                self.group_rows, self.window_cols)
+
+
+def grouped_item(plan: GroupedPlan, v: int, qt: int, b: int) -> Tuple[int, int, int, int, int]:
+    """(tile, first row, rows, first column, columns) of item ``v``, as
+    ``csrc/mscm_grouped.cu`` decodes it."""
+    g, rest = v % plan.row_groups, v // plan.row_groups
+    w, t = rest % plan.windows, rest // plan.windows
+    row0, col0 = g * plan.group_rows, w * plan.window_cols
+    return t, row0, min(plan.group_rows, qt - row0), col0, min(plan.window_cols, b - col0)
 
 
 def grouped_smem_bytes(qt: int, b: int, elem_bytes: int, pass_rows: int, stages: int) -> int:
     """Shared memory of one CTA (``Layout`` in ``csrc/mscm_grouped.cu``; the
-    kernel has no other): the mbarriers (5 a stage, room for two stages),
-    the chunk ids [32], tile indices [32] with two counters, and parent
-    scores [32, QT] of the CTA's tiles, the warps' partials [8, QT, B], and
-    per stage the scale row [B], the query rows [QT, pass_rows rounded up to
-    4] and the tile rows [pass_rows, B]."""
+    kernel has no other) for items of ``qt`` rows and ``b`` columns: the
+    mbarriers (5 a stage, room for two stages), the chunk ids [32], item
+    indices [32] with two counters, and parent scores [32, QT] of the CTA's
+    items, the warps' partials [8, QT, B], and per stage the scale row [B],
+    the query rows [QT, pass_rows rounded up to 4] and the tile rows
+    [pass_rows, B]."""
     xr = _cdiv(pass_rows, 4) * 4
     head = (_align16(8 * _MAX_STAGES * (_MAX_SLABS + 1)) + 8 * GROUPED_MAX_TILES
             + _align16(4 * (GROUPED_MAX_TILES + 2)) + _align16(4 * GROUPED_MAX_TILES * qt)
@@ -274,40 +305,76 @@ def grouped_smem_bytes(qt: int, b: int, elem_bytes: int, pass_rows: int, stages:
     return head + stages * stage
 
 
+def _grouped_pass_rows(rows: int, cols: int, r: int, stages: int = 1) -> Optional[int]:
+    """Rows a pass for items of ``rows`` x ``cols``, sized for f32 tiles: all
+    of R if ``stages`` stages of it fit :data:`GROUPED_SMEM_LIMIT`, else the
+    most that fit, a multiple of 32; None if not even 32 do."""
+    if grouped_smem_bytes(rows, cols, 4, r, stages) <= GROUPED_SMEM_LIMIT:
+        return r
+    step = _GROUPED_WARPS * 4
+    pass_rows = (r - 1) // step * step
+    while (pass_rows >= step
+           and grouped_smem_bytes(rows, cols, 4, pass_rows, stages) > GROUPED_SMEM_LIMIT):
+        pass_rows -= step
+    return pass_rows if pass_rows >= step else None
+
+
+def _grouped_window(rows: int, r: int, b: int) -> Tuple[int, int]:
+    """(window_cols, pass_rows) for B wider than one window takes: the
+    fewest windows, each a multiple of :data:`GROUPED_WINDOW_STEP` columns,
+    whose f32 items take two stages of at least min(R, 128) rows, so that
+    every lane of the 8 warps has rows and copies overlap the product. A
+    window of 16 columns always does (16 x 16 items of 128 rows take 44 KB)."""
+    step = GROUPED_WINDOW_STEP
+    cols = _cdiv(_cdiv(b, 2), step) * step
+    while True:
+        pass_rows = _grouped_pass_rows(rows, cols, r, stages=2)
+        if (pass_rows is not None and pass_rows >= min(r, 128)) or cols == step:
+            return cols, pass_rows
+        n = _cdiv(b, cols) + 1  # at least one window more than this width needs
+        cols = max(step, min(cols - step, _cdiv(_cdiv(b, n), step) * step))
+
+
 def grouped_launch_plan(t: int, qt: int, r: int, b: int, elem_bytes: int, *,
                         aligned: bool = True, sms: int = H100_SMS) -> GroupedPlan:
     """The launch plan of the grouped kernel for T tiles of QT rows over
     [R, B] chunk tiles of ``elem_bytes``-byte weights (4 f32, 1 int8/fp8).
 
-    The whole tile goes in one pass if one stage of it fits
-    :data:`GROUPED_SMEM_LIMIT`, else in passes of a multiple of 32 rows.
-    Passes are sized as for f32 tiles whatever ``elem_bytes`` is, so the
-    quantized entry point sums in the f32 one's order and stays bitwise
-    equal to it on dequantized tiles. Two stages if they fit, else one.
-    ``grid`` fills the card's ``sms`` SMs with as many CTAs as fit one (at
-    most two), and more if a CTA would walk more than
-    :data:`GROUPED_MAX_TILES` tiles. Each warp takes a multiple of 4 rows.
-    An operand goes by bulk copies if every copy of it starts and ends on 16
-    bytes and the caller's pointers are 16-byte aligned (``aligned``)."""
+    Items are tiles cut into row groups of at most :data:`GROUPED_MAX_QT`
+    rows. Their columns go in one window if a pass of at least 32 rows of
+    the whole width fits :data:`GROUPED_SMEM_LIMIT`, else in the windows of
+    :func:`_grouped_window`. An item goes in one pass if one stage of it
+    fits, else in passes of a multiple of 32 rows. Windows and passes are
+    sized as for f32 tiles whatever ``elem_bytes`` is, so the quantized
+    entry point sums in the f32 one's order and stays bitwise equal to it
+    on dequantized tiles. Two stages if they fit, else one. ``grid`` fills
+    the card's ``sms`` SMs with as many CTAs as fit one (at most two; one
+    when items are cut, as that kernel's registers allow one), and more if
+    a CTA would walk more than :data:`GROUPED_MAX_TILES` items. Each
+    warp takes a multiple of 4 rows. An operand goes by bulk copies if
+    every copy of it starts and ends on 16 bytes and the caller's pointers
+    are 16-byte aligned (``aligned``)."""
     if t < 0 or qt < 1 or r < 1 or b < 1 or elem_bytes not in (1, 4):
         raise ValueError(f"no plan for T={t}, QT={qt}, R={r}, B={b}, elem_bytes={elem_bytes}")
-    if qt > GROUPED_MAX_QT:
-        raise ValueError(f"QT={qt} is above the grouped kernel's cap of {GROUPED_MAX_QT}")
-    step = _GROUPED_WARPS * 4
-    pass_rows = r
-    if grouped_smem_bytes(qt, b, 4, r, 1) > GROUPED_SMEM_LIMIT:
-        pass_rows = (r - 1) // step * step
-        while pass_rows >= step and grouped_smem_bytes(qt, b, 4, pass_rows, 1) > GROUPED_SMEM_LIMIT:
-            pass_rows -= step
-        if pass_rows < step:
-            raise ValueError(f"QT={qt}, B={b} is too wide for {GROUPED_SMEM_LIMIT} bytes of "
-                             "shared memory")
-    stages = 2 if grouped_smem_bytes(qt, b, elem_bytes, pass_rows, 2) <= GROUPED_SMEM_LIMIT else 1
-    smem = grouped_smem_bytes(qt, b, elem_bytes, pass_rows, stages)
+    rows = min(qt, GROUPED_MAX_QT)
+    cols, pass_rows = b, _grouped_pass_rows(rows, b, r)
+    if pass_rows is None:
+        cols, pass_rows = _grouped_window(rows, r, b)
+    windows, row_groups = _cdiv(b, cols), _cdiv(qt, rows)
+    stages = 2 if grouped_smem_bytes(rows, cols, elem_bytes, pass_rows, 2) <= GROUPED_SMEM_LIMIT else 1
+    smem = grouped_smem_bytes(rows, cols, elem_bytes, pass_rows, stages)
     per_sm = max(1, min(2, H100_SM_SMEM // (smem + 1024)))
+    if row_groups > 1 or windows > 1:
+        per_sm = 1  # the kernel that cuts items takes 150-166 registers a thread
+
     warp_rows = _cdiv(_cdiv(pass_rows, _GROUPED_WARPS), 4) * 4
     slab_rows = _WARPS_PER_SLAB * warp_rows
     row_bytes = b * elem_bytes
+    if windows == 1:  # a slab is one contiguous copy
+        bulk_tile = all(n * row_bytes % 16 == 0 for n in (r, pass_rows, slab_rows))
+    else:  # a copy a row of a window
+        bulk_tile = row_bytes % 16 == 0
+    items = t * row_groups * windows
     return GroupedPlan(
         pass_rows=pass_rows,
         passes=_cdiv(r, pass_rows),
@@ -315,11 +382,15 @@ def grouped_launch_plan(t: int, qt: int, r: int, b: int, elem_bytes: int, *,
         slab_rows=slab_rows,
         slabs=_cdiv(pass_rows, slab_rows),
         stages=stages,
-        grid=min(t, max(sms * per_sm, _cdiv(t, GROUPED_MAX_TILES))),
+        grid=min(items, max(sms * per_sm, _cdiv(items, GROUPED_MAX_TILES))),
         bulk_xg=aligned and r % 4 == 0,
-        bulk_tile=aligned and all(n * row_bytes % 16 == 0 for n in (r, pass_rows, slab_rows)),
+        bulk_tile=aligned and bulk_tile,
         bulk_scales=aligned and elem_bytes == 1 and b % 4 == 0,
         smem_bytes=smem,
+        group_rows=rows,
+        row_groups=row_groups,
+        window_cols=cols,
+        windows=windows,
     )
 
 
@@ -384,11 +455,16 @@ _BLOCK_WARPS = 8  # kWarps in csrc/mscm_block.cu
 class BlockPlan(NamedTuple):
     """How ``csrc/mscm_block.cu`` runs A blocks of R rows and B columns.
 
-    Each block is served by a cluster of ``cluster`` CTAs (the grid is
-    ``A * cluster``); CTA ``rank`` takes rows ``[rank * rows_per_slice,
-    (rank + 1) * rows_per_slice)`` of the chunk (the last slice may be
-    shorter, none is empty) and streams them in slabs of ``slab_rows`` rows
-    through ``stages`` shared-memory buffers. ``bulk``: the slabs arrive by
+    Each block is served by a cluster of ``cluster`` CTAs for each of
+    ``windows`` windows of ``window_cols`` columns (the last may be
+    narrower; one window of all B columns whenever that fits). The grid is
+    ``A * windows`` clusters, cluster ``a * windows + w`` serving window w
+    of block a; CTA ``rank`` of a cluster takes rows ``[rank *
+    rows_per_slice, (rank + 1) * rows_per_slice)`` of the chunk's window
+    (the last slice may be shorter, none is empty) and streams them in slabs
+    of ``slab_rows`` rows through ``stages`` shared-memory buffers. A
+    window splits columns, never R, so each output is summed in the same
+    order whatever the windows. ``bulk``: the slabs arrive by
     16-byte-aligned bulk copies, else by ordinary loads."""
 
     cluster: int
@@ -397,25 +473,45 @@ class BlockPlan(NamedTuple):
     stages: int
     bulk: bool
     smem_bytes: int
+    window_cols: int
+    windows: int
 
     def grid(self, a: int) -> int:
-        return a * self.cluster
+        """CTAs of a launch over A blocks."""
+        return a * self.cluster * self.windows
 
-    def args(self) -> Tuple[int, int, int, int, int]:
-        """The plan as the C entry points take it: S, rps, slab, stages, bulk."""
+    def args(self) -> Tuple[int, int, int, int, int, int]:
+        """The plan as the C entry points take it: S, rps, slab, stages, bulk,
+        window_cols."""
         return (self.cluster, self.rows_per_slice, self.slab_rows, self.stages,
-                int(self.bulk))
+                int(self.bulk), self.window_cols)
 
 
 def block_smem_bytes(b: int, elem_bytes: int, slab_rows: int, stages: int) -> int:
-    """Shared memory of one CTA (``Layout`` in ``csrc/mscm_block.cu``): two
-    mbarriers a stage and one for the cluster sum, the warps' partials
-    [8, B], the cluster's partials [8, B], and per stage a tile slab, its
-    query values and its rows."""
+    """Shared memory of one CTA (``Layout`` in ``csrc/mscm_block.cu``) for a
+    window of ``b`` columns: two mbarriers a stage and one for the cluster
+    sum, the warps' partials [8, B], the cluster's partials [8, B], and per
+    stage a tile slab, its query values and its rows."""
     stage = (_align16(slab_rows * b * elem_bytes) + _align16(slab_rows * elem_bytes)
              + _align16(4 * slab_rows))
     return (_align16(8 * (2 * stages + 1)) + _align16(4 * _BLOCK_WARPS * b)
             + _align16(4 * MAX_CLUSTER * b) + stages * stage)
+
+
+def _block_slabs(cols: int, elem_bytes: int, rps: int, q: int,
+                 bulk: bool) -> Optional[Tuple[int, int]]:
+    """(slab_rows, stages) of a slice of ``rps`` rows of a ``cols``-column
+    window within :data:`BLOCK_SMEM_BUDGET`: the whole slice in one buffer
+    if it fits, else slabs of a whole number of ``q`` rows (a ring of two
+    on the bulk path); None if not even ``q`` rows fit."""
+    stages, slab, n_slabs = 1, rps, 1
+    while block_smem_bytes(cols, elem_bytes, slab, stages) > BLOCK_SMEM_BUDGET:
+        if slab <= q:
+            return None
+        stages = 2 if bulk else 1
+        n_slabs += 1
+        slab = min(slab - q, _cdiv(_cdiv(rps, n_slabs), q) * q)
+    return slab, stages
 
 
 def block_launch_plan(a: int, r: int, b: int, elem_bytes: int, *,
@@ -431,7 +527,10 @@ def block_launch_plan(a: int, r: int, b: int, elem_bytes: int, *,
     if the caller's pointers are 16-byte aligned (``aligned``), the slabs go
     by bulk copies. A slice whose buffer exceeds
     :data:`BLOCK_SMEM_BUDGET` is cut into slabs: a ring of two on the bulk
-    path, one buffer refilled by ordinary loads on the other."""
+    path, one buffer refilled by ordinary loads on the other. B wider than
+    a slab of ``q`` rows can take is cut into the fewest windows of a
+    multiple of 16 columns that fit; a window's tile rows then go one bulk
+    copy a row, if rows of B values start on 16 bytes."""
     if a < 0 or r < 1 or b < 1 or elem_bytes not in (2, 4):
         raise ValueError(f"no plan for A={a}, R={r}, B={b}, elem_bytes={elem_bytes}")
     q = max(4, 16 // elem_bytes)
@@ -439,15 +538,18 @@ def block_launch_plan(a: int, r: int, b: int, elem_bytes: int, *,
     rps = _cdiv(_cdiv(r, cluster), q) * q
     cluster = _cdiv(r, rps)  # no empty slice
     bulk = aligned and r % q == 0
-    stages, slab, n_slabs = 1, rps, 1
-    while block_smem_bytes(b, elem_bytes, slab, stages) > BLOCK_SMEM_BUDGET:
-        if slab <= q:
-            raise ValueError(f"B={b} is too wide for {BLOCK_SMEM_BUDGET} bytes of shared memory")
-        stages = 2 if bulk else 1
-        n_slabs += 1
-        slab = min(slab - q, _cdiv(_cdiv(rps, n_slabs), q) * q)
+    cols, fit = b, _block_slabs(b, elem_bytes, rps, q, bulk)
+    if fit is None:
+        bulk = bulk and b * elem_bytes % 16 == 0
+        cols = _cdiv(_cdiv(b, 2), 16) * 16
+        while (fit := _block_slabs(cols, elem_bytes, rps, q, bulk)) is None:
+            if cols <= 16:
+                raise ValueError(f"R={r} in slices of {rps} rows leaves no room for "
+                                 f"{BLOCK_SMEM_BUDGET} bytes of shared memory")
+            cols = max(16, min(cols - 16, _cdiv(_cdiv(b, _cdiv(b, cols) + 1), 16) * 16))
+    slab, stages = fit
     return BlockPlan(cluster, rps, slab, stages, bulk,
-                     block_smem_bytes(b, elem_bytes, slab, stages))
+                     block_smem_bytes(cols, elem_bytes, slab, stages), cols, _cdiv(b, cols))
 
 
 def _check_block_args(x, vals, block_c, rows=None, block_q=None) -> None:

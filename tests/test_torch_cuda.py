@@ -50,6 +50,12 @@ GROUPED_SHAPES = [
     # More tiles than CTAs, in passes whose last pass has fewer slabs: one
     # stage in f32 (2 passes), two stages in int8/fp8 (3 passes).
     (300, 16, 600, 72, 40), (300, 16, 1300, 64, 40),
+    # Past the old caps: QT = 32 and 24 in row groups of 16 (the last of 24
+    # short; with padding, the last live tile's second half is padding),
+    # B = 1024 at QT = 16 in windows, and both at once with rows of B off 16
+    # bytes in int8/fp8.
+    (40, 32, 496, 32, 30), (40, 24, 496, 32, 30), (20, 16, 496, 1024, 10),
+    (6, 24, 100, 1030, 4),
 ]
 
 
@@ -146,6 +152,10 @@ def _block_inputs(device, shape, dtype, seed=1):
     (1, 1, 5000, 496, 32, 300),       # one block, R split over a cluster of 8
     (3, 2, 2000, 1037, 70, 4),        # unaligned in f32 and bf16: ordinary loads
     (200, 2, 2000, 1040, 72, 40),     # one CTA a block, the tile through a ring of slabs
+    # Past the old cap of 1,022 columns: windows, one bulk copy a row, then
+    # rows of B off 16 bytes by ordinary loads.
+    (10, 1, 5000, 496, 2048, 30), (1, 1, 5000, 496, 2048, 30), (640, 64, 900, 96, 2048, 40),
+    (10, 1, 5000, 496, 1030, 20),
 ])
 def test_block_kernels_match_plain(cuda_device, shape, dtype):
     a, n, dp, r, b, c = shape
@@ -167,7 +177,8 @@ def test_block_kernels_match_plain(cuda_device, shape, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(10, 1, 5000, 496, 32, 300), (640, 64, 900, 96, 32, 40),
-                                   (3, 2, 2000, 1037, 70, 4), (200, 2, 2000, 1040, 72, 40)])
+                                   (3, 2, 2000, 1037, 70, 4), (200, 2, 2000, 1040, 72, 40),
+                                   (10, 1, 5000, 496, 2048, 30)])
 def test_block_kernels_repeat_bitwise(cuda_device, shape, dtype):
     """Fixed-order sums, no atomics: two launches on the same inputs agree
     bit for bit."""
@@ -256,3 +267,90 @@ def test_quantized_traversal_on_card_matches_cpu(cuda_device, tier):
     s1, l1 = gpu.infer(xi, xv, beam=10, topk=5, method="mscm_pallas_grouped_q", qt=4)
     assert qk.GROUPED_Q_LAUNCHES == before + gpu.depth
     check_ranking(s1.cpu().numpy(), l1.cpu().numpy(), s0.numpy(), l0.numpy(), tier)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["mscm_pallas_grouped", "mscm_pallas", "mscm_pallas_pregather"])
+def test_wide_tree_and_tall_tiles_on_card(cuda_device, method):
+    """``ServeConfig(qt=32)`` on a one-level tree of branching 1024: tiles
+    of 32 rows in two row groups and chunks of 1,024 columns in windows, on
+    the card, against ``mscm_dense`` on the card."""
+    from repro_torch.serving import ServeConfig, XMRServingEngine
+
+    rng = np.random.default_rng(77)
+    d, B = 300, 1024
+    tree = XMRTree.from_weight_matrices([random_sparse_csc(d, B, 12, rng)], B)
+    x = random_sparse_csr(40, d, 20, rng)
+    out = {}
+    for m in (method, "mscm_dense"):
+        eng = XMRServingEngine(tree, ServeConfig(beam=10, topk=10, method=m, qt=32,
+                                                 max_batch=64, ell_width=32))
+        counts = (tk.GROUPED_LAUNCHES, tk.FUSED_LAUNCHES, tk.PREGATHER_LAUNCHES)
+        out[m] = eng.serve_batch(x)
+        launched = [a - b for a, b in zip((tk.GROUPED_LAUNCHES, tk.FUSED_LAUNCHES,
+                                           tk.PREGATHER_LAUNCHES), counts)]
+        if m != "mscm_dense":
+            assert sum(launched) == 1
+    check_ranking(*out[method], *out["mscm_dense"], f"branching 1024, qt=32, {method}")
+
+
+def _small_dataset():
+    """The reference training test's dataset (128 labels, d = 256)."""
+    from repro_torch.data import synthetic_labeled_dataset
+
+    rng = np.random.default_rng(7)
+    ds = synthetic_labeled_dataset(rng, n_labels=128, d=256, n_train=768, n_test=192,
+                                   query_nnz=14)
+    return ds, rng
+
+
+@pytest.mark.cuda
+def test_train_on_card_and_serve_through_grouped_kernel(cuda_device):
+    """Train at the reference test's size on the card, then serve the test
+    split through the grouped kernel: labels as ``mscm_dense``'s on the
+    card, and the reference's quality bar."""
+    from repro_torch.metrics import precision_at_k
+    from repro_torch.serving import ServeConfig, XMRServingEngine
+    from repro_torch.trees.train import train_xmr_model
+
+    ds, rng = _small_dataset()
+    model = train_xmr_model(ds.x_train, ds.y_train, ds.n_labels, branching=8, rng=rng,
+                            nnz_per_col=48, steps=120)
+    assert model.tree.device.type == "cuda" and model.tree.depth == 3
+    xi, xv = (torch.from_numpy(a) for a in ds.x_test.to_ell(64))
+    before = tk.GROUPED_LAUNCHES
+    s, l = model.predict(xi, xv, beam=16, topk=5, method="mscm_pallas_grouped")
+    assert tk.GROUPED_LAUNCHES == before + model.tree.depth
+    s0, l0 = model.predict(xi, xv, beam=16, topk=5, method="mscm_dense")
+    check_ranking(s, l, s0, l0, "trained tree, grouped vs mscm_dense")
+    assert precision_at_k(l, ds.y_test, 1) > 0.25
+    eng = XMRServingEngine(model.tree, ServeConfig(beam=16, topk=5, ell_width=64),
+                           label_perm=model.structure.label_perm)
+    assert eng.method == "mscm_pallas_grouped"
+    s_e, l_e = eng.serve_batch(ds.x_test)
+    check_ranking(s_e, l_e, s0, l0, "engine, method=auto")
+
+
+@pytest.mark.cuda
+def test_train_level_on_card_matches_cpu_and_ignores_tf32(cuda_device):
+    """One level's five Adam steps on the card against the CPU's (sums in
+    other orders: within 1e-5), and bitwise the same with TF32 allowed by
+    the caller, since training forbids it locally."""
+    from repro_torch.trees import train as ttrain
+
+    ds, _ = _small_dataset()
+    g = torch.Generator().manual_seed(3)
+    xd = torch.from_numpy(ds.x_train.to_dense())
+    y = (torch.rand(xd.shape[0], 64, generator=g) < 0.05).float()
+    p = (torch.rand(xd.shape[0], 64, generator=g) < 0.5).float()
+    want = ttrain._train_level(xd, y, p, steps=5)
+    args = [a.to(cuda_device) for a in (xd, y, p)]
+    got = ttrain._train_level(*args, steps=5)
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-5)
+    before = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("high")
+    try:
+        assert torch.equal(ttrain._train_level(*args, steps=5), got)
+        assert torch.get_float32_matmul_precision() == "high"
+    finally:
+        torch.set_float32_matmul_precision(before)

@@ -242,10 +242,61 @@ def test_grouped_level_passes_tile_src(mode, qt):
 
 # The grouped kernel's launch plan. (T, QT, R, B): the path's leaf level, the
 # pruned tier's R, the card tests' edge shapes, a tile over 227 KB, a grid
-# that needs more CTAs than the card holds, QT = 1.
+# that needs more CTAs than the card holds, QT = 1; then shapes past the caps
+# the plan had before row groups and windows: QT = 24 (a short row group)
+# and 32, B = 1024 at QT = 16, B = 4096 at QT = 1 and 17, and R in passes.
 GROUPED_PLAN_SHAPES = [(640, 8, 496, 32), (640, 8, 248, 32), (1, 4, 8, 6), (1, 4, 8, 8),
                        (3, 16, 100, 70), (5, 2, 37, 8), (4, 16, 1040, 72), (100_000, 8, 496, 32),
-                       (7, 1, 4, 1), (300, 16, 600, 72), (300, 16, 1300, 64)]
+                       (7, 1, 4, 1), (300, 16, 600, 72), (300, 16, 1300, 64),
+                       (640, 32, 496, 32), (40, 24, 496, 32), (640, 16, 496, 1024),
+                       (640, 1, 496, 4096), (3, 17, 40, 4096), (16, 16, 1300, 1000),
+                       (9, 24, 100, 1030)]
+
+# The plans grouped_launch_plan gave before row groups and windows, (T, QT,
+# R, B), elem_bytes ->
+# (pass_rows, passes, warp_rows, slab_rows, slabs, stages, grid, bulk_xg,
+# bulk_tile, bulk_scales, smem_bytes): every shape under its caps keeps its
+# plan, the last eight at the old largest B for each QT.
+OLD_GROUPED_PLANS = {
+    ((640, 8, 496, 32), 4): (496, 1, 64, 128, 4, 2, 132, True, True, False, 168672),
+    ((640, 8, 496, 32), 1): (496, 1, 64, 128, 4, 2, 264, True, True, True, 73440),
+    ((640, 8, 248, 32), 4): (248, 1, 32, 64, 4, 2, 264, True, True, False, 89312),
+    ((640, 8, 248, 32), 1): (248, 1, 32, 64, 4, 2, 264, True, True, True, 41696),
+    ((1, 4, 8, 6), 4): (8, 1, 4, 8, 1, 2, 1, True, True, False, 2464),
+    ((1, 4, 8, 6), 1): (8, 1, 4, 8, 1, 2, 1, True, True, False, 2176),
+    ((1, 4, 8, 8), 4): (8, 1, 4, 8, 1, 2, 1, True, True, False, 2848),
+    ((1, 4, 8, 8), 1): (8, 1, 4, 8, 1, 2, 1, True, True, True, 2464),
+    ((3, 16, 100, 70), 4): (100, 1, 16, 32, 4, 2, 3, True, True, False, 107744),
+    ((3, 16, 100, 70), 1): (100, 1, 16, 32, 4, 2, 3, True, False, False, 65760),
+    ((5, 2, 37, 8), 4): (37, 1, 8, 16, 3, 2, 5, False, True, False, 4320),
+    ((5, 2, 37, 8), 1): (37, 1, 8, 16, 3, 2, 5, False, False, True, 2560),
+    ((4, 16, 1040, 72), 4): (544, 2, 68, 136, 4, 1, 4, True, True, False, 231168),
+    ((4, 16, 1040, 72), 1): (544, 2, 68, 136, 4, 2, 4, True, True, True, 187936),
+    ((100000, 8, 496, 32), 4): (496, 1, 64, 128, 4, 2, 3125, True, True, False, 168672),
+    ((100000, 8, 496, 32), 1): (496, 1, 64, 128, 4, 2, 3125, True, True, True, 73440),
+    ((7, 1, 4, 1), 4): (4, 1, 4, 8, 1, 2, 7, True, True, False, 736),
+    ((7, 1, 4, 1), 1): (4, 1, 4, 8, 1, 2, 7, True, False, False, 736),
+    ((300, 16, 600, 72), 4): (544, 2, 68, 136, 4, 1, 132, True, True, False, 231168),
+    ((300, 16, 600, 72), 1): (544, 2, 68, 136, 4, 2, 132, True, True, True, 187936),
+    ((300, 16, 1300, 64), 4): (608, 3, 76, 152, 4, 1, 132, True, True, False, 230112),
+    ((300, 16, 1300, 64), 1): (608, 3, 76, 152, 4, 2, 132, True, True, True, 191456),
+    ((640, 1, 496, 1412), 4): (32, 16, 4, 8, 4, 1, 132, True, True, False, 232304),
+    ((640, 1, 496, 1412), 1): (32, 16, 4, 8, 4, 2, 132, True, True, True, 147712),
+    ((640, 1, 5000, 1412), 4): (32, 157, 4, 8, 4, 1, 132, True, True, False, 232304),
+    ((640, 1, 5000, 1412), 1): (32, 157, 4, 8, 4, 2, 132, True, True, True, 147712),
+    ((640, 4, 496, 888), 4): (32, 16, 4, 8, 4, 1, 132, True, True, False, 232384),
+    ((640, 4, 496, 888), 1): (32, 16, 4, 8, 4, 2, 132, True, True, True, 179616),
+    ((640, 4, 5000, 888), 4): (32, 157, 4, 8, 4, 1, 132, True, True, False, 232384),
+    ((640, 4, 5000, 888), 1): (32, 157, 4, 8, 4, 2, 132, True, True, True, 179616),
+    ((640, 8, 496, 592), 4): (32, 16, 4, 8, 4, 1, 132, True, True, False, 232224),
+    ((640, 8, 496, 592), 1): (32, 16, 4, 8, 4, 2, 132, True, True, True, 197728),
+    ((640, 8, 5000, 592), 4): (32, 157, 4, 8, 4, 1, 132, True, True, False, 232224),
+    ((640, 8, 5000, 592), 1): (32, 157, 4, 8, 4, 2, 132, True, True, True, 197728),
+    ((640, 16, 496, 353), 4): (32, 16, 4, 8, 4, 1, 132, True, True, False, 231920),
+    ((640, 16, 496, 353), 1): (32, 16, 4, 8, 4, 2, 132, True, False, False, 212800),
+    ((640, 16, 5000, 353), 4): (32, 157, 4, 8, 4, 1, 132, True, True, False, 231920),
+    ((640, 16, 5000, 353), 1): (32, 157, 4, 8, 4, 2, 132, True, False, False, 212800),
+}
 
 
 def grouped_ranges(plan, r):
@@ -264,6 +315,9 @@ def grouped_ranges(plan, r):
 @pytest.mark.parametrize("elem_bytes", [4, 1])
 @pytest.mark.parametrize("shape", GROUPED_PLAN_SHAPES)
 def test_grouped_plan_covers_every_row_once(shape, elem_bytes):
+    """Every row of R in one warp range of one pass; every output (row of
+    QT, column of B) of a tile in exactly one item; no CTA walks more than
+    GROUPED_MAX_TILES items."""
     t, qt, r, b = shape
     plan = tk.grouped_launch_plan(t, qt, r, b, elem_bytes)
     seen = np.zeros(r, np.int64)
@@ -275,37 +329,54 @@ def test_grouped_plan_covers_every_row_once(shape, elem_bytes):
     np.testing.assert_array_equal(seen, 1)
     assert plan.warp_rows % 4 == 0 and plan.slab_rows == 2 * plan.warp_rows
     assert plan.passes == -(-r // plan.pass_rows)
-    # Every tile has a CTA, and none walks more than GROUPED_MAX_TILES.
-    assert 1 <= plan.grid <= t and plan.grid * tk.GROUPED_MAX_TILES >= t
+    items = plan.items(t)
+    assert items == t * plan.row_groups * plan.windows
+    assert 1 <= plan.grid <= items and plan.grid * tk.GROUPED_MAX_TILES >= items
     assert plan.stages in (1, 2)
+    assert plan.group_rows == min(qt, tk.GROUPED_MAX_QT)
+    out = np.zeros((min(t, 2), qt, b), np.int64)
+    for v in range(min(t, 2) * plan.row_groups * plan.windows):
+        ti, row0, h, col0, cols = tk.grouped_item(plan, v, qt, b)
+        assert 1 <= h <= plan.group_rows and 1 <= cols <= plan.window_cols
+        out[ti, row0:row0 + h, col0:col0 + cols] += 1
+    np.testing.assert_array_equal(out, 1)
 
 
 @pytest.mark.parametrize("elem_bytes", [4, 1])
 @pytest.mark.parametrize("shape", GROUPED_PLAN_SHAPES)
 def test_grouped_plan_bulk_copies_are_16_byte_aligned(shape, elem_bytes):
-    """Every bulk copy (the query rows of xg [T, QT, R], the tile rows of
-    vals [C, R, B] by slab, the scale row of scales [C, B]) starts and ends
-    on 16 bytes, for any tile t and chunk c."""
+    """Every bulk copy (the query rows of xg [T, QT, R] of an item's row
+    group, the tile rows of vals [C, R, B] by slab, or by row of a window,
+    the scale row of scales [C, B] of a window) starts and ends on 16
+    bytes, for any tile t and chunk c."""
     t, qt, r, b = shape
     plan = tk.grouped_launch_plan(t, qt, r, b, elem_bytes)
     xr = -(-plan.pass_rows // 4) * 4
-    for i in (0, 1, 7):
-        for ps in range(plan.passes):
-            r0 = ps * plan.pass_rows
-            nr = min(plan.pass_rows, r - r0)
-            if plan.bulk_xg:
-                copies = ([(i * qt * r, qt * nr)] if xr == r else
-                          [((i * qt + q) * r + r0, nr) for q in range(qt)])
-                for start, n in copies:
-                    assert start * 4 % 16 == 0 and n * 4 % 16 == 0
-            if plan.bulk_tile:
-                for j in range(plan.slabs):
-                    rows = min(plan.slab_rows, nr - j * plan.slab_rows)
-                    if rows > 0:
-                        start = (i * r + r0 + j * plan.slab_rows) * b * elem_bytes
-                        assert start % 16 == 0 and rows * b * elem_bytes % 16 == 0
-        if plan.bulk_scales:
-            assert i * b * 4 % 16 == 0 and b * 4 % 16 == 0
+    for v in range(plan.row_groups * plan.windows):
+        _, row0, h, col0, cols = tk.grouped_item(plan, v, qt, b)
+        for i in (0, 1, 7):
+            for ps in range(plan.passes):
+                r0 = ps * plan.pass_rows
+                nr = min(plan.pass_rows, r - r0)
+                if plan.bulk_xg:
+                    copies = ([((i * qt + row0) * r, h * nr)] if xr == r else
+                              [((i * qt + row0 + q) * r + r0, nr) for q in range(h)])
+                    for start, n in copies:
+                        assert start * 4 % 16 == 0 and n * 4 % 16 == 0
+                if plan.bulk_tile:
+                    for j in range(plan.slabs):
+                        rows = min(plan.slab_rows, nr - j * plan.slab_rows)
+                        first = i * r + r0 + j * plan.slab_rows
+                        if rows <= 0:
+                            continue
+                        if plan.windows == 1:
+                            copies = [(first * b, rows * b)]
+                        else:
+                            copies = [((first + k) * b + col0, cols) for k in range(rows)]
+                        for start, n in copies:
+                            assert start * elem_bytes % 16 == 0 and n * elem_bytes % 16 == 0
+            if plan.bulk_scales:
+                assert (i * b + col0) * 4 % 16 == 0 and cols * 4 % 16 == 0
     assert not (elem_bytes == 4 and plan.bulk_scales)  # f32 tiles have no scale row
 
 
@@ -318,47 +389,145 @@ def test_grouped_plan_unaligned_shapes_take_ordinary_loads():
     assert not (none.bulk_xg or none.bulk_tile or none.bulk_scales)
     main = tk.grouped_launch_plan(640, 8, 496, 32, 1)
     assert main.bulk_xg and main.bulk_tile and main.bulk_scales
+    # Windows of B = 1030: rows of 1,030 codes (or 4,120 bytes of f32) are
+    # off 16 bytes, so a window's rows go by ordinary loads in both.
+    for elem_bytes in (1, 4):
+        plan = tk.grouped_launch_plan(9, 24, 100, 1030, elem_bytes)
+        assert plan.windows > 1 and not plan.bulk_tile
 
 
 @pytest.mark.parametrize("elem_bytes", [4, 1])
 @pytest.mark.parametrize("shape", GROUPED_PLAN_SHAPES)
 def test_grouped_plan_fits_shared_memory(shape, elem_bytes):
-    """Within 227 KB; passes only when a tile does not fit, and the same
-    passes for f32 and int8/fp8 tiles (the same order of sums)."""
+    """Within 227 KB; passes only when an item does not fit, and the same
+    windows and passes for f32 and int8/fp8 tiles (the same order of sums)."""
     t, qt, r, b = shape
     plan = tk.grouped_launch_plan(t, qt, r, b, elem_bytes)
     assert plan.smem_bytes <= tk.GROUPED_SMEM_LIMIT
-    assert plan.smem_bytes == tk.grouped_smem_bytes(qt, b, elem_bytes, plan.pass_rows,
-                                                    plan.stages)
+    assert plan.smem_bytes == tk.grouped_smem_bytes(plan.group_rows, plan.window_cols,
+                                                    elem_bytes, plan.pass_rows, plan.stages)
     f32 = tk.grouped_launch_plan(t, qt, r, b, 4)
-    assert plan.pass_rows == f32.pass_rows
+    assert (plan.pass_rows, plan.window_cols) == (f32.pass_rows, f32.window_cols)
     if plan.passes > 1:
-        assert tk.grouped_smem_bytes(qt, b, 4, r, 1) > tk.GROUPED_SMEM_LIMIT
+        assert tk.grouped_smem_bytes(plan.group_rows, plan.window_cols, 4, r,
+                                     1) > tk.GROUPED_SMEM_LIMIT
         assert plan.pass_rows % 32 == 0
+    if plan.windows > 1:
+        assert plan.window_cols % tk.GROUPED_WINDOW_STEP == 0
+        assert plan.pass_rows >= min(r, 128) and f32.stages == 2
 
 
 def test_grouped_plan_rejects_qt_above_the_cap():
+    """QT has no cap: above GROUPED_MAX_QT a tile runs as row groups of 16
+    rows, the last one short, and B as wide as one window takes stays one
+    window. The plan still rejects what no kernel runs: R < 1, T < 0, an
+    unknown element size."""
     assert tk.grouped_launch_plan(640, tk.GROUPED_MAX_QT, 496, 32, 4).grid == 132
-    with pytest.raises(ValueError, match="cap"):
-        tk.grouped_launch_plan(640, tk.GROUPED_MAX_QT + 1, 496, 32, 4)
+    for qt, groups in ((17, 2), (24, 2), (32, 2), (33, 3)):
+        for elem_bytes in (4, 1):
+            plan = tk.grouped_launch_plan(640, qt, 496, 32, elem_bytes)
+            assert (plan.group_rows, plan.row_groups, plan.windows) == (16, groups, 1)
+            same = tk.grouped_launch_plan(640, 16, 496, 32, elem_bytes)
+            assert plan._replace(grid=same.grid, row_groups=1) == same
+            assert plan.items(640) == 640 * groups
     with pytest.raises(ValueError):
         tk.grouped_launch_plan(640, 8, 0, 32, 4)
     with pytest.raises(ValueError):
         tk.grouped_launch_plan(640, 8, 496, 32, 2)
-    with pytest.raises(ValueError, match="too wide"):
-        tk.grouped_launch_plan(1, 16, 64, 20_000, 4)
+    with pytest.raises(ValueError):
+        tk.grouped_launch_plan(-1, 8, 496, 32, 4)
+    with pytest.raises(ValueError):
+        tk.grouped_launch_plan(640, 0, 496, 32, 4)
+    wide = tk.grouped_launch_plan(1, 16, 64, 20_000, 4)
+    assert wide.windows > 1 and wide.smem_bytes <= tk.GROUPED_SMEM_LIMIT
 
 
 @pytest.mark.parametrize("qt,b_max", [(1, 1412), (4, 888), (8, 592), (16, 353)])
 @pytest.mark.parametrize("r", [496, 5000])
 def test_grouped_plan_rejects_b_past_its_limit(qt, b_max, r):
-    """The warps' partials [8, QT, B] and one pass of 32 rows must fit in
-    shared memory, so B has a limit for each QT whatever R is; past it the
-    plan raises rather than the launch failing."""
+    """B has no limit: up to the widest B whose warps' partials [8, QT, B]
+    and one pass of 32 rows fit (the old limit), the plan is the old one, one
+    window; one column more goes in windows of a multiple of 16 columns,
+    two stages of at least 128 rows, within shared memory."""
     for elem_bytes in (4, 1):
-        assert tk.grouped_launch_plan(640, qt, r, b_max, elem_bytes).pass_rows >= 32
-        with pytest.raises(ValueError, match="too wide"):
-            tk.grouped_launch_plan(640, qt, r, b_max + 1, elem_bytes)
+        at = tk.grouped_launch_plan(640, qt, r, b_max, elem_bytes)
+        assert tuple(at)[:11] == OLD_GROUPED_PLANS[(640, qt, r, b_max), elem_bytes]
+        assert (at.row_groups, at.windows, at.window_cols) == (1, 1, b_max)
+        past = tk.grouped_launch_plan(640, qt, r, b_max + 1, elem_bytes)
+        assert past.windows > 1 and past.window_cols % 16 == 0
+        assert past.window_cols * past.windows >= b_max + 1
+        assert past.window_cols * (past.windows - 1) < b_max + 1
+        assert past.smem_bytes <= tk.GROUPED_SMEM_LIMIT
+        assert past.stages == 2 and past.pass_rows >= 128
+
+
+@pytest.mark.parametrize("key", sorted(OLD_GROUPED_PLANS), ids=str)
+def test_grouped_plan_under_the_old_caps_is_unchanged(key):
+    """Row groups and windows change no plan the kernel ran before them:
+    one row group, one window, and every old field as it was."""
+    (t, qt, r, b), elem_bytes = key
+    plan = tk.grouped_launch_plan(t, qt, r, b, elem_bytes)
+    assert tuple(plan)[:11] == OLD_GROUPED_PLANS[key]
+    assert (plan.group_rows, plan.row_groups, plan.window_cols, plan.windows) == (qt, 1, b, 1)
+    assert plan.args()[:6] == (plan.pass_rows, plan.warp_rows, plan.slab_rows,
+                               int(plan.bulk_xg) | 2 * int(plan.bulk_tile)
+                               | 4 * int(plan.bulk_scales), plan.stages, plan.grid)
+
+
+def grouped_by_items(plan, xg, vals, tc, ps, mode, tile_src, product):
+    """The grouped product as the kernel cuts it: ``product`` (the plain
+    version) on each item of a live tile (a tile is live when its first
+    slot is, whatever its row group holds), zeros for padding tiles'."""
+    t, qt, _ = xg.shape
+    b = vals.shape[2]
+    out = torch.full((t, qt, b), float("nan"))
+    for v in range(plan.items(t)):
+        ti, row0, h, col0, cols = tk.grouped_item(plan, v, qt, b)
+        rows, cs = slice(row0, row0 + h), slice(col0, col0 + cols)
+        if tile_src is not None and tile_src[ti, 0] < 0:
+            out[ti, rows, cs] = 0.0
+            continue
+        p = None if ps is None else ps[ti:ti + 1, rows]
+        out[ti, rows, cs] = product(xg[ti:ti + 1, rows], vals[:, :, cs], tc[ti:ti + 1], p,
+                                    mode=mode)[0]
+    return out
+
+
+@pytest.mark.parametrize("mode", ["none", "prod", "logsum"])
+@pytest.mark.parametrize("b", [1024, 4096])
+@pytest.mark.parametrize("qt", [17, 24, 32])
+def test_grouped_items_reassemble_the_plain_output(qt, b, mode):
+    """The plan's row groups and windows, with the plain version standing
+    in for the kernel on each item, give the whole plain output bitwise:
+    padding tiles, a live tile whose second row group is all padding slots,
+    a short last row group (QT = 17, 24) and a narrow last window. Inputs
+    are small integers, so every order of the f32 sums is exact. Except in
+    ``prod``: torch's CPU sigmoid takes a vector loop or a scalar tail by
+    tensor length, which differ by 1 ulp, so there the logits are held
+    bitwise and the scores within 2 ulp (rtol 2.4e-7)."""
+    t, r, c = 5, 24, 3
+    g = torch.Generator().manual_seed(qt * b)
+    xg = torch.randint(-3, 4, (t, qt, r), generator=g).float()
+    vals = torch.randint(-3, 4, (c, r, b), generator=g).float()
+    tc = torch.tensor([0, 1, 1, 2, 2])
+    ps = torch.rand(t, qt, generator=g) + 0.5
+    src = torch.arange(t * qt).reshape(t, qt)
+    src[1, 16:] = -1  # a live tile whose second row group holds only padding slots
+    src[3:] = -1      # padding tiles
+    xg[3:] = 0.0
+    p = None if mode == "none" else ps
+    # int8/fp8 plans take the same row groups, windows and passes
+    # (test_grouped_plan_fits_shared_memory), so they cut the same items.
+    plan = tk.grouped_launch_plan(t, qt, r, b, 4)
+    assert plan.row_groups == 2 and plan.windows > 1
+    got = grouped_by_items(plan, xg, vals, tc, p, mode, src, tk.mscm_grouped_plain)
+    want = tk.mscm_grouped_plain(xg, vals, tc, p, mode=mode, tile_src=src)
+    if mode == "prod":
+        torch.testing.assert_close(got, want, rtol=2.4e-7, atol=0.0)
+        got = grouped_by_items(plan, xg, vals, tc, None, "none", src, tk.mscm_grouped_plain)
+        want = tk.mscm_grouped_plain(xg, vals, tc, None, mode="none", tile_src=src)
+    assert torch.equal(got, want)
+    assert got[1, 16:].abs().sum() > 0  # the padding slots of a live tile are computed
 
 
 # ---------------------------------------------------------------------------
@@ -550,10 +719,48 @@ def plan_slabs(plan, r):
             yield rank, j, row0 + first, min(plan.slab_rows, nrows - first)
 
 
-# (A, R, B): online, one block, batch, and the edge shapes of the card tests.
+# (A, R, B): online, one block, batch, and the edge shapes of the card tests;
+# then B past the width one window takes (1,022 in f32 and bf16).
 PLAN_SHAPES = [(10, 496, 32), (1, 496, 32), (640, 496, 32), (132, 496, 32), (66, 496, 32),
                (1, 8, 6), (5, 37, 8), (3, 1037, 70), (200, 1040, 72), (200, 1037, 70),
-               (6, 24, 16), (0, 496, 32)]
+               (6, 24, 16), (0, 496, 32), (10, 496, 2048), (1, 496, 2048), (640, 496, 2048),
+               (3, 1037, 2048), (10, 496, 1023), (1, 64, 40_000)]
+
+# The plans block_launch_plan gave before windows, (A, R, B), elem_bytes ->
+# (cluster, rows_per_slice, slab_rows, stages, bulk, smem_bytes), the last
+# six at its widest B, 1,022.
+OLD_BLOCK_PLANS = {
+    ((10, 496, 32), 4): (8, 64, 64, 1, True, 10784),
+    ((10, 496, 32), 2): (8, 64, 64, 1, True, 6560),
+    ((1, 496, 32), 4): (8, 64, 64, 1, True, 10784),
+    ((1, 496, 32), 2): (8, 64, 64, 1, True, 6560),
+    ((640, 496, 32), 4): (1, 496, 496, 1, True, 69536),
+    ((640, 496, 32), 2): (1, 496, 496, 1, True, 36800),
+    ((132, 496, 32), 4): (1, 496, 496, 1, True, 69536),
+    ((132, 496, 32), 2): (1, 496, 496, 1, True, 36800),
+    ((66, 496, 32), 4): (2, 248, 248, 1, True, 35808),
+    ((66, 496, 32), 2): (2, 248, 248, 1, True, 19440),
+    ((1, 8, 6), 4): (2, 4, 4, 1, True, 544),
+    ((1, 8, 6), 2): (1, 8, 8, 1, True, 560),
+    ((5, 37, 8), 4): (5, 8, 8, 1, False, 864),
+    ((5, 37, 8), 2): (5, 8, 8, 1, False, 720),
+    ((3, 1037, 70), 4): (8, 132, 132, 1, False, 42528),
+    ((3, 1037, 70), 2): (8, 136, 136, 1, False, 24368),
+    ((200, 1040, 72), 4): (1, 1040, 152, 2, True, 94640),
+    ((200, 1040, 72), 2): (1, 1040, 264, 2, True, 83856),
+    ((200, 1037, 70), 4): (1, 1040, 260, 1, False, 79392),
+    ((200, 1037, 70), 2): (1, 1040, 520, 1, False, 80432),
+    ((6, 24, 16), 4): (6, 4, 4, 1, True, 1344),
+    ((6, 24, 16), 2): (3, 8, 8, 1, True, 1360),
+    ((0, 496, 32), 4): (8, 64, 64, 1, True, 10784),
+    ((0, 496, 32), 2): (8, 64, 64, 1, True, 6560),
+    ((10, 496, 1022), 4): (8, 64, 4, 2, True, 98224),
+    ((10, 496, 1022), 2): (8, 64, 8, 2, True, 98256),
+    ((1, 496, 1022), 4): (8, 64, 4, 2, True, 98224),
+    ((1, 496, 1022), 2): (8, 64, 8, 2, True, 98256),
+    ((640, 64, 1022), 4): (1, 64, 4, 2, True, 98224),
+    ((640, 64, 1022), 2): (1, 64, 8, 2, True, 98256),
+}
 
 
 @pytest.mark.parametrize("elem_bytes", [4, 2])
@@ -562,7 +769,7 @@ def test_block_plan_covers_every_row_once(shape, elem_bytes):
     a, r, b = shape
     plan = tk.block_launch_plan(a, r, b, elem_bytes)
     assert 1 <= plan.cluster <= tk.MAX_CLUSTER
-    assert plan.grid(a) == a * plan.cluster
+    assert plan.grid(a) == a * plan.cluster * plan.windows
     if a >= tk.H100_SMS:
         assert plan.cluster == 1
     seen = np.zeros(r, np.int64)
@@ -577,7 +784,11 @@ def test_block_plan_covers_every_row_once(shape, elem_bytes):
         assert slabs[0][0] == rank * plan.rows_per_slice
         assert all(f0 + n0 == f1 for (f0, n0), (f1, _) in zip(slabs, slabs[1:]))
     assert plan.smem_bytes <= tk.BLOCK_SMEM_BUDGET
-    assert plan.smem_bytes == tk.block_smem_bytes(b, elem_bytes, plan.slab_rows, plan.stages)
+    assert plan.smem_bytes == tk.block_smem_bytes(plan.window_cols, elem_bytes, plan.slab_rows,
+                                                  plan.stages)
+    # Windows cover B once: all of it in one, or a multiple of 16 columns each.
+    assert plan.windows == -(-b // plan.window_cols)
+    assert plan.windows == 1 or (plan.window_cols % 16 == 0 and b > 1022)
 
 
 def test_block_plan_splits_the_online_shape_over_a_cluster():
@@ -600,9 +811,14 @@ def test_block_plan_bulk_copies_are_16_byte_aligned(shape, elem_bytes):
         return
     for c_or_a in (0, 1, 7):
         for _, _, first, n in plan_slabs(plan, r):
-            for row_bytes in (b * elem_bytes, elem_bytes, 4):
+            for row_bytes in (elem_bytes, 4) + ((b * elem_bytes,) if plan.windows == 1 else ()):
                 assert (c_or_a * r + first) * row_bytes % 16 == 0
                 assert n * row_bytes % 16 == 0
+            for w in range(1, plan.windows):  # a window's tile rows: one copy a row
+                col0, cols = w * plan.window_cols, min(plan.window_cols, b - w * plan.window_cols)
+                for k in range(first, first + n):
+                    assert ((c_or_a * r + k) * b + col0) * elem_bytes % 16 == 0
+                    assert cols * elem_bytes % 16 == 0
     assert plan.stages == 1 or plan.slab_rows < plan.rows_per_slice  # a ring only to stream
 
 
@@ -621,10 +837,40 @@ def test_block_plan_streams_large_tiles_through_a_ring():
     assert plan.cluster == 1 and plan.bulk and plan.stages == 2
     assert plan.slab_rows < plan.rows_per_slice
     assert plan.smem_bytes <= tk.BLOCK_SMEM_BUDGET
-    with pytest.raises(ValueError, match="too wide"):
-        tk.block_launch_plan(1, 64, 40_000, 4)
+    # B = 40,000 fits no slab of one window: windows of a multiple of 16
+    # columns instead, each within the budget.
+    wide = tk.block_launch_plan(1, 64, 40_000, 4)
+    assert wide.windows > 1 and wide.smem_bytes <= tk.BLOCK_SMEM_BUDGET
     with pytest.raises(ValueError):
         tk.block_launch_plan(1, 0, 32, 4)
+    with pytest.raises(ValueError):
+        tk.block_launch_plan(1, 64, 32, 3)
+
+
+@pytest.mark.parametrize("key", sorted(OLD_BLOCK_PLANS), ids=str)
+def test_block_plan_under_the_old_cap_is_unchanged(key):
+    """Windows change no plan the kernel ran before them: one window of all
+    B columns and every old field as it was, up to the old widest B."""
+    (a, r, b), elem_bytes = key
+    plan = tk.block_launch_plan(a, r, b, elem_bytes)
+    assert tuple(plan)[:6] == OLD_BLOCK_PLANS[key]
+    assert (plan.window_cols, plan.windows) == (b, 1)
+    assert plan.args() == tuple(plan.args()[:5]) + (b,)
+
+
+@pytest.mark.parametrize("elem_bytes", [4, 2])
+@pytest.mark.parametrize("b", [1023, 2048, 4096])
+def test_block_plan_takes_b_past_the_old_cap(b, elem_bytes):
+    """Past 1,022 columns the plan cuts B into the fewest windows that fit,
+    each a multiple of 16 columns, and keeps the slices of R it had."""
+    for a in (1, 10, 640):
+        plan = tk.block_launch_plan(a, 496, b, elem_bytes)
+        narrow = tk.block_launch_plan(a, 496, 32, elem_bytes)
+        assert plan.windows > 1 and plan.window_cols % 16 == 0
+        assert plan.window_cols * (plan.windows - 1) < b <= plan.window_cols * plan.windows
+        assert (plan.cluster, plan.rows_per_slice) == (narrow.cluster, narrow.rows_per_slice)
+        assert plan.smem_bytes <= tk.BLOCK_SMEM_BUDGET
+        assert plan.bulk == (b * elem_bytes % 16 == 0)
 
 
 # ---------------------------------------------------------------------------

@@ -159,3 +159,21 @@ def test_latency_stats_keep_series_apart():
     s = st.summary()
     assert s["count"] == 1 and s["avg_ms"] == pytest.approx(2.0)
     assert s["amortized"] == {"calls": 2, "queries": 7, "avg_ms_per_query": pytest.approx(2.0)}
+
+
+@pytest.mark.parametrize("method", ["mscm_pallas_grouped", "mscm_pallas"])
+def test_tall_tiles_and_wide_chunks_match_reference(method):
+    """``ServeConfig(qt=32)`` on a one-level tree of branching 1024: query
+    tiles past 16 rows and chunks past 1,022 columns, the shapes the
+    kernels' plans once refused, serve as in the reference (its Pallas
+    kernels in interpret mode; the port's plain versions, on the CPU)."""
+    rng = np.random.default_rng(1024)
+    d, B = 200, 1024
+    ws = make_tree_weights(rng, d, [B], B, nnz_per_col=12)
+    jt = JTree.from_weight_matrices(ws, B)
+    tt = XMRTree.from_weight_matrices([port_csc(w) for w in ws], B, device="cpu")
+    xq = random_sparse_csr(40, d, 16, rng)
+    knobs = dict(beam=10, topk=10, ell_width=32, max_batch=64, qt=32, method=method)
+    s_j, l_j = JEngine(jt, JConfig(**knobs)).serve_batch(xq)
+    s_t, l_t = XMRServingEngine(tt, ServeConfig(**knobs), device="cpu").serve_batch(port_csr(xq))
+    assert_same_ranking(s_t, l_t, s_j, l_j)
