@@ -53,7 +53,21 @@ Phases, in order; any failure raises and the script exits non-zero:
             and serve 64 queries with ``method="mscm_pallas"``, which takes the
             fused kernel there; profile both online paths and report the
             per-block kernel's device time a launch.
-8. train    the training path at eurlex-4k's width (d = 5,000, L = 3,956,
+8. server   the serving front end on that search-1m tree, in four parts,
+            each counting launches from the end of its warm-up and
+            calibration: (1) warm buckets 1-64 (each bucket's first run
+            timed), then 256 ``Query``s through a ``MicroBatcher`` (64, 2 ms)
+            from 4 client threads, every result ok and bitwise
+            ``serve_batch``'s, grouped launches depth x batches and no other,
+            ``ServerMetrics`` readings and one profiled run's idle share;
+            (2) ``AdmissionConfig(queue_depth=64, shed_policy="reject")``
+            with 512 enqueued before start: 64 ok, 448 overloaded (429),
+            depth launches; (3) ``SLOConfig(target_p99_ms=2 x tier 0's batch
+            cost)``: a burst of 256 served in full, some at a tier > 0, each
+            result bitwise a no-SLO engine at its tier's beam, recall@10 of
+            each tier; (4) the int8 tier through the batcher, bitwise
+            ``serve_batch``, grouped_q launches only.
+9. train    the training path at eurlex-4k's width (d = 5,000, L = 3,956,
             n_test = 3,865 of ``PAPER_SHAPES``; n_train 15,460): a seeded
             ``synthetic_labeled_dataset``, PIFA + balanced-bisection
             clustering, ``train_xmr_model`` on the card (branching 8, 4
@@ -68,7 +82,8 @@ Phases, in order; any failure raises and the script exits non-zero:
 The line before last is a JSON object with one entry per kernel, whose
 ``launches`` count that kernel's path (grouped: path; grouped_q: the int8
 tier; pregather: search-1m online; fused: search-32k online; the grouped
-entry also counts the train phase's launches); the last is
+entry also counts the train phase's launches, and the grouped and grouped_q
+entries the server phase's, as ``server_launches``); the last is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -95,6 +110,8 @@ BF16_TOL = 2e-2
 # The serving configuration of both settings (examples/serve_search.py).
 SERVE = dict(beam=10, topk=10, ell_width=256, max_batch=64)
 ONLINE_QUERIES, PROFILED_QUERIES = 64, 16
+# The bound of every wait on a batcher's client thread or result.
+SERVER_TIMEOUT_S = 120
 # The online panel: the paper's method and the baselines it is compared with.
 ONLINE_PANEL = ("mscm_pallas", "mscm_pallas_pregather", "vanilla", "mscm_searchsorted",
                 "mscm_pallas_grouped", "mscm_dense")
@@ -517,9 +534,10 @@ def plan_text(p) -> str:
 def past_cap_timings(torch, mk, qk, quantize_chunks) -> dict:
     """Phase 3d: plans and warm times of the grouped shapes past the plans'
     old caps (kernel_check and quant_kernel_check hold them against their
-    plain versions), f32 and int8, with ``torch.bmm`` and the bound beside
-    them; then the path's old-cap shape keeps the plan it had before row
-    groups and windows. Returns label -> times."""
+    plain versions), f32 and int8, with ``torch.bmm`` (on the f32 tiles and
+    on the dequantized int8 tiles) and each one's bound beside them; then
+    the path's old-cap shape keeps the plan it had before row groups and
+    windows. Returns label -> times."""
     g = torch.Generator(device="cuda").manual_seed(16)
     times = {}
     for t, qt, r, b, c, runs in PAST_CAP_GROUPED:
@@ -529,20 +547,26 @@ def past_cap_timings(torch, mk, qk, quantize_chunks) -> dict:
         for es, kind in ((4, "f32"), (1, "int8")):
             log(f"  plan {label} {kind}: {plan_text(mk.grouped_launch_plan(t, qt, r, b, es))}")
         gathered = f32[tc]
+        deq_g = vals[tc].float() * scales[tc][:, None, :]  # dequantized, gathered
         entry = dict(
             ms=time_ms(lambda: mk.mscm_grouped(xg, f32, tc, ps, mode="prod")),
             int8_ms=time_ms(lambda: qk.mscm_grouped_q(xg, vals, scales, tc, ps, mode="prod")),
             plain_ms=time_ms(lambda: mk.mscm_grouped_plain(xg, f32, tc, ps, mode="prod"),
                              reps=10, inner=4),
-            library_ms=time_ms(lambda: torch.bmm(xg, gathered)))
+            library_ms=time_ms(lambda: torch.bmm(xg, gathered)),
+            int8_library_ms=time_ms(lambda: torch.bmm(xg, deq_g)))
         nbytes, flops = grouped_bytes(torch, xg, tc, None, b, 4)
         entry["bound_ms"], entry["bound_by"] = bound(nbytes, flops)
+        qbytes, qflops = grouped_bytes(torch, xg, tc, None, b, 1)
+        entry["int8_bound_ms"], entry["int8_bound_by"] = bound(qbytes, qflops)
         log(f"  timing {label} (prod, warm): kernel {entry['ms']:.5f} ms, int8 "
             f"{entry['int8_ms']:.5f}, plain {entry['plain_ms']:.5f}, torch.bmm on gathered "
-            f"tiles {entry['library_ms']:.5f}, bound {entry['bound_ms']:.5f} "
-            f"({entry['bound_by']}, {nbytes / 1e6:.2f} MB)")
+            f"tiles {entry['library_ms']:.5f} (dequantized int8 tiles "
+            f"{entry['int8_library_ms']:.5f}), bound {entry['bound_ms']:.5f} "
+            f"({entry['bound_by']}, {nbytes / 1e6:.2f} MB; int8 {entry['int8_bound_ms']:.5f}, "
+            f"{entry['int8_bound_by']}, {qbytes / 1e6:.2f} MB)")
         times[label] = entry
-        del xg, f32, vals, scales, gathered
+        del xg, f32, vals, scales, gathered, deq_g
     for es, want in OLD_PATH_PLANS.items():
         plan = mk.grouped_launch_plan(640, 8, 496, 32, es)
         if tuple(plan)[:11] != want or (plan.row_groups, plan.windows) != (1, 1):
@@ -1135,8 +1159,225 @@ def online(torch, mk, gpu: str, tree, queries):
     return pregather, fused
 
 
+def zero_counts(mk, qk) -> None:
+    """Set every kernel's launch count to 0."""
+    mk.GROUPED_LAUNCHES = mk.FUSED_LAUNCHES = mk.PREGATHER_LAUNCHES = 0
+    qk.GROUPED_Q_LAUNCHES = 0
+
+
+def counts(mk, qk) -> dict:
+    """Every kernel's launch count, by name."""
+    return {"grouped": mk.GROUPED_LAUNCHES, "grouped_q": qk.GROUPED_Q_LAUNCHES,
+            "fused": mk.FUSED_LAUNCHES, "pregather": mk.PREGATHER_LAUNCHES}
+
+
+def serve_through_batcher(mb, queries, clients: int = 1, started: bool = False):
+    """Submit every query as a ``Query`` (qid = its row), from ``clients``
+    threads when the batcher is started, else before ``start()`` (then
+    started); wait for every result and stop. Returns the results by qid
+    and the wall seconds from the start (or the first submit) to the last
+    result."""
+    import threading
+
+    from repro_torch.serving import Query
+
+    n = queries.shape[0]
+    futs = [None] * n
+
+    def client(rows):
+        for i in rows:
+            futs[i] = mb.submit(Query(*queries.row(i), qid=i))
+
+    try:
+        if started:
+            mb.start()
+            t0 = time.perf_counter()
+            threads = [threading.Thread(target=client, args=(range(c, n, clients),))
+                       for c in range(clients)]
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join(timeout=SERVER_TIMEOUT_S)
+            if any(th.is_alive() for th in threads):
+                raise AssertionError("a client thread did not finish submitting")
+        else:
+            client(range(n))
+            t0 = time.perf_counter()
+            mb.start()
+        res = [f.result(timeout=SERVER_TIMEOUT_S) for f in futs]
+        wall = time.perf_counter() - t0
+    finally:
+        mb.stop()
+    if [r.qid for r in res] != list(range(n)):
+        raise AssertionError("results lost their qids")
+    return res, wall
+
+
+def held_bitwise(res, s, l, what: str, rows=None) -> None:
+    """Raise unless every result is ``ok`` and bitwise row ``qid`` of
+    ``(s, l)`` (or of the rows ``rows`` names)."""
+    for r in res:
+        i = r.qid if rows is None else rows[r.qid]
+        if not r.ok:
+            raise AssertionError(f"{what}: qid {r.qid} status {r.status} ({r.detail})")
+        if not (np.array_equal(r.ids, l[i]) and np.array_equal(
+                np.asarray(r.scores).view(np.uint32), s[i].view(np.uint32))):
+            raise AssertionError(f"{what}: qid {r.qid} is not bitwise serve_batch's row {i}")
+
+
+def server_readings(metrics) -> str:
+    """Queue wait and compute p50/p99, QPS (goodput), triggers and bucket
+    occupancy of a ``ServerMetrics``."""
+    s = metrics.summary()
+    wait, comp = np.asarray(metrics.queue_wait_ms), np.asarray(metrics.compute_ms)
+    occ = sum(metrics.batch_sizes) / max(sum(metrics.bucket_sizes), 1)
+    return (f"{s['count']} served, {s['batches']} batches (sizes {metrics.batch_sizes}), "
+            f"queue wait p50 {np.percentile(wait, 50):.5f} / p99 {np.percentile(wait, 99):.5f} "
+            f"ms, compute p50 {np.percentile(comp, 50):.5f} / p99 {np.percentile(comp, 99):.5f} "
+            f"ms a batch, e2e p50 {s['p50_ms']:.5f} / p99 {s['p99_ms']:.5f} ms, "
+            f"{s['qps']:.1f} QPS (goodput), triggers {s['triggers']}, bucket occupancy "
+            f"{occ:.4f}, shed {s['shed']}")
+
+
+def server(torch, mk, qk, gpu: str, tree, queries) -> tuple:
+    """Phase 8: the serving front end on search-1m: 256 queries through a
+    ``MicroBatcher`` from 4 client threads (exact tier), 512 at a bounded
+    queue (overload), a burst under an SLO ladder, and the int8 tier. Each
+    part counts launches from the end of its warm-up and calibration.
+    Returns the grouped and grouped_q kernels' launches."""
+    from repro_torch.quant import recall_at_k
+    from repro_torch.serving import (AdmissionConfig, BatchPolicy, MicroBatcher, QuantConfig,
+                                     ServeConfig, SLOConfig, XMRServingEngine)
+
+    n, depth = queries.shape[0], tree.depth
+    policy = BatchPolicy(max_batch=SERVE["max_batch"], max_wait_ms=2.0)
+
+    def expect(part, got, grouped=0, grouped_q=0):
+        want = {"grouped": grouped, "grouped_q": grouped_q, "fused": 0, "pregather": 0}
+        if got != want:
+            raise AssertionError(f"server {part}: launches {got}, want {want}")
+
+    # 1. Exact tier, 4 client threads.
+    eng = XMRServingEngine(tree, ServeConfig(method="auto", **SERVE))
+    if eng.method != "mscm_pallas_grouped":
+        raise AssertionError(f"method='auto' resolved to {eng.method!r} on the GPU")
+    warm = {}
+    for b in (1, 2, 4, 8, 16, 32, 64):
+        t0 = time.perf_counter()
+        eng.warmup(tree.d, (b,))
+        warm[b] = 1e3 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    eng.warmup_buckets(tree.d, SERVE["max_batch"])  # what start() runs
+    again = 1e3 * (time.perf_counter() - t0)
+    cost0 = 1e3 * eng.measure_batch_seconds(SERVE["max_batch"])
+    log(f"  exact tier: first run of each bucket (ms) "
+        f"{ {b: round(ms, 3) for b, ms in warm.items()} }; warmup_buckets(1-64) again "
+        f"{again:.3f} ms; a 64-query batch at tier 0 {cost0:.5f} ms (measure_batch_seconds)"
+        f"  [{gpu}]")
+    t0 = time.perf_counter()
+    s_x, l_x = eng.serve_batch(queries)
+    batch_wall = time.perf_counter() - t0
+    mb = MicroBatcher(eng, policy, warmup_on_start=False)
+    zero_counts(mk, qk)
+    res, wall = serve_through_batcher(mb, queries, clients=4, started=True)
+    got = counts(mk, qk)
+    batches = len(mb.metrics.batch_sizes)
+    expect("exact tier", got, grouped=depth * batches)
+    held_bitwise(res, s_x, l_x, "server exact tier")
+    exact_launches = got["grouped"]
+    log(f"  exact tier, 4 client threads: {server_readings(mb.metrics)}; wall {1e3 * wall:.3f}"
+        f" ms from start to the last result (serve_batch of the same {n}: "
+        f"{1e3 * batch_wall:.3f} ms); {exact_launches} grouped launches ({depth} a batch), "
+        f"none of another kernel; every result ok and bitwise serve_batch's  [{gpu}]")
+    profiled = MicroBatcher(eng, policy, warmup_on_start=False)
+    wall, acts, busy_us, rows = device_profile(
+        lambda: serve_through_batcher(profiled, queries, clients=4, started=True))
+    log_profile("256 queries through the batcher, 4 clients", wall, acts, busy_us, rows, gpu, 8)
+    if busy_us:
+        log(f"  batcher, profiled: device busy {busy_us / 1e3:.3f} ms of {1e3 * wall:.3f} ms wall,"
+            f" idle share {1 - busy_us / (1e6 * wall):.4f}  [{gpu}]")
+
+    # 2. Overload: 512 enqueued before start at a bound of 64, reject.
+    eng_o = XMRServingEngine(tree, ServeConfig(
+        method="auto", admission=AdmissionConfig(queue_depth=SERVE["max_batch"],
+                                                 shed_policy="reject"), **SERVE))
+    eng_o.warmup_buckets(tree.d, SERVE["max_batch"])
+    twice = queries.slice_rows(np.concatenate([np.arange(n), np.arange(n)]))
+    mb = MicroBatcher(eng_o, policy, warmup_on_start=False)
+    zero_counts(mk, qk)
+    res, _ = serve_through_batcher(mb, twice)
+    got = counts(mk, qk)
+    expect("overload", got, grouped=depth)
+    ok = [r for r in res if r.ok]
+    shed = [r for r in res if r.status == "overloaded" and r.http_status == 429]
+    summ = mb.metrics.summary()
+    if ([r.qid for r in ok] != list(range(SERVE["max_batch"])) or len(shed) != 2 * n - len(ok)
+            or summ["shed"] != len(shed)):
+        raise AssertionError(f"overload: {len(ok)} ok, {len(shed)} overloaded, summary shed "
+                             f"{summ['shed']}; want 64, 448, 448")
+    held_bitwise(ok, s_x, l_x, "server overload")
+    log(f"  overload (queue_depth 64, reject, {2 * n} enqueued before start): {len(ok)} ok "
+        f"bitwise, {len(shed)} overloaded (HTTP 429), shed {summ['shed']}, shed rate "
+        f"{summ['shed_rate']:.4f}; {got['grouped']} grouped launches  [{gpu}]")
+
+    # 3. SLO ladder: a burst of 256 at a target of about 2 batches.
+    target = 2.0 * cost0
+    eng_s = XMRServingEngine(tree, ServeConfig(method="auto", slo=SLOConfig(target_p99_ms=target),
+                                               **SERVE))
+    ladder = [t.beam for t in eng_s.tiers]
+    eng_s.warmup_buckets(tree.d, SERVE["max_batch"])  # every (bucket, tier)
+    probe = eng_s.measure_batch_seconds
+
+    def probe_then_zero(*args, **kwargs):
+        """start()'s calibration probe; the counts restart after each."""
+        out = probe(*args, **kwargs)
+        zero_counts(mk, qk)
+        return out
+
+    eng_s.measure_batch_seconds = probe_then_zero
+    mb = MicroBatcher(eng_s, policy, warmup_on_start=False)
+    res, _ = serve_through_batcher(mb, queries)
+    got = counts(mk, qk)
+    batches = len(mb.metrics.batch_sizes)
+    expect("SLO ladder", got, grouped=depth * batches)
+    summ, tq = mb.metrics.summary(), dict(mb.metrics.tier_queries)
+    if summ["shed"] or not any(t > 0 for t in tq) or sum(tq.values()) != n:
+        raise AssertionError(f"SLO ladder: shed {summ['shed']}, tier queries {tq}")
+    plain = {}
+    for k, beam in enumerate(ladder):
+        e = XMRServingEngine(tree, ServeConfig(method="auto", **dict(SERVE, beam=beam)))
+        plain[k] = e.serve_batch(queries)
+    for r in res:
+        if r.beam_tier not in plain:
+            raise AssertionError(f"SLO ladder: qid {r.qid} at tier {r.beam_tier}")
+        held_bitwise([r], *plain[r.beam_tier], f"server SLO tier {r.beam_tier}")
+    recall = {ladder[k]: recall_at_k(plain[0][1], plain[k][1]) for k in plain if k}
+    slo_launches = got["grouped"]
+    log(f"  SLO ladder (target_p99_ms {target:.5f} = 2 x tier 0's batch): beams {ladder}, "
+        f"calibrated cost_ms {[round(c, 5) for c in mb.tier_policy.cost_ms]}; burst of {n}: "
+        f"queries by tier {tq}, {server_readings(mb.metrics)}; every result bitwise a no-SLO "
+        f"engine at its tier's beam; {slo_launches} grouped launches; recall@10 against tier 0 "
+        f"by beam {recall}  [{gpu}]")
+
+    # 4. int8 tier.
+    eng_q = XMRServingEngine(tree, ServeConfig(method="auto", quant=QuantConfig(tier="int8"),
+                                               **SERVE))
+    eng_q.warmup_buckets(tree.d, SERVE["max_batch"])
+    s_q, l_q = eng_q.serve_batch(queries)
+    mb = MicroBatcher(eng_q, policy, warmup_on_start=False)
+    zero_counts(mk, qk)
+    res, wall = serve_through_batcher(mb, queries)
+    got = counts(mk, qk)
+    expect("int8 tier", got, grouped_q=depth * len(mb.metrics.batch_sizes))
+    held_bitwise(res, s_q, l_q, "server int8 tier")
+    log(f"  int8 tier, {n} enqueued before start: {server_readings(mb.metrics)}; wall "
+        f"{1e3 * wall:.3f} ms from start to the last result; {got['grouped_q']} grouped_q "
+        f"launches, none of another kernel; every result bitwise serve_batch's  [{gpu}]")
+    return exact_launches + depth + slo_launches, got["grouped_q"]
+
+
 def train(torch, mk, gpu: str, random_levels: list) -> int:
-    """Phase 8: the training path at eurlex-4k's width (d, L, n_test of
+    """Phase 9: the training path at eurlex-4k's width (d, L, n_test of
     ``PAPER_SHAPES``; n_train 4 x n_test, the quickstart's ratio), trained
     on the card, then its test split served in batch through
     ``method="auto"`` (the grouped kernel) and held against ``mscm_dense``
@@ -1250,14 +1491,14 @@ def main() -> int:
 
     t_all = time.perf_counter()
     gpu = gpu_line()
-    log("phase device")
+    log(f"phase device (at {time.perf_counter() - t_all:.1f} s)")
     log(gpu)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     log(f"  {torch.cuda.get_device_name(0)}, torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}; TF32 off for matmul and cuDNN (true f32 oracle)")
 
-    log("phase build")
+    log(f"phase build (at {time.perf_counter() - t_all:.1f} s)")
     t0 = time.perf_counter()
     build.build_libraries(list(build.SIGNATURES))
     for name in build.SIGNATURES:
@@ -1267,7 +1508,7 @@ def main() -> int:
         log(f"  {name}: {'; '.join(report) or 'already built'}")
     log(f"  built in {time.perf_counter() - t0:.2f} s")
 
-    log("phase kernels")
+    log(f"phase kernels (at {time.perf_counter() - t_all:.1f} s)")
     grouped = kernel_check(torch, mk, build)
     fused, pregather = block_kernel_check(torch, mk, ops, build)
     grouped_q = quant_kernel_check(torch, mk, qk, quantize_chunks)
@@ -1278,17 +1519,20 @@ def main() -> int:
     # The kernels phase leaves GBs of inputs in PyTorch's caching allocator;
     # the paths below start from an empty cache, as a server process would.
     torch.cuda.empty_cache()
-    log("phase small")
+    log(f"phase small (at {time.perf_counter() - t_all:.1f} s)")
     small_check(torch)
-    log("phase path")
+    log(f"phase path (at {time.perf_counter() - t_all:.1f} s)")
     grouped["launches"], tree, queries, random_levels = path(torch, mk, gpu)
-    log("phase quant")
+    log(f"phase quant (at {time.perf_counter() - t_all:.1f} s)")
     grouped_q["launches"] = quant(torch, mk, qk, gpu, tree, queries)
-    log("phase online")
+    log(f"phase online (at {time.perf_counter() - t_all:.1f} s)")
     pregather["launches"], fused["launches"] = online(torch, mk, gpu, tree, queries)
+    log(f"phase server (at {time.perf_counter() - t_all:.1f} s)")
+    grouped["server_launches"], grouped_q["server_launches"] = server(
+        torch, mk, qk, gpu, tree, queries)
     del tree, queries
     torch.cuda.empty_cache()
-    log("phase train")
+    log(f"phase train (at {time.perf_counter() - t_all:.1f} s)")
     grouped["train_launches"] = train(torch, mk, gpu, random_levels)
     log(f"done in {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": [grouped, fused, pregather, grouped_q]}))

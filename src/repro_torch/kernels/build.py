@@ -8,6 +8,12 @@ shared headers (``csrc/*.cuh``) and the flags (so an edited source or header
 is rebuilt), and loaded with ``ctypes``. Nothing
 here runs at import time: the CPU tests import every module of the port on
 machines without ``nvcc``.
+
+Building and loading hold one lock, so two threads of a process (a
+batcher's worker and a caller) that first reach a kernel together run one
+``nvcc``; ``nvcc`` writes to a temporary file named by process and thread,
+renamed into place once complete, so that processes sharing ``build/``
+never write one file either.
 """
 
 from __future__ import annotations
@@ -17,6 +23,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 from typing import Dict, Sequence, Tuple
 
@@ -56,6 +63,9 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
 _LIBS: Dict[str, ctypes.CDLL] = {}
 #: ptxas report (registers, shared memory, spills) of each build, by name.
 BUILD_LOGS: Dict[str, str] = {}
+#: Held while building or loading: guards ``_LIBS``, ``BUILD_LOGS`` and the
+#: build directory against the other threads of this process.
+_LOCK = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -76,9 +86,20 @@ def _target(name: str) -> Tuple[Path, Path]:
     return src, BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 
+def _tmp_path(lib: Path) -> Path:
+    """Where ``nvcc`` writes ``lib`` before the rename: named by process and
+    thread, so that no two builds ever write one file."""
+    return lib.with_name(f"{lib.name}.{os.getpid()}.{threading.get_ident()}.tmp")
+
+
 def build_libraries(names: Sequence[str]) -> Dict[str, Path]:
     """Compile every named source that has no up-to-date library, with one
     ``nvcc`` per source, all started together. Returns the library paths."""
+    with _LOCK:
+        return _build(names)
+
+
+def _build(names: Sequence[str]) -> Dict[str, Path]:
     targets = {n: _target(n) for n in names}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
@@ -87,7 +108,7 @@ def build_libraries(names: Sequence[str]) -> Dict[str, Path]:
         if lib.exists():
             continue
         nvcc = nvcc or _nvcc()
-        tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+        tmp = _tmp_path(lib)
         procs[name] = (tmp, subprocess.Popen(
             [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
@@ -108,12 +129,15 @@ def build_libraries(names: Sequence[str]) -> Dict[str, Path]:
 def load_library(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, built on first use."""
     lib = _LIBS.get(name)
-    if lib is None:
-        path = build_libraries([name])[name]
-        lib = ctypes.CDLL(str(path))
-        for fn_name, argtypes in SIGNATURES[name].items():
-            fn = getattr(lib, fn_name)
-            fn.argtypes = list(argtypes)
-            fn.restype = ctypes.c_int
-        _LIBS[name] = lib
+    if lib is not None:
+        return lib
+    with _LOCK:
+        lib = _LIBS.get(name)  # another thread may have loaded it meanwhile
+        if lib is None:
+            lib = ctypes.CDLL(str(_build([name])[name]))
+            for fn_name, argtypes in SIGNATURES[name].items():
+                fn = getattr(lib, fn_name)
+                fn.argtypes = list(argtypes)
+                fn.restype = ctypes.c_int
+            _LIBS[name] = lib
     return lib

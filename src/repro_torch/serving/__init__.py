@@ -1,9 +1,78 @@
-"""Serving tier of the port: the engine core (batch and online settings)
-and the quantized storage tiers' configuration."""
+"""Serving tier of the port: engine, micro-batcher, admission, SLO beam
+tiers, metrics and the v1 wire types (counterpart of ``repro.serving``).
 
-from repro_torch.serving.config import QUANT_TIERS, QuantConfig, ServeConfig
+``__all__`` is the reference's Public API v1 surface but for
+``PartitionConfig``, ``FleetConfig`` and ``ServingGateway``, which come
+with the partitioned index and the fleet (ROADMAP.md queue 1 items 10-11).
+"""
+
+from repro_torch.serving.admission import (
+    AdmissionController,
+    AdmissionPolicy,
+    DeadlineExceeded,
+    Overloaded,
+    ServingError,
+    WorkerUnavailable,
+)
+from repro_torch.serving.api import (
+    HTTP_STATUS,
+    WIRE_VERSION,
+    Query,
+    QueryResult,
+    WireError,
+    status_for_exception,
+)
+from repro_torch.serving.batcher import (
+    BatchPolicy,
+    MicroBatcher,
+    RequestQueue,
+    StreamResult,
+)
+from repro_torch.serving.config import (
+    QUANT_TIERS,
+    AdmissionConfig,
+    QuantConfig,
+    ServeConfig,
+    SLOConfig,
+)
 from repro_torch.serving.engine import XMRServingEngine, resolve_method
-from repro_torch.serving.metrics import LatencyStats
+from repro_torch.serving.metrics import LatencyStats, ServerMetrics
+from repro_torch.serving.slo import BeamTier, BeamTierPolicy, resolve_tiers
 
-__all__ = ["LatencyStats", "QUANT_TIERS", "QuantConfig", "ServeConfig", "XMRServingEngine",
-           "resolve_method"]
+__all__ = [
+    # configuration
+    "AdmissionConfig",
+    "QUANT_TIERS",
+    "QuantConfig",
+    "ServeConfig",
+    "SLOConfig",
+    # adaptive beam tiers
+    "BeamTier",
+    "BeamTierPolicy",
+    "resolve_tiers",
+    # engine + front end
+    "BatchPolicy",
+    "MicroBatcher",
+    "XMRServingEngine",
+    "resolve_method",
+    # request/response currency + wire schema
+    "HTTP_STATUS",
+    "Query",
+    "QueryResult",
+    "WIRE_VERSION",
+    "WireError",
+    "status_for_exception",
+    # typed errors
+    "DeadlineExceeded",
+    "Overloaded",
+    "ServingError",
+    "WorkerUnavailable",
+    # admission + metrics
+    "AdmissionController",
+    "AdmissionPolicy",
+    "LatencyStats",
+    "ServerMetrics",
+    # legacy aliases
+    "RequestQueue",
+    "StreamResult",
+]

@@ -1,28 +1,46 @@
-"""Serving configuration: the inference knobs of the reference's
-``ServeConfig`` and its ``quant`` group (:class:`QuantConfig`), with the
-same names and defaults, so one configuration drives both packages.
+"""Serving configuration: the reference's ``ServeConfig`` with its inference
+knobs and its ``admission``, ``quant`` and ``slo`` groups, with the same
+names, defaults and validation, so one configuration drives both packages.
 
-The reference's other nested groups (admission, partition, fleet, slo) and
-multi-device dispatch are not ported yet: asking for any of them raises
-``NotImplementedError`` naming the ROADMAP.md item that ports it.
+* :class:`AdmissionConfig` — the overload policy the
+  :class:`~repro_torch.serving.batcher.MicroBatcher` applies at the queue;
+* :class:`QuantConfig` — the compressed-weight storage tier
+  (:mod:`repro_torch.quant`);
+* :class:`SLOConfig` — latency-SLO adaptive inference: a ladder of degraded
+  beam tiers the batcher may pick per batch when the queue backs up
+  (:mod:`repro_torch.serving.slo`). Off by default.
+
+The pre-v1 flat kwargs (``queue_depth=``, ``target_p99_ms=``, ``tier=``, …)
+are routed into their group with a :class:`DeprecationWarning`, and the
+read side keeps flat properties, as in the reference.
+
+The reference's ``partition`` and ``fleet`` groups and multi-device dispatch
+are not ported yet: asking for any of them raises ``NotImplementedError``
+naming the ROADMAP.md item that ports it.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import warnings
-from typing import Any
+from typing import Any, Optional, Tuple, Union
 
 #: Options of the reference's config this port does not run yet:
 #: name -> (the value that keeps it off, ROADMAP.md item).
 UNPORTED_OPTIONS = {
-    "admission": (None, "queue 1 item 9 (serving core: batcher, admission)"),
-    "slo": (None, "queue 1 item 9 (serving core: SLO beam tiers)"),
-    "target_p99_ms": (None, "queue 1 item 9 (serving core: SLO beam tiers)"),
     "partition": (None, "queue 1 item 10 (partitioned index)"),
     "partitions": (1, "queue 1 item 10 (partitioned index)"),
     "fleet": (None, "queue 1 item 11 (fleet and gateway)"),
 }
+
+
+@dataclasses.dataclass
+class AdmissionConfig:
+    """Overload policy consumed by the :class:`MicroBatcher` front end."""
+
+    queue_depth: Union[int, str, None] = None  # bound | "auto" | unbounded
+    shed_policy: str = "reject"                # "reject" | "shed-oldest"
+    deadline_ms: Optional[float] = None        # default per-request deadline
 
 
 #: Valid :attr:`QuantConfig.tier` values.
@@ -50,13 +68,55 @@ class QuantConfig:
             raise ValueError(f"prune_keep must be in (0, 1]; got {self.prune_keep}")
 
 
-_QUANT_FIELDS = frozenset(f.name for f in dataclasses.fields(QuantConfig))
+@dataclasses.dataclass
+class SLOConfig:
+    """Latency-SLO adaptive inference (:mod:`repro_torch.serving.slo`).
+
+    ``target_p99_ms=None`` (default) disables tiering: the engine has one
+    tier, the configured ``(beam, qt)``, and serving is bitwise that of a
+    config without this group. With a target, the batcher picks a beam tier
+    per batch from the queue depth and the batch's remaining budget; tier 0
+    is always the full beam. ``tiers`` pins the degraded ladder as ``(beam,
+    qt)`` pairs with strictly descending beams; empty derives ``beam // 2,
+    beam // 4, …`` down to ``min_beam`` at the configured ``qt``. Every tier
+    must keep the full beam's result width (checked at engine build).
+    """
+
+    target_p99_ms: Optional[float] = None  # None = adaptive tiering off
+    tiers: Tuple[Tuple[int, int], ...] = ()  # explicit (beam, qt) ladder
+    min_beam: int = 1                      # auto-ladder floor
+
+    def __post_init__(self) -> None:
+        if self.target_p99_ms is not None and self.target_p99_ms <= 0:
+            raise ValueError(f"target_p99_ms must be positive; got {self.target_p99_ms}")
+        if self.min_beam < 1:
+            raise ValueError(f"min_beam must be >= 1; got {self.min_beam}")
+        prev = None
+        for pair in self.tiers:
+            if len(tuple(pair)) != 2:
+                raise ValueError(f"tiers entries are (beam, qt) pairs; got {pair!r}")
+            b, q = int(pair[0]), int(pair[1])
+            if b < 1 or q < 1:
+                raise ValueError(f"tier (beam={b}, qt={q}) must be positive")
+            if prev is not None and b >= prev:
+                raise ValueError(
+                    f"tier beams must be strictly descending; got "
+                    f"{[int(p[0]) for p in self.tiers]}"
+                )
+            prev = b
+
+
+#: Flat kwarg name -> the group it belongs to.
+_GROUP_OF = {
+    **{f.name: "admission" for f in dataclasses.fields(AdmissionConfig)},
+    **{f.name: "quant" for f in dataclasses.fields(QuantConfig)},
+    **{f.name: "slo" for f in dataclasses.fields(SLOConfig)},
+}
 
 
 @dataclasses.dataclass(init=False)
 class ServeConfig:
-    """Engine configuration (the reference's top-level inference knobs and
-    its ``quant`` group)."""
+    """Engine and serving-tier configuration (see the module docstring)."""
 
     beam: int = 10
     topk: int = 10
@@ -66,7 +126,9 @@ class ServeConfig:
     score_mode: str = "prod"
     qt: int = 8                   # grouped-kernel query-tile height
     shards: int = 1               # data-parallel replicas: only 1 is ported
+    admission: AdmissionConfig = dataclasses.field(default_factory=AdmissionConfig)
     quant: QuantConfig = dataclasses.field(default_factory=QuantConfig)
+    slo: SLOConfig = dataclasses.field(default_factory=SLOConfig)
 
     def __init__(
         self,
@@ -78,7 +140,9 @@ class ServeConfig:
         score_mode: str = "prod",
         qt: int = 8,
         shards: int = 1,
+        admission: AdmissionConfig | None = None,
         quant: QuantConfig | None = None,
+        slo: SLOConfig | None = None,
         **flat: Any,
     ) -> None:
         self.beam = beam
@@ -89,26 +153,22 @@ class ServeConfig:
         self.score_mode = score_mode
         self.qt = qt
         self.shards = shards
+        self.admission = admission if admission is not None else AdmissionConfig()
         self.quant = quant if quant is not None else QuantConfig()
-        if not isinstance(self.quant, QuantConfig):
-            raise TypeError(f"quant must be a QuantConfig; got {type(self.quant).__name__}")
+        self.slo = slo if slo is not None else SLOConfig()
+        for name, cls in (("admission", AdmissionConfig), ("quant", QuantConfig),
+                          ("slo", SLOConfig)):
+            if not isinstance(getattr(self, name), cls):
+                raise TypeError(f"{name} must be a {cls.__name__}; "
+                                f"got {type(getattr(self, name)).__name__}")
         if shards != 1:
             raise NotImplementedError(
                 f"shards={shards}: multi-device dispatch is not ported yet "
-                "(ROADMAP.md queue 1 items 9-10)"
+                "(ROADMAP.md queue 1 item 10)"
             )
-        qnt = {k: v for k, v in flat.items() if k in _QUANT_FIELDS}
-        if qnt:
-            warnings.warn(
-                f"flat ServeConfig kwarg(s) {sorted(qnt)} are deprecated; pass "
-                "quant=QuantConfig(...) instead",
-                DeprecationWarning,
-                stacklevel=2,
-            )
-            # replace(), not setattr: never mutate a caller-shared group.
-            self.quant = dataclasses.replace(self.quant, **qnt)
+        grouped = {k: v for k, v in flat.items() if k in _GROUP_OF}
         for name, value in flat.items():
-            if name in qnt:
+            if name in grouped:
                 continue
             if name not in UNPORTED_OPTIONS:
                 raise TypeError(f"ServeConfig got an unexpected keyword argument {name!r}")
@@ -117,8 +177,33 @@ class ServeConfig:
                 raise NotImplementedError(
                     f"ServeConfig({name}={value!r}) is not ported yet: ROADMAP.md {item}"
                 )
+        if grouped:
+            warnings.warn(
+                f"flat ServeConfig kwarg(s) {sorted(grouped)} are deprecated; pass "
+                "admission=AdmissionConfig(...) / quant=QuantConfig(...) / "
+                "slo=SLOConfig(...) instead",
+                DeprecationWarning,
+                stacklevel=2,
+            )
+            # replace(), not setattr: never mutate a caller-shared group.
+            for group in ("admission", "quant", "slo"):
+                kw = {k: v for k, v in grouped.items() if _GROUP_OF[k] == group}
+                if kw:
+                    setattr(self, group, dataclasses.replace(getattr(self, group), **kw))
 
     # -- flat read-side forwarding (the reference's pre-v1 call sites) -------
+    @property
+    def queue_depth(self) -> Union[int, str, None]:
+        return self.admission.queue_depth
+
+    @property
+    def shed_policy(self) -> str:
+        return self.admission.shed_policy
+
+    @property
+    def deadline_ms(self) -> Optional[float]:
+        return self.admission.deadline_ms
+
     @property
     def tier(self) -> str:
         return self.quant.tier
@@ -126,3 +211,7 @@ class ServeConfig:
     @property
     def prune_keep(self) -> float:
         return self.quant.prune_keep
+
+    @property
+    def target_p99_ms(self) -> Optional[float]:
+        return self.slo.target_p99_ms

@@ -16,6 +16,12 @@ A quantized tier (``ServeConfig(quant=QuantConfig(tier=...))`` other than
 ``exact``) quantizes the tree once, on its device, when the engine is built,
 and serves it through ``method="mscm_pallas_grouped_q"``, as the reference
 does.
+
+With ``ServeConfig(slo=SLOConfig(target_p99_ms=...))`` the engine carries a
+ladder of beam tiers (:mod:`repro_torch.serving.slo`): ``_run(xi, xv,
+tier)`` serves at that tier's ``(beam, qt)``, tier 0 exactly as an engine
+without the group. The async micro-batching front end over this engine is
+:mod:`repro_torch.serving.batcher`.
 """
 
 from __future__ import annotations
@@ -27,9 +33,11 @@ import numpy as np
 import torch
 
 from repro_torch.core.tree import XMRTree, check_method, resolve_device
+from repro_torch.index.planner import reference_topk_width
 from repro_torch.quant.storage import QuantizedTree, quantize_tree
 from repro_torch.serving.config import ServeConfig
 from repro_torch.serving.metrics import LatencyStats
+from repro_torch.serving.slo import BeamTier, resolve_tiers
 from repro_torch.sparse.csr import CSR, rows_to_ell
 
 __all__ = ["ServeConfig", "XMRServingEngine", "resolve_method"]
@@ -76,11 +84,26 @@ class XMRServingEngine:
                 "method='mscm_pallas_grouped_q' serves a quantized tree: set "
                 "ServeConfig(quant=QuantConfig(tier=...)) or pass a QuantizedTree"
             )
+        # The beam-tier ladder (tier 0 = the configured beam; one tier unless
+        # slo.target_p99_ms is set). A degraded tier must give the full
+        # beam's result width, or result shapes would change per batch.
+        self.tiers: Tuple[BeamTier, ...] = resolve_tiers(self.config)
+        if len(self.tiers) > 1:
+            c = self.config
+            full_w = reference_topk_width(tree.n_cols, tree.branching, c.beam, c.topk)
+            for t in self.tiers[1:]:
+                w = reference_topk_width(tree.n_cols, tree.branching, t.beam, c.topk)
+                if w != full_w:
+                    raise ValueError(
+                        f"beam tier {t.beam} yields top-k width {w} != full-beam width "
+                        f"{full_w}; widen the tier or raise slo min_beam"
+                    )
         self.tree = tree.to(self.device)
         if qc.tier != "exact":
             self.tree = quantize_tree(self.tree, tier=qc.tier, prune_keep=qc.prune_keep)
         self.label_perm = label_perm  # leaf position -> original label id
         self.stats = LatencyStats()
+        self.planner = None  # the partitioned index's planner (ROADMAP.md item 10)
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -112,12 +135,33 @@ class XMRServingEngine:
         """Power-of-two bucket for ``n`` queries."""
         return _bucket(n, self.config.max_batch)
 
-    def _run(self, xi: torch.Tensor, xv: torch.Tensor):
-        c = self.config
+    def bucket_key(self, n: int, tier: int = 0) -> Tuple[int, int]:
+        """The dispatch key ``(bucket, beam_tier)``: both coordinates are
+        bounded static sets, so ``warmup_buckets`` can enumerate every key."""
+        return (self.bucket_for(n), int(tier))
+
+    def _run(self, xi: torch.Tensor, xv: torch.Tensor, tier: int = 0):
+        c, t = self.config, self.tiers[tier]
         return self.tree.infer(
-            xi, xv, beam=c.beam, topk=c.topk, method=self.method,
-            score_mode=c.score_mode, qt=c.qt,
+            xi, xv, beam=t.beam, topk=c.topk, method=self.method,
+            score_mode=c.score_mode, qt=t.qt,
         )
+
+    def _run_to_host(self, xi: torch.Tensor, xv: torch.Tensor, count: int, tier: int = 0):
+        """Enqueue one bucket at ``tier`` and the copies of its first
+        ``count`` rows to the host. Returns ``(scores, labels, done)``:
+        host tensors (pinned on a GPU) that must not be read before ``done``
+        (a CUDA event recorded after the copies; None on the CPU, where
+        everything has already finished) completes: a non-blocking copy
+        read early gives stale memory and no error."""
+        s, l = self._run(xi, xv, tier=tier)
+        s = s[:count].to("cpu", non_blocking=True)
+        l = l[:count].to("cpu", non_blocking=True)
+        done = None
+        if self.device.type == "cuda":
+            done = torch.cuda.Event()
+            done.record(torch.cuda.current_stream(self.device))
+        return s, l, done
 
     def _empty_batch(self, bucket: int, d: int) -> Tuple[torch.Tensor, torch.Tensor]:
         w = self.config.ell_width
@@ -126,19 +170,26 @@ class XMRServingEngine:
         return xi, xv
 
     # -- serving modes --------------------------------------------------
-    def warmup(self, d: int, batch_sizes: Sequence[int] = (1,)) -> None:
+    def warmup(self, d: int, batch_sizes: Sequence[int] = (1,), tier: int = 0) -> None:
+        """Run each bucket once at ``tier``, so that the kernels are built
+        and loaded, and the plans and the allocator cached, before live
+        traffic arrives."""
         for b in batch_sizes:
-            self._run(*self._empty_batch(self.bucket_for(b), d))
+            self._run(*self._empty_batch(self.bucket_for(b), d), tier=tier)
             self._sync()
 
-    def warmup_buckets(self, d: int, max_batch: int) -> None:
-        """Warm every power-of-two bucket up to ``bucket_for(max_batch)``."""
+    def warmup_buckets(self, d: int, max_batch: int,
+                       tiers: Optional[Sequence[int]] = None) -> None:
+        """Warm every power-of-two bucket up to ``bucket_for(max_batch)`` at
+        every tier (or at ``tiers``): each ``bucket_key`` a batcher capped
+        at ``max_batch`` can dispatch."""
         sizes, b = [], 1
         target = self.bucket_for(max_batch)
         while b <= target:
             sizes.append(b)
             b *= 2
-        self.warmup(d, sizes)
+        for tier in tiers if tiers is not None else range(len(self.tiers)):
+            self.warmup(d, sizes, tier=tier)
 
     def serve_batch(self, queries: CSR) -> Tuple[np.ndarray, np.ndarray]:
         """Batch setting: all queries, in ``max_batch`` chunks, double
@@ -160,18 +211,12 @@ class XMRServingEngine:
             count = min(self.config.max_batch, n - i)
             bucket = self.bucket_for(count)
             xi, xv = self.marshal_rows(queries, np.arange(i, i + count), bucket)
-            s, l = self._run(xi, xv)  # enqueued, not waited for
-            # Copy back right behind this chunk's kernels (to pinned memory
-            # when on a GPU), so waiting for it never waits for the next one.
-            s = s[:count].to("cpu", non_blocking=True)
-            l = l[:count].to("cpu", non_blocking=True)
-            done = None
-            if self.device.type == "cuda":
-                done = torch.cuda.Event()
-                done.record()
+            # Enqueued with its copy back, not waited for: waiting for this
+            # chunk never waits for the next one.
+            nxt = self._run_to_host(xi, xv, count)
             if pending is not None:
                 finalize(pending)
-            pending = (s, l, done)
+            pending = nxt
             i += count
         if pending is not None:
             finalize(pending)
@@ -203,16 +248,32 @@ class XMRServingEngine:
             return leaves
         return self.label_perm[leaves]
 
-    def measure_batch_seconds(self, batch: int, iters: int = 3) -> float:
-        """Median wall seconds for one ``batch``-sized dispatch (warmed),
-        with empty queries that traverse the same levels as real ones."""
+    def partition_hit_counts(self, leaves: np.ndarray) -> Optional[np.ndarray]:
+        """Per-partition result share of a batch; None: unpartitioned (the
+        partitioned index is ROADMAP.md queue 1 item 10)."""
+        return None
+
+    def beam_cache_stats(self) -> Optional[dict]:
+        """Hot-beam cache accounting; None: unpartitioned."""
+        return None
+
+    def last_degraded(self) -> Optional[dict]:
+        """Degraded-batch info of the last dispatch; None: unpartitioned,
+        every dispatch serves the whole tree."""
+        return None
+
+    def measure_batch_seconds(self, batch: int, iters: int = 3, tier: int = 0) -> float:
+        """Median wall seconds for one ``batch``-sized dispatch at ``tier``
+        (warmed), with empty queries that traverse the same levels as real
+        ones: the drain-rate probe behind ``queue_depth="auto"`` and the
+        cost model of :class:`~repro_torch.serving.slo.BeamTierPolicy`."""
         xi, xv = self._empty_batch(self.bucket_for(batch), self.tree.d)
-        self._run(xi, xv)
+        self._run(xi, xv, tier=tier)
         self._sync()
         times = []
         for _ in range(iters):
             t0 = time.perf_counter()
-            self._run(xi, xv)
+            self._run(xi, xv, tier=tier)
             self._sync()
             times.append(time.perf_counter() - t0)
         return float(np.median(times))

@@ -4,6 +4,7 @@ from repro_torch.sparse.csr import (
     random_sparse_csc,
     random_sparse_csr,
     rows_to_ell,
+    rows_to_ell_loop,
 )
 
 __all__ = [
@@ -12,4 +13,5 @@ __all__ = [
     "random_sparse_csr",
     "random_sparse_csc",
     "rows_to_ell",
+    "rows_to_ell_loop",
 ]

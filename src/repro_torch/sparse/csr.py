@@ -31,6 +31,20 @@ class CSR:
     shape: Tuple[int, int]
 
     @classmethod
+    def from_dense(cls, x: np.ndarray) -> "CSR":
+        n, d = x.shape
+        indptr = np.zeros(n + 1, dtype=np.int64)
+        idx_list, val_list = [], []
+        for i in range(n):
+            (nz,) = np.nonzero(x[i])
+            idx_list.append(nz.astype(np.int32))
+            val_list.append(x[i, nz].astype(np.float32))
+            indptr[i + 1] = indptr[i] + len(nz)
+        indices = np.concatenate(idx_list) if idx_list else np.zeros(0, np.int32)
+        data = np.concatenate(val_list) if val_list else np.zeros(0, np.float32)
+        return cls(indptr, indices, data, (n, d))
+
+    @classmethod
     def from_rows(cls, rows_idx, rows_val, shape) -> "CSR":
         """Build from per-row (sorted) index/value arrays."""
         n = len(rows_idx)
@@ -45,6 +59,13 @@ class CSR:
         s, e = self.indptr[i], self.indptr[i + 1]
         return self.indices[s:e], self.data[s:e]
 
+    def row_nnz(self) -> np.ndarray:
+        return np.diff(self.indptr)
+
+    @property
+    def nnz(self) -> int:
+        return int(self.indptr[-1])
+
     def to_dense(self) -> np.ndarray:
         n, d = self.shape
         out = np.zeros((n, d), dtype=np.float32)
@@ -58,6 +79,11 @@ class CSR:
         d, val [n, Q] f32 zero-padded). An explicit ``width`` truncates longer
         rows; ``None`` fits the longest row."""
         return rows_to_ell(self, np.arange(self.shape[0]), width)
+
+    def slice_rows(self, sel: np.ndarray) -> "CSR":
+        rows_i = [self.row(i)[0] for i in sel]
+        rows_v = [self.row(i)[1] for i in sel]
+        return CSR.from_rows(rows_i, rows_v, (len(sel), self.shape[1]))
 
 
 def rows_to_ell(
@@ -83,6 +109,30 @@ def rows_to_ell(
     src = np.where(valid, starts[:, None] + offs[None, :], 0)
     idx = np.where(valid, csr.indices[src], d).astype(np.int32)
     val = np.where(valid, csr.data[src], 0.0).astype(np.float32)
+    return idx, val
+
+
+def rows_to_ell_loop(
+    csr: CSR,
+    rows: np.ndarray,
+    width: int | None = None,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Per-row reference implementation of :func:`rows_to_ell` (test oracle)."""
+    rows = np.asarray(rows, dtype=np.int64)
+    n, d = len(rows), csr.shape[1]
+    if width is not None:
+        q = int(width)
+    else:
+        nnz = csr.indptr[rows + 1] - csr.indptr[rows]
+        q = int(nnz.max(initial=0))
+    q = max(q, 1)
+    idx = np.full((n, q), d, dtype=np.int32)
+    val = np.zeros((n, q), dtype=np.float32)
+    for i, r in enumerate(rows):
+        ri, rv = csr.row(int(r))
+        k = min(len(ri), q)
+        idx[i, :k] = ri[:k]
+        val[i, :k] = rv[:k]
     return idx, val
 
 

@@ -354,3 +354,127 @@ def test_train_level_on_card_matches_cpu_and_ignores_tf32(cuda_device):
         assert torch.get_float32_matmul_precision() == "high"
     finally:
         torch.set_float32_matmul_precision(before)
+
+
+def _serving_tree(seed=7, d=200, B=8):
+    """``tests/test_serving.py``'s tree (levels 8, 64, 512) on the card."""
+    rng = np.random.default_rng(seed)
+    ws = [random_sparse_csc(d, L, 10, rng, sibling_groups=B) for L in (8, 64, 512)]
+    return XMRTree.from_weight_matrices(ws, B), random_sparse_csr(45, d, 15, rng)
+
+
+@pytest.mark.cuda
+def test_microbatcher_on_card_bitwise_per_query(cuda_device):
+    """The batcher's worker thread launches the grouped kernel on the
+    card; its results are bitwise ``serve_online``'s on the card, and it
+    launched depth x batches grouped kernels, nothing else."""
+    from repro_torch.serving import BatchPolicy, MicroBatcher, Query, ServeConfig
+    from repro_torch.serving import XMRServingEngine
+
+    tree, queries = _serving_tree()
+    eng = XMRServingEngine(tree, ServeConfig(ell_width=32, max_batch=64))
+    assert eng.method == "mscm_pallas_grouped"
+    ref_s, ref_l = eng.serve_online(queries)
+    eng.warmup_buckets(tree.d, 16)  # what start() runs; counted apart from traffic
+    mb = MicroBatcher(eng, BatchPolicy(max_batch=16, max_wait_ms=5.0), warmup_on_start=False)
+    futs = [mb.submit(Query(*queries.row(i), qid=i)) for i in range(45)]
+    before = (tk.GROUPED_LAUNCHES, tk.FUSED_LAUNCHES, tk.PREGATHER_LAUNCHES)
+    try:
+        mb.start()
+        res = [f.result(timeout=60) for f in futs]
+    finally:
+        mb.stop()
+    assert all(r.ok for r in res)
+    np.testing.assert_array_equal(np.stack([r.scores for r in res]).view(np.uint32),
+                                  ref_s.view(np.uint32))
+    np.testing.assert_array_equal(np.stack([r.ids for r in res]), ref_l)
+    after = (tk.GROUPED_LAUNCHES, tk.FUSED_LAUNCHES, tk.PREGATHER_LAUNCHES)
+    assert [a - b for a, b in zip(after, before)] == [tree.depth * 3, 0, 0]
+
+
+@pytest.mark.cuda
+def test_device_ready_is_an_event_query(cuda_device):
+    """A dispatch records a CUDA event behind its copies; ``_device_ready``
+    queries it (True or False, never an exception); the results are read
+    only after it, and equal the bucket's own results."""
+    from concurrent.futures import Future
+
+    from repro_torch.serving import BatchPolicy, MicroBatcher, ServeConfig, XMRServingEngine
+    from repro_torch.serving.batcher import TRIGGER_SIZE, _device_ready, _Request
+
+    tree, queries = _serving_tree()
+    eng = XMRServingEngine(tree, ServeConfig(ell_width=32, max_batch=64))
+    mb = MicroBatcher(eng, BatchPolicy(max_batch=16), warmup_on_start=False)
+    reqs = [_Request(*queries.row(i), future=Future(), t_enqueue=0.0) for i in range(13)]
+    torch.cuda._sleep(1 << 26)  # keep the stream busy past the dispatch
+    inflight = mb._dispatch(reqs, TRIGGER_SIZE)
+    assert isinstance(inflight.done, torch.cuda.Event)
+    assert inflight.scores.device.type == "cpu" and inflight.scores.is_pinned()
+    assert _device_ready(inflight) in (True, False)
+    mb._finalize(inflight)
+    assert _device_ready(inflight) is True
+    s, l = eng.serve_batch(queries.slice_rows(np.arange(13)))
+    np.testing.assert_array_equal(np.stack([r.future.result(0)[0] for r in reqs]), s)
+    np.testing.assert_array_equal(np.stack([r.future.result(0)[1] for r in reqs]), l)
+    mb.queue.close()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tier,beam", [(0, 10), (1, 5), (2, 2)])
+def test_tier_dispatch_on_card_bitwise_no_slo_engine(cuda_device, tier, beam):
+    """Each tier of the auto ladder (beam 1 would narrow this tree's
+    results to 8, so ``min_beam=2``) is bitwise a no-SLO engine at its
+    beam, on the card."""
+    from repro_torch.serving import ServeConfig, SLOConfig, XMRServingEngine
+
+    tree, queries = _serving_tree()
+    knobs = dict(topk=10, ell_width=32, max_batch=64)
+    slo = XMRServingEngine(tree, ServeConfig(
+        beam=10, slo=SLOConfig(target_p99_ms=50.0, min_beam=2), **knobs))
+    assert [(t.beam, t.qt) for t in slo.tiers] == [(10, 8), (5, 8), (2, 8)]
+    plain = XMRServingEngine(tree, ServeConfig(beam=beam, **knobs))
+    xi, xv = slo.marshal_rows(queries, np.arange(45), 64)
+    s_a, l_a = slo._run(xi, xv, tier=tier)
+    s_b, l_b = plain._run(xi, xv)
+    assert torch.equal(s_a.view(torch.int32), s_b.view(torch.int32))
+    assert torch.equal(l_a, l_b)
+
+
+@pytest.mark.cuda
+def test_build_lock_two_threads_load_a_cleared_library(cuda_device, tmp_path, monkeypatch):
+    """Two threads that first reach a kernel together run one ``nvcc`` and
+    get one library; no temporary file is left behind."""
+    import subprocess
+    import threading
+
+    from repro_torch.kernels import build
+
+    calls = []
+    real_popen = subprocess.Popen
+
+    def popen(*args, **kwargs):
+        calls.append(args[0])
+        return real_popen(*args, **kwargs)
+
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
+    monkeypatch.delitem(build._LIBS, "mscm_grouped", raising=False)
+    monkeypatch.setattr(build.subprocess, "Popen", popen)
+    go = threading.Barrier(2, timeout=60)
+    got, errors = [], []
+
+    def load():
+        try:
+            go.wait()
+            got.append(build.load_library("mscm_grouped"))
+        except Exception as exc:  # noqa: BLE001 — reported by the assertion below
+            errors.append(exc)
+
+    threads = [threading.Thread(target=load) for _ in range(2)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=600)
+    assert not any(th.is_alive() for th in threads) and not errors
+    assert len(got) == 2 and got[0] is got[1]
+    assert len(calls) == 1
+    assert [p.name for p in tmp_path.iterdir()] == [build._target("mscm_grouped")[1].name]

@@ -921,3 +921,34 @@ def test_cost_counters_equal():
     got = TM.chunk_vs_column_traversals(ch.R, w.col_nnz(), 32)
     assert got == JM.chunk_vs_column_traversals(ch.R, w.col_nnz(), 32)
     assert got[0] < got[1]
+
+
+def test_build_temporary_file_named_by_process_and_thread():
+    """Two threads (or processes) building one library never write one
+    temporary file: its name carries the pid and the thread id."""
+    import os
+    import threading
+    from pathlib import Path
+
+    from repro_torch.kernels import build
+
+    lib = Path("/nonexistent/libx-0123.so")
+    names = {}
+    together = threading.Barrier(2, timeout=30)  # both alive: distinct thread ids
+
+    def name():
+        names[threading.get_ident()] = build._tmp_path(lib)
+        together.wait()
+
+    threads = [threading.Thread(target=name) for _ in range(2)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=30)
+    assert not any(th.is_alive() for th in threads)
+    names[threading.get_ident()] = build._tmp_path(lib)
+    assert len(set(names.values())) == len(names) == 3
+    for ident, path in names.items():
+        assert path.parent == lib.parent
+        assert path.name == f"{lib.name}.{os.getpid()}.{ident}.tmp"
+    assert not build._LOCK.locked()

@@ -4,9 +4,12 @@ Both engines get the same ``ServeConfig`` knobs, weights and queries and
 serve them in the batch and online settings; results agree under the rule
 of ``test_torch_tree.py`` (scores within ``rtol=1e-5, atol=1e-6``, labels
 equal wherever the reference's score gap exceeds that). Options not ported
-yet raise ``NotImplementedError``; the quantized tiers are held against the
-reference in ``test_torch_quant.py``.
+yet raise ``NotImplementedError``; the config groups that are ported build
+as the reference's; the quantized tiers are held against the reference in
+``test_torch_quant.py``.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -125,13 +128,38 @@ def test_engine_needs_a_gpu_or_explicit_cpu(setup, monkeypatch):
         XMRServingEngine(tt, ServeConfig())
 
 
-@pytest.mark.parametrize("kwargs", [
-    dict(shards=2), dict(partitions=2), dict(fleet=object()), dict(target_p99_ms=50.0),
-    dict(admission=object()), dict(partition=object()), dict(slo=object()),
+@pytest.mark.parametrize("kwargs,item", [
+    (dict(shards=2), "item 10"), (dict(partitions=2), "item 10"),
+    (dict(fleet=object()), "item 11"), (dict(partition=object()), "item 10"),
 ])
-def test_unported_options_raise(kwargs):
-    with pytest.raises(NotImplementedError):
+def test_unported_options_raise(kwargs, item):
+    with pytest.raises(NotImplementedError, match=item):
         ServeConfig(**kwargs)
+
+
+@pytest.mark.parametrize("group,kwargs", [
+    ("slo", dict(target_p99_ms=50.0)),
+    ("admission", dict(queue_depth="auto", shed_policy="shed-oldest", deadline_ms=20.0)),
+    ("slo", dict(target_p99_ms=5.0, tiers=((6, 8), (3, 4)), min_beam=2)),
+])
+def test_ported_groups_match_reference(group, kwargs):
+    """The groups that once raised here build as the reference's: same
+    fields and defaults, nested and routed from flat kwargs alike."""
+    from repro.serving import config as jc
+    from repro_torch.serving import config as tc
+
+    name = {"admission": "AdmissionConfig", "slo": "SLOConfig"}[group]
+    tcls, jcls = getattr(tc, name), getattr(jc, name)
+    assert [(f.name, f.default) for f in dataclasses.fields(tcls)] == [
+        (f.name, f.default) for f in dataclasses.fields(jcls)]
+    nested = ServeConfig(**{group: tcls(**kwargs)})
+    with pytest.warns(DeprecationWarning):
+        flat = ServeConfig(**kwargs)
+    with pytest.warns(DeprecationWarning):
+        ref = JConfig(**kwargs)
+    want = dataclasses.asdict(getattr(ref, group))
+    assert dataclasses.asdict(getattr(nested, group)) == want
+    assert dataclasses.asdict(getattr(flat, group)) == want
 
 
 @pytest.mark.parametrize("method", ["mscm_pallas_grouped_q"])
@@ -144,9 +172,12 @@ def test_unported_methods_raise_at_engine_build(setup, method):
 
 
 def test_config_defaults_and_unknown_options():
-    c, j = ServeConfig(partitions=1, target_p99_ms=None), JConfig()
-    for k in ("beam", "topk", "method", "ell_width", "max_batch", "score_mode", "qt", "shards"):
+    c, j = ServeConfig(partitions=1, fleet=None), JConfig()
+    for k in ("beam", "topk", "method", "ell_width", "max_batch", "score_mode", "qt", "shards",
+              "queue_depth", "shed_policy", "deadline_ms", "target_p99_ms", "tier"):
         assert getattr(c, k) == getattr(j, k)
+    for group in ("admission", "quant", "slo"):
+        assert dataclasses.asdict(getattr(c, group)) == dataclasses.asdict(getattr(j, group))
     with pytest.raises(TypeError):
         ServeConfig(beem=3)
 
