@@ -67,7 +67,24 @@ Phases, in order; any failure raises and the script exits non-zero:
             result bitwise a no-SLO engine at its tier's beam, recall@10 of
             each tier; (4) the int8 tier through the batcher, bitwise
             ``serve_batch``, grouped_q launches only.
-9. train    the training path at eurlex-4k's width (d = 5,000, L = 3,956,
+9. partition the label-partitioned index on that search-1m tree at full width,
+            P = 4 (split level 1), through ``XMRServingEngine(tree,
+            ServeConfig(partition=PartitionConfig(...)))``: ``serve_batch`` of
+            the 256 queries in the ``level`` and ``pipelined`` modes, each
+            bitwise the unpartitioned engine with 1 + 3 x 4 grouped launches a
+            bucket; ``pipelined`` with ``beam_cache=256`` cold and hot
+            (bitwise, hit and miss counts); ``final`` (every merged score at
+            least the exact one, recall@10); the int8 tier (the router through
+            grouped, each partition through grouped_q, bitwise the f32 planner
+            on the dequantized parts, ``memory_bytes`` and ``shrink_ratio``);
+            ``partitions=2, shards=2`` through the ``MicroBatcher`` from 4
+            client threads on four device slots (the visible cards in turn,
+            ``cuda:0`` four times on one card), bitwise, with its ``summary()``
+            fields; then ms/query of the unpartitioned, level, pipelined and
+            pipelined-on-5-slots engines in turns, and profiles (device
+            activities, idle share) of one serve_batch of each of the first
+            three. Each build logs its seconds and peak device memory.
+10. train   the training path at eurlex-4k's width (d = 5,000, L = 3,956,
             n_test = 3,865 of ``PAPER_SHAPES``; n_train 15,460): a seeded
             ``synthetic_labeled_dataset``, PIFA + balanced-bisection
             clustering, ``train_xmr_model`` on the card (branching 8, 4
@@ -83,7 +100,8 @@ The line before last is a JSON object with one entry per kernel, whose
 ``launches`` count that kernel's path (grouped: path; grouped_q: the int8
 tier; pregather: search-1m online; fused: search-32k online; the grouped
 entry also counts the train phase's launches, and the grouped and grouped_q
-entries the server phase's, as ``server_launches``); the last is
+entries the server phase's, as ``server_launches``, and the partition
+phase's, as ``partition_launches``); the last is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -109,6 +127,8 @@ KERNEL_RTOL, KERNEL_ATOL = 1e-5, 1e-4
 BF16_TOL = 2e-2
 # The serving configuration of both settings (examples/serve_search.py).
 SERVE = dict(beam=10, topk=10, ell_width=256, max_batch=64)
+# Label partitions of the partition phase (benchmarks/bench_partitioned.py).
+PARTITIONS = 4
 ONLINE_QUERIES, PROFILED_QUERIES = 64, 16
 # The bound of every wait on a batcher's client thread or result.
 SERVER_TIMEOUT_S = 120
@@ -1376,8 +1396,189 @@ def server(torch, mk, qk, gpu: str, tree, queries) -> tuple:
     return exact_launches + depth + slo_launches, got["grouped_q"]
 
 
+def device_slots(torch, n: int) -> list:
+    """``n`` device slots over the visible cards, each card named in turn
+    (``cuda:0`` n times on a one-card machine)."""
+    cards = torch.cuda.device_count()
+    return [f"cuda:{i % cards}" for i in range(n)]
+
+
+def partition(torch, mk, qk, gpu: str, tree, queries) -> tuple:
+    """Phase 9: the label-partitioned index on search-1m at full width, P =
+    PARTITIONS (split level 1): ``serve_batch`` of the queries through
+    ``level`` and ``pipelined`` (bitwise the unpartitioned engine), the
+    pipelined mode with a hot-beam cache (bitwise, cold and hot), ``final``
+    (every score at least the exact one, recall@10), the int8 tier (bitwise
+    the f32 planner on the dequantized parts), ``partitions=2, shards=2``
+    through the ``MicroBatcher`` on four device slots (bitwise); launches
+    counted from 0 before each part; ms/query against the unpartitioned
+    engine in turns, with device activities and idle share. Returns the
+    grouped and grouped_q kernels' launches in the counted parts."""
+    import dataclasses
+
+    from repro_torch.index import ScatterGatherPlanner
+    from repro_torch.quant import dequantize_tree, recall_at_k
+    from repro_torch.serving import (BatchPolicy, MicroBatcher, PartitionConfig, QuantConfig,
+                                     ServeConfig, XMRServingEngine)
+
+    n, depth, P = queries.shape[0], tree.depth, PARTITIONS
+    mb_size = SERVE["max_batch"]
+    batches = -(-n // mb_size)
+    exact = XMRServingEngine(tree, ServeConfig(method="auto", **SERVE))
+    exact.warmup(tree.d, (mb_size,))
+    s_x, l_x = exact.serve_batch(queries)
+    launches = {"grouped": 0, "grouped_q": 0}
+
+    def build(what, devices=None, quant=None, shards=1, **part):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        eng = XMRServingEngine(tree, ServeConfig(
+            method="auto", shards=shards, partition=PartitionConfig(**part),
+            quant=quant or QuantConfig(), **SERVE), devices=devices)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - base
+        eng.warmup_buckets(tree.d, mb_size)
+        m = eng.index.manifest
+        log(f"  {what}: built in {build_s:.3f} s (cut, content hashes, placement), "
+            f"{eng.placement.mesh.shape} mesh, split level {m.level}, peak device memory "
+            f"{peak / 1e9:.3f} GB over the {base / 1e9:.3f} GB resident before; partition "
+            f"memory_bytes {[round(p.memory_bytes / 1e9, 4) for p in m.partitions]} GB, "
+            f"router {m.router_memory_bytes / 1e6:.3f} MB, shrink_ratio {m.shrink_ratio():.3f}"
+            f"  [{gpu}]")
+        return eng
+
+    def served(eng, what, grouped=0, grouped_q=0, at_most=False):
+        """One serve_batch of every query, launch counts from 0 just before."""
+        zero_counts(mk, qk)
+        t0 = time.perf_counter()
+        s, l = eng.serve_batch(queries)
+        wall = time.perf_counter() - t0
+        got = counts(mk, qk)
+        want = {"grouped": grouped, "grouped_q": grouped_q, "fused": 0, "pregather": 0}
+        ok = (all(got[k] <= want[k] for k in want) and got["grouped"] >= batches
+              if at_most else got == want)
+        if not ok:
+            raise AssertionError(f"partition {what}: launches {got}, want "
+                                 f"{'at most ' if at_most else ''}{want}")
+        launches["grouped"] += got["grouped"]
+        launches["grouped_q"] += got["grouped_q"]
+        if s.shape != (n, SERVE["topk"]) or not np.isfinite(s).all():
+            raise AssertionError(f"partition {what}: bad scores, shape {s.shape}")
+        return s, l, wall, got
+
+    def bitwise(s, l, s_w, l_w, what):
+        if not (np.array_equal(l, l_w) and np.array_equal(s.view(np.uint32),
+                                                          s_w.view(np.uint32))):
+            raise AssertionError(f"partition {what}: not bitwise the unpartitioned engine")
+
+    per_bucket = 1 + (depth - 1) * P  # router + one launch a partition a level
+    engines = {}
+    # 1. level and pipelined: bitwise, 1 + 3 P grouped launches a bucket.
+    for sync in ("level", "pipelined"):
+        eng = build(f"P={P} {sync}", partitions=P, partition_sync=sync)
+        s, l, wall, got = served(eng, sync, grouped=batches * per_bucket)
+        bitwise(s, l, s_x, l_x, sync)
+        engines[sync] = eng
+        log(f"  P={P} {sync}: serve_batch of {n} bitwise the unpartitioned engine; "
+            f"{got['grouped']} grouped launches ({got['grouped'] // batches} a bucket of "
+            f"{mb_size}, unpartitioned {depth}); wall {1e3 * wall:.3f} ms  [{gpu}]")
+    # 2. pipelined with the hot-beam cache, cold then hot.
+    eng = build(f"P={P} pipelined, beam_cache=256", partitions=P, partition_sync="pipelined",
+                beam_cache=256)
+    for run in ("cold", "hot"):
+        s, l, _, got = served(eng, f"cache {run}", grouped=batches * per_bucket, at_most=True)
+        bitwise(s, l, s_x, l_x, f"cache {run}")
+        log(f"  beam_cache=256, {run}: bitwise; {got['grouped']} grouped launches; cache "
+            f"{eng.beam_cache_stats()}  [{gpu}]")
+    del eng
+    # 3. final: one merge; dominates the exact result.
+    eng = build(f"P={P} final", partitions=P, partition_sync="final")
+    s, l, _, got = served(eng, "final", grouped=batches * per_bucket)
+    if not (s >= s_x).all():
+        raise AssertionError("partition final: a merged score under its exact counterpart")
+    log(f"  final: every merged score >= its exact counterpart ({int((s > s_x).sum())} of "
+        f"{s.size} above); recall@10 against exact {recall_at_k(l_x, l):.6f}; "
+        f"{got['grouped']} grouped launches  [{gpu}]")
+    del eng
+    # 4. int8: the router f32 through grouped, every partition through grouped_q.
+    eng = build(f"P={P} int8", partitions=P, quant=QuantConfig(tier="int8"))
+    s_q, l_q, _, got = served(eng, "int8", grouped=batches,
+                              grouped_q=batches * (depth - 1) * P)
+    deq = dataclasses.replace(eng.index, parts=[dequantize_tree(p) for p in eng.index.parts])
+    pl = ScatterGatherPlanner(deq, beam=SERVE["beam"], topk=SERVE["topk"],
+                              method="mscm_pallas_grouped", placement=eng.placement)
+    out_s, out_l = [], []
+    for i in range(0, n, mb_size):
+        xi, xv = exact.marshal_rows(queries, np.arange(i, min(n, i + mb_size)), mb_size)
+        sd, ld = pl.infer(xi, xv)
+        out_s.append(sd[:n - i].cpu().numpy())
+        out_l.append(ld[:n - i].cpu().numpy())
+    bitwise(s_q, l_q, np.concatenate(out_s), np.concatenate(out_l), "int8 vs dequantized")
+    m = eng.index.manifest
+    log(f"  int8: {got['grouped_q']} grouped_q launches ({got['grouped_q'] // batches} a "
+        f"bucket), {got['grouped']} grouped (the f32 router); bitwise the f32 planner on the "
+        f"dequantized parts; recall@10 against exact {recall_at_k(l_x, l_q):.6f}; "
+        f"memory_bytes per partition {[p.memory_bytes for p in m.partitions]} "
+        f"({m.partitions[0].dtype}, tier {m.partitions[0].tier}), shrink_ratio "
+        f"{m.shrink_ratio():.3f}  [{gpu}]")
+    del eng, deq, pl
+    # 5. partitions=2, shards=2 through the batcher, on four device slots.
+    slots = device_slots(torch, 4)
+    eng = build(f"P=2 shards=2 on {slots}", devices=slots, shards=2, partitions=2)
+    mb = MicroBatcher(eng, BatchPolicy(max_batch=mb_size, max_wait_ms=2.0),
+                      warmup_on_start=False)
+    zero_counts(mk, qk)
+    res, wall = serve_through_batcher(mb, queries, clients=4, started=True)
+    got = counts(mk, qk)
+    nb = len(mb.metrics.batch_sizes)
+    if got != {"grouped": nb * (1 + (depth - 1) * 2 * 2), "grouped_q": 0, "fused": 0,
+               "pregather": 0}:
+        raise AssertionError(f"partition P=2 shards=2: launches {got} for {nb} batches")
+    launches["grouped"] += got["grouped"]
+    held_bitwise(res, s_x, l_x, "partition P=2 shards=2")
+    summ = mb.metrics.summary()
+    log(f"  P=2 shards=2, 4 client threads: every result bitwise the unpartitioned "
+        f"engine's; {server_readings(mb.metrics)}; partition_occupancy "
+        f"{summ['partition_occupancy']}, replica_occupancy {summ['replica_occupancy']}, "
+        f"pipeline_stall avg / p99 {summ['pipeline_stall_avg_ms']:.5f} / "
+        f"{summ['pipeline_stall_p99_ms']:.5f} ms; {got['grouped']} grouped launches "
+        f"({got['grouped'] // nb} a batch); wall {1e3 * wall:.3f} ms  [{gpu}]")
+    del eng, mb
+    # 6. ms/query in turns: unpartitioned, level, pipelined, pipelined on one
+    # stream a partition (P + 1 slots of this card).
+    engines["pipelined, P+1 slots"] = build(
+        f"P={P} pipelined on {P + 1} slots", devices=device_slots(torch, P + 1)[:1] * (P + 1),
+        partitions=P, partition_sync="pipelined")
+    s, l, _, _ = served(engines["pipelined, P+1 slots"], "pipelined, P+1 slots",
+                        grouped=batches * per_bucket)
+    bitwise(s, l, s_x, l_x, "pipelined on P+1 slots")
+    runs = {"unpartitioned": exact, **engines}
+    walls = {k: [] for k in runs}
+    for r in range(4):
+        for k in (list(runs) if r % 2 == 0 else list(runs)[::-1]):
+            t0 = time.perf_counter()
+            runs[k].serve_batch(queries)
+            walls[k].append(time.perf_counter() - t0)
+    for k, w in walls.items():
+        log(f"  {k}: serve_batch of {n}, wall s {[round(x, 6) for x in w]}, median "
+            f"{1e3 * float(np.median(w)) / n:.5f} ms/query  [{gpu}]")
+    for k in ("unpartitioned", "level", "pipelined"):
+        wall, acts, busy_us, rows = device_profile(lambda: runs[k].serve_batch(queries))
+        log_profile(f"one {k} serve_batch of {n}", wall, acts, busy_us, rows, gpu, 8)
+        log_block_kernel(f"{k}, one serve_batch of {n}", rows, n, "mscm_grouped_kernel",
+                         "the grouped kernel")
+        if busy_us:
+            log(f"  {k}: {acts} device activities, busy {busy_us / 1e3:.3f} ms of "
+                f"{1e3 * wall:.3f} ms wall, idle share {1 - busy_us / (1e6 * wall):.4f}"
+                f"  [{gpu}]")
+    return launches["grouped"], launches["grouped_q"]
+
+
 def train(torch, mk, gpu: str, random_levels: list) -> int:
-    """Phase 9: the training path at eurlex-4k's width (d, L, n_test of
+    """Phase 10: the training path at eurlex-4k's width (d, L, n_test of
     ``PAPER_SHAPES``; n_train 4 x n_test, the quickstart's ratio), trained
     on the card, then its test split served in batch through
     ``method="auto"`` (the grouped kernel) and held against ``mscm_dense``
@@ -1529,6 +1730,9 @@ def main() -> int:
     pregather["launches"], fused["launches"] = online(torch, mk, gpu, tree, queries)
     log(f"phase server (at {time.perf_counter() - t_all:.1f} s)")
     grouped["server_launches"], grouped_q["server_launches"] = server(
+        torch, mk, qk, gpu, tree, queries)
+    log(f"phase partition (at {time.perf_counter() - t_all:.1f} s)")
+    grouped["partition_launches"], grouped_q["partition_launches"] = partition(
         torch, mk, qk, gpu, tree, queries)
     del tree, queries
     torch.cuda.empty_cache()

@@ -10,6 +10,9 @@ crossing as their uint8 bit patterns, so no fp8 numpy type is needed.
 :func:`trained_model_from_numpy` carries a trained model across: its tree
 as :func:`tree_from_numpy` does and its label tree structure copied, so a
 model the reference trained serves in the port.
+:func:`partitioned_index_from_numpy` carries a label-partitioned index
+across (router head, parts, quantized ones included, and manifest), so both
+packages serve the same partitions.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.tree import TreeLayerArrays, XMRTree, resolve_device
+from repro_torch.index.partition import PartitionedIndex, PartitionManifest
 from repro_torch.quant.storage import QUANT_DTYPES, QuantizedTree, QuantLayerArrays, tier_dtype
 from repro_torch.trees.cluster import TreeStructure
 from repro_torch.trees.train import TrainedXMRModel
@@ -132,3 +136,45 @@ def quantized_tree_from_numpy(
         ))
     return QuantizedTree(layers=out, n_cols=tuple(int(c) for c in n_cols),
                          branching=tuple(int(b) for b in branching), d=int(d), tier=tier)
+
+
+TREE_KEYS = ("layers", "n_cols", "branching", "d")
+
+
+def partitioned_index_from_numpy(
+    head: Mapping[str, Any],
+    parts: Sequence[Mapping[str, Any]],
+    manifest_json: str,
+    n_cols: Sequence[int],
+    *,
+    device: str | torch.device | None = None,
+) -> PartitionedIndex:
+    """The port's :class:`PartitionedIndex` from a partitioned index's arrays.
+
+    ``head`` and each of ``parts`` hold a tree's keys :data:`TREE_KEYS`
+    (``layers`` as for :func:`tree_from_numpy`); a part whose manifest row
+    names a tier other than ``exact`` holds a quantized tree's layers, as for
+    :func:`quantized_tree_from_numpy`. ``manifest_json`` is the reference
+    manifest's ``to_json()`` and ``n_cols`` the whole tree's column counts.
+    """
+    manifest = PartitionManifest.from_json(manifest_json)
+    if len(parts) != manifest.n_partitions:
+        raise ValueError(f"{len(parts)} parts for a manifest of {manifest.n_partitions}")
+    for t in (head, *parts):
+        missing = set(TREE_KEYS) - set(t)
+        if missing:
+            raise ValueError(f"tree arrays lack {sorted(missing)}")
+
+    def tree(t, tier="exact"):
+        args = (t["layers"], t["n_cols"], t["branching"], t["d"])
+        if tier == "exact":
+            return tree_from_numpy(*args, device=device)
+        return quantized_tree_from_numpy(*args, tier, device=device)
+
+    return PartitionedIndex(
+        head=tree(head),
+        parts=[tree(p, info.tier) for p, info in zip(parts, manifest.partitions)],
+        manifest=manifest,
+        n_cols=tuple(int(c) for c in n_cols),
+        branching=tuple(manifest.branching),
+    )

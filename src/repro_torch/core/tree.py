@@ -28,7 +28,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import mscm as mscm_lib
-from repro_torch.core.beam import beam_select, combine_scores
+from repro_torch.core.beam import NEG_INF, beam_select, combine_scores
 from repro_torch.core.chunked import ChunkedLayer, ColumnELLLayer
 from repro_torch.sparse.csr import CSC
 
@@ -154,6 +154,74 @@ class XMRTree:
             if t is not None
         )
 
+    # -- split / extract (label-space partitioning, repro_torch.index) -------
+    def head(self, level: int) -> "XMRTree":
+        """The top ``level`` stored layers as a tree of their own: the
+        router. Its leaves are the nodes of level ``level - 1``, the chunk
+        ids of layer ``level``, so ``head(level).infer(..., beam=b, topk=b)``
+        gives the unpartitioned traversal's beam after ``level`` levels."""
+        if not 1 <= level < self.depth:
+            raise ValueError(f"head level must be in [1, {self.depth}); got {level}")
+        return XMRTree(
+            layers=list(self.layers[:level]),
+            n_cols=self.n_cols[:level],
+            branching=self.branching[:level],
+            d=self.d,
+        )
+
+    def extract(self, level: int, chunk_start: int, chunk_end: int) -> "XMRTree":
+        """The sub-tree owning chunks ``[chunk_start, chunk_end)`` of layer
+        ``level`` down to the leaves, as a tree of its own.
+
+        Each layer keeps the ELL pad widths R/Rc, so a column scores the same
+        through the sub-tree as through the whole tree, and gains one
+        **phantom chunk** (rows all the sentinel ``d``, values 0, so its
+        logits are exactly 0) and ``B`` phantom columns: beam entries the
+        partition does not own are parked there, their children fall at or
+        past the local label count, and the phantom-column mask pins them to
+        ``NEG_INF`` at every level. Every layer is a fresh allocation (the
+        slice and the phantom concatenated).
+        """
+        if not 1 <= level < self.depth:
+            raise ValueError(f"extract level must be in [1, {self.depth}); got {level}")
+        if not 0 <= chunk_start < chunk_end:
+            raise ValueError(f"bad chunk range [{chunk_start}, {chunk_end})")
+        layers, ncols = [], []
+        c0, c1 = chunk_start, chunk_end
+        for li in range(level, self.depth):
+            lay = self.layers[li]
+            b = self.branching[li]
+            c_global = lay.chunk_rows.shape[0]
+            # The last partition's range can overrun the ragged global tail
+            # at deeper levels (fewer real chunks than chunk_end * B): clamp.
+            c1 = min(c1, c_global)
+            if c0 >= c1:
+                raise ValueError(
+                    f"chunk range start {c0} has no real chunks at layer {li} "
+                    f"({c_global} total)"
+                )
+            n_local = min(c1 * b, self.n_cols[li]) - c0 * b
+            if n_local <= 0:
+                raise ValueError(
+                    f"chunk range [{c0}, {c1}) holds no real columns at layer {li}"
+                )
+            cr, cv = lay.chunk_rows[c0:c1], lay.chunk_vals[c0:c1]
+            col_r, col_v = lay.col_rows[c0 * b:c1 * b], lay.col_vals[c0 * b:c1 * b]
+            layers.append(TreeLayerArrays(
+                chunk_rows=torch.cat([cr, torch.full_like(cr[:1], self.d)]),
+                chunk_vals=torch.cat([cv, torch.zeros_like(cv[:1])]),
+                col_rows=torch.cat([col_r, col_r.new_full((b,) + col_r.shape[1:], self.d)]),
+                col_vals=torch.cat([col_v, col_v.new_zeros((b,) + col_v.shape[1:])]),
+            ))
+            ncols.append(n_local)
+            c0, c1 = c0 * b, c1 * b
+        return XMRTree(
+            layers=layers,
+            n_cols=tuple(ncols),
+            branching=self.branching[level:],
+            d=self.d,
+        )
+
     def infer(
         self,
         x_idx: torch.Tensor,  # int [n, Q] sorted, sentinel-padded
@@ -274,6 +342,42 @@ def level_combined(
         layer, x_idx, x_val, x_dense, block_q, block_c, branching, d, method
     ).reshape(n, b_cur, branching)
     return combine_scores(parent_scores, logits, score_mode)
+
+
+def owned_level_combined(
+    layer: TreeLayerArrays,
+    branching: int,
+    d: int,
+    x_idx: torch.Tensor,
+    x_val: torch.Tensor,
+    x_dense: torch.Tensor | None,
+    parent_ids: torch.Tensor,     # int [n, b] GLOBAL chunk ids at this level
+    parent_scores: torch.Tensor,  # f32 [n, b]
+    chunk_start: int,             # the partition's first global chunk
+    chunk_count: int,             # the partition's real chunk count
+    *,
+    method: str,
+    score_mode: str,
+    qt: int = 8,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`level_combined` on a partition's sliced layer, for a global beam.
+
+    Rows whose chunk lies in ``[chunk_start, chunk_start + chunk_count)`` are
+    owned; every other row is parked on the phantom chunk (index
+    ``chunk_count``, which :meth:`XMRTree.extract` appends) and returns
+    exactly ``NEG_INF``. Owned rows go through the in-tree arithmetic, so
+    they are the bits the whole tree gives them. Returns ``(combined [n, b,
+    B], owned [n, b])``: the one continuation point of the planner's level
+    and pipelined modes.
+    """
+    owned = (parent_ids >= chunk_start) & (parent_ids < chunk_start + chunk_count)
+    local_ids = torch.where(owned, parent_ids - chunk_start, chunk_count)
+    local_scores = torch.where(owned, parent_scores, NEG_INF)
+    combined = level_combined(
+        layer, branching, d, x_idx, x_val, x_dense, local_ids, local_scores,
+        method=method, score_mode=score_mode, qt=qt,
+    )
+    return torch.where(owned[..., None], combined, NEG_INF), owned
 
 
 def _tree_infer(

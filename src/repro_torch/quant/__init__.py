@@ -26,6 +26,7 @@ from repro_torch.quant.storage import (
     dequantize_tree,
     prune_chunks,
     quantize_chunks,
+    quantize_index,
     quantize_layer,
     quantize_tree,
 )
@@ -42,6 +43,7 @@ __all__ = [
     "mscm_pallas_grouped_q",
     "prune_chunks",
     "quantize_chunks",
+    "quantize_index",
     "quantize_layer",
     "quantize_tree",
     "recall_at_k",

@@ -20,7 +20,9 @@ rows by ``max_b |v|`` (ties to the lower row) and re-packs them in row
 order into ``R' = max(8, round_up(max kept, 8))``. Only the chunked layout
 is quantized: :func:`dequantize_layer` returns sentinel-only stubs for the
 per-column arrays, so a dequantized tree serves the chunked methods, not
-``vanilla``. ``quantize_index`` waits for the partitioned index.
+``vanilla``. :func:`quantize_index` compresses the partitions of a
+:class:`~repro_torch.index.partition.PartitionedIndex`, the router head
+staying f32.
 """
 
 from __future__ import annotations
@@ -34,6 +36,8 @@ from repro_torch.core.tree import TreeLayerArrays, XMRTree
 
 #: Storage dtypes by name -> (torch dtype, symmetric qmax).
 QUANT_DTYPES = {"int8": (torch.int8, 127.0), "fp8": (torch.float8_e4m3fn, 448.0)}
+#: The numpy name of each storage dtype, as a manifest records it.
+DTYPE_NAMES = {"int8": "int8", "fp8": "float8_e4m3fn"}
 
 
 @dataclasses.dataclass
@@ -57,6 +61,18 @@ class QuantizedTree(XMRTree):
     served by ``method="mscm_pallas_grouped_q"``; ``tier`` names the recipe."""
 
     tier: str = "int8"
+
+    def head(self, level: int) -> XMRTree:
+        raise TypeError(
+            "QuantizedTree cannot be re-split: quantize per partition "
+            "(repro_torch.quant.quantize_index) after partition_tree()"
+        )
+
+    def extract(self, level: int, chunk_start: int, chunk_end: int) -> XMRTree:
+        raise TypeError(
+            "QuantizedTree cannot be re-split: quantize per partition "
+            "(repro_torch.quant.quantize_index) after partition_tree()"
+        )
 
 
 def tier_dtype(tier: str) -> str:
@@ -172,3 +188,31 @@ def dequantize_tree(qtree: QuantizedTree) -> XMRTree:
         branching=qtree.branching,
         d=qtree.d,
     )
+
+
+def quantize_index(index, *, tier: str = "int8", prune_keep: float = 0.5):
+    """Compress the parts of a :class:`~repro_torch.index.partition.
+    PartitionedIndex`: the serving tier's entry point.
+
+    The router head stays f32 (a few percent of the weights, and its beam
+    feeds every partition). Each partition is quantized after the cut, and
+    its manifest row rebuilt so that ``memory_bytes`` and ``content_hash``
+    describe the compressed bytes resident, with ``tier`` and ``dtype``
+    recorded (manifest schema v2).
+    """
+    from repro_torch.index.partition import _content_hash
+
+    dtype = tier_dtype(tier)
+    qparts = [quantize_tree(p, tier=tier, prune_keep=prune_keep) for p in index.parts]
+    infos = [
+        dataclasses.replace(
+            info,
+            memory_bytes=qp.memory_bytes(),
+            content_hash=_content_hash(qp),
+            tier=tier,
+            dtype=DTYPE_NAMES[dtype],
+        )
+        for info, qp in zip(index.manifest.partitions, qparts)
+    ]
+    manifest = dataclasses.replace(index.manifest, partitions=infos)
+    return dataclasses.replace(index, parts=qparts, manifest=manifest)

@@ -2,8 +2,8 @@
 tiers, metrics and the v1 wire types (counterpart of ``repro.serving``).
 
 ``__all__`` is the reference's Public API v1 surface but for
-``PartitionConfig``, ``FleetConfig`` and ``ServingGateway``, which come
-with the partitioned index and the fleet (ROADMAP.md queue 1 items 10-11).
+``FleetConfig`` and ``ServingGateway``, which come with the fleet
+(ROADMAP.md queue 1 item 11).
 """
 
 from repro_torch.serving.admission import (
@@ -31,6 +31,7 @@ from repro_torch.serving.batcher import (
 from repro_torch.serving.config import (
     QUANT_TIERS,
     AdmissionConfig,
+    PartitionConfig,
     QuantConfig,
     ServeConfig,
     SLOConfig,
@@ -42,6 +43,7 @@ from repro_torch.serving.slo import BeamTier, BeamTierPolicy, resolve_tiers
 __all__ = [
     # configuration
     "AdmissionConfig",
+    "PartitionConfig",
     "QUANT_TIERS",
     "QuantConfig",
     "ServeConfig",

@@ -1,22 +1,27 @@
 """Serving configuration: the reference's ``ServeConfig`` with its inference
-knobs and its ``admission``, ``quant`` and ``slo`` groups, with the same
-names, defaults and validation, so one configuration drives both packages.
+knobs and its ``admission``, ``partition``, ``quant`` and ``slo`` groups,
+with the same names, defaults and validation, so one configuration drives
+both packages.
 
 * :class:`AdmissionConfig` — the overload policy the
   :class:`~repro_torch.serving.batcher.MicroBatcher` applies at the queue;
+* :class:`PartitionConfig` — the label-partitioned dispatch topology
+  (:mod:`repro_torch.index`);
 * :class:`QuantConfig` — the compressed-weight storage tier
   (:mod:`repro_torch.quant`);
 * :class:`SLOConfig` — latency-SLO adaptive inference: a ladder of degraded
   beam tiers the batcher may pick per batch when the queue backs up
   (:mod:`repro_torch.serving.slo`). Off by default.
 
-The pre-v1 flat kwargs (``queue_depth=``, ``target_p99_ms=``, ``tier=``, …)
+``shards=N`` (a power of two, at most ``max_batch``, checked by the engine)
+splits each dispatched bucket over N device slots.
+
+The pre-v1 flat kwargs (``queue_depth=``, ``partitions=``, ``tier=``, …)
 are routed into their group with a :class:`DeprecationWarning`, and the
 read side keeps flat properties, as in the reference.
 
-The reference's ``partition`` and ``fleet`` groups and multi-device dispatch
-are not ported yet: asking for any of them raises ``NotImplementedError``
-naming the ROADMAP.md item that ports it.
+The reference's ``fleet`` group is not ported yet: asking for it raises
+``NotImplementedError`` naming the ROADMAP.md item that ports it.
 """
 
 from __future__ import annotations
@@ -28,8 +33,6 @@ from typing import Any, Optional, Tuple, Union
 #: Options of the reference's config this port does not run yet:
 #: name -> (the value that keeps it off, ROADMAP.md item).
 UNPORTED_OPTIONS = {
-    "partition": (None, "queue 1 item 10 (partitioned index)"),
-    "partitions": (1, "queue 1 item 10 (partitioned index)"),
     "fleet": (None, "queue 1 item 11 (fleet and gateway)"),
 }
 
@@ -41,6 +44,20 @@ class AdmissionConfig:
     queue_depth: Union[int, str, None] = None  # bound | "auto" | unbounded
     shed_policy: str = "reject"                # "reject" | "shed-oldest"
     deadline_ms: Optional[float] = None        # default per-request deadline
+
+
+@dataclasses.dataclass
+class PartitionConfig:
+    """Label-partitioned dispatch topology (:mod:`repro_torch.index`)."""
+
+    partitions: int = 1                    # label-space partitions
+    partition_level: Optional[int] = None  # split level (None = auto)
+    # "level"     — per-level exchange, bitwise-exact
+    # "pipelined" — exchange overlapped with the next level's product via
+    #               speculative expansion; still bitwise-exact
+    # "final"     — one merge, no per-level sync; dominates, not bitwise
+    partition_sync: str = "level"
+    beam_cache: int = 0                    # hot-beam LRU entries (0 = off)
 
 
 #: Valid :attr:`QuantConfig.tier` values.
@@ -109,6 +126,7 @@ class SLOConfig:
 #: Flat kwarg name -> the group it belongs to.
 _GROUP_OF = {
     **{f.name: "admission" for f in dataclasses.fields(AdmissionConfig)},
+    **{f.name: "partition" for f in dataclasses.fields(PartitionConfig)},
     **{f.name: "quant" for f in dataclasses.fields(QuantConfig)},
     **{f.name: "slo" for f in dataclasses.fields(SLOConfig)},
 }
@@ -125,8 +143,9 @@ class ServeConfig:
     max_batch: int = 256
     score_mode: str = "prod"
     qt: int = 8                   # grouped-kernel query-tile height
-    shards: int = 1               # data-parallel replicas: only 1 is ported
+    shards: int = 1               # data-parallel device slots per dispatch
     admission: AdmissionConfig = dataclasses.field(default_factory=AdmissionConfig)
+    partition: PartitionConfig = dataclasses.field(default_factory=PartitionConfig)
     quant: QuantConfig = dataclasses.field(default_factory=QuantConfig)
     slo: SLOConfig = dataclasses.field(default_factory=SLOConfig)
 
@@ -141,6 +160,7 @@ class ServeConfig:
         qt: int = 8,
         shards: int = 1,
         admission: AdmissionConfig | None = None,
+        partition: PartitionConfig | None = None,
         quant: QuantConfig | None = None,
         slo: SLOConfig | None = None,
         **flat: Any,
@@ -154,18 +174,14 @@ class ServeConfig:
         self.qt = qt
         self.shards = shards
         self.admission = admission if admission is not None else AdmissionConfig()
+        self.partition = partition if partition is not None else PartitionConfig()
         self.quant = quant if quant is not None else QuantConfig()
         self.slo = slo if slo is not None else SLOConfig()
-        for name, cls in (("admission", AdmissionConfig), ("quant", QuantConfig),
-                          ("slo", SLOConfig)):
+        for name, cls in (("admission", AdmissionConfig), ("partition", PartitionConfig),
+                          ("quant", QuantConfig), ("slo", SLOConfig)):
             if not isinstance(getattr(self, name), cls):
                 raise TypeError(f"{name} must be a {cls.__name__}; "
                                 f"got {type(getattr(self, name)).__name__}")
-        if shards != 1:
-            raise NotImplementedError(
-                f"shards={shards}: multi-device dispatch is not ported yet "
-                "(ROADMAP.md queue 1 item 10)"
-            )
         grouped = {k: v for k, v in flat.items() if k in _GROUP_OF}
         for name, value in flat.items():
             if name in grouped:
@@ -180,13 +196,13 @@ class ServeConfig:
         if grouped:
             warnings.warn(
                 f"flat ServeConfig kwarg(s) {sorted(grouped)} are deprecated; pass "
-                "admission=AdmissionConfig(...) / quant=QuantConfig(...) / "
-                "slo=SLOConfig(...) instead",
+                "admission=AdmissionConfig(...) / partition=PartitionConfig(...) / "
+                "quant=QuantConfig(...) / slo=SLOConfig(...) instead",
                 DeprecationWarning,
                 stacklevel=2,
             )
             # replace(), not setattr: never mutate a caller-shared group.
-            for group in ("admission", "quant", "slo"):
+            for group in ("admission", "partition", "quant", "slo"):
                 kw = {k: v for k, v in grouped.items() if _GROUP_OF[k] == group}
                 if kw:
                     setattr(self, group, dataclasses.replace(getattr(self, group), **kw))
@@ -203,6 +219,22 @@ class ServeConfig:
     @property
     def deadline_ms(self) -> Optional[float]:
         return self.admission.deadline_ms
+
+    @property
+    def partitions(self) -> int:
+        return self.partition.partitions
+
+    @property
+    def partition_level(self) -> Optional[int]:
+        return self.partition.partition_level
+
+    @property
+    def partition_sync(self) -> str:
+        return self.partition.partition_sync
+
+    @property
+    def beam_cache(self) -> int:
+        return self.partition.beam_cache
 
     @property
     def tier(self) -> str:

@@ -22,6 +22,25 @@ ladder of beam tiers (:mod:`repro_torch.serving.slo`): ``_run(xi, xv,
 tier)`` serves at that tier's ``(beam, qt)``, tier 0 exactly as an engine
 without the group. The async micro-batching front end over this engine is
 :mod:`repro_torch.serving.batcher`.
+
+Sharded dispatch (``ServeConfig(shards=N)``): the tree is replicated over a
+``("data",)`` mesh of N device slots (:func:`repro_torch.distributed.
+sharding.replica_mesh`; one copy per distinct device) and every bucket's
+rows split over them, each slot on its own CUDA stream. Per-query arithmetic
+is unchanged, so on the card results are bitwise those of one slot.
+
+Partitioned dispatch (``ServeConfig(partition=PartitionConfig(partitions=
+P))``): the tree is cut into P label-contiguous sub-trees
+(:func:`~repro_torch.index.partition.partition_tree`; quantized per
+partition under a tier), placed over a ``("data", "model")`` mesh of device
+slots (:func:`~repro_torch.index.placement.place`) and served by the
+scatter-gather planner, bitwise the unpartitioned tree in the ``level`` and
+``pipelined`` sync modes. Composes with ``shards=N``. The engine then holds
+the head and the parts on the card, not a copy of the whole tree.
+
+``devices=`` names the device slots of either mesh (every visible card by
+default on a GPU, the engine's device on the CPU); a device may repeat, so
+one card, or the CPU, can stand in for a mesh.
 """
 
 from __future__ import annotations
@@ -33,14 +52,25 @@ import numpy as np
 import torch
 
 from repro_torch.core.tree import XMRTree, check_method, resolve_device
+from repro_torch.distributed.sharding import (
+    Slot, replica_mesh, resolve_devices, row_slices, send, visible_devices)
+from repro_torch.index import ScatterGatherPlanner, partition_tree, place
 from repro_torch.index.planner import reference_topk_width
-from repro_torch.quant.storage import QuantizedTree, quantize_tree
-from repro_torch.serving.config import ServeConfig
+from repro_torch.quant.storage import QuantizedTree, quantize_index, quantize_tree
+from repro_torch.serving.config import (
+    AdmissionConfig, PartitionConfig, QuantConfig, ServeConfig)
 from repro_torch.serving.metrics import LatencyStats
 from repro_torch.serving.slo import BeamTier, resolve_tiers
 from repro_torch.sparse.csr import CSR, rows_to_ell
 
-__all__ = ["ServeConfig", "XMRServingEngine", "resolve_method"]
+__all__ = [
+    "AdmissionConfig",
+    "PartitionConfig",
+    "QuantConfig",
+    "ServeConfig",
+    "XMRServingEngine",
+    "resolve_method",
+]
 
 
 def resolve_method(method: str, device: str | torch.device | None = None) -> str:
@@ -64,8 +94,11 @@ def _bucket(n: int, max_batch: int) -> int:
 class XMRServingEngine:
     def __init__(self, tree: XMRTree, config: ServeConfig | None = None,
                  label_perm: Optional[np.ndarray] = None, *,
-                 device: str | torch.device | None = None):
+                 device: str | torch.device | None = None,
+                 devices: Optional[Sequence] = None):
         self.config = config or ServeConfig()
+        if device is None and devices:
+            device = devices[0]
         self.device = resolve_device(device)
         self.method = resolve_method(self.config.method, self.device)
         check_method(self.method)
@@ -98,12 +131,48 @@ class XMRServingEngine:
                         f"beam tier {t.beam} yields top-k width {w} != full-beam width "
                         f"{full_w}; widen the tier or raise slo min_beam"
                     )
+        self.label_perm = label_perm  # leaf position -> original label id
+        self.stats = LatencyStats()
+        self.mesh = None
+        self.index = None
+        self.placement = None
+        self.planner = None
+        self._replicas = None
+        c, pc = self.config, self.config.partition
+        shards = c.shards
+        if shards < 1 or shards & (shards - 1):
+            raise ValueError(f"shards={shards} must be a power of two (buckets are)")
+        if shards > c.max_batch:
+            raise ValueError(f"shards={shards} exceeds max_batch={c.max_batch}")
+        if devices is None:
+            devices = visible_devices() if self.device.type == "cuda" else [self.device]
+        devices = resolve_devices(devices)
+        if pc.partitions > 1:
+            # Label-partitioned dispatch: cut the tree where it lies, quantize
+            # each part after the cut (the router head stays f32), place the
+            # parts over a ("data", "model") mesh; every _run goes through the
+            # scatter-gather planner.
+            self.index = partition_tree(tree, pc.partitions, level=pc.partition_level)
+            if qc.tier != "exact":
+                self.index = quantize_index(self.index, tier=qc.tier,
+                                            prune_keep=qc.prune_keep)
+            self.placement = place(self.index, shards=shards, devices=devices)
+            self.planner = ScatterGatherPlanner(
+                self.index, beam=c.beam, topk=c.topk, method=self.method,
+                score_mode=c.score_mode, qt=c.qt, sync=pc.partition_sync,
+                placement=self.placement, cache_entries=pc.beam_cache,
+            )
+            self.mesh = self.placement.mesh
+            self.tree = tree  # for its geometry; the planner holds the weights
+            return
         self.tree = tree.to(self.device)
         if qc.tier != "exact":
             self.tree = quantize_tree(self.tree, tier=qc.tier, prune_keep=qc.prune_keep)
-        self.label_perm = label_perm  # leaf position -> original label id
-        self.stats = LatencyStats()
-        self.planner = None  # the partitioned index's planner (ROADMAP.md item 10)
+        if shards > 1:
+            # One replica per device slot (one copy per distinct device);
+            # every bucket's rows split over the slots.
+            self.mesh = replica_mesh(shards, devices=devices)
+            self._replicas = [(Slot.new(dev), self.tree.to(dev)) for dev in self.mesh.devices]
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -132,8 +201,9 @@ class XMRServingEngine:
         return self._to_device(idx), self._to_device(val)
 
     def bucket_for(self, n: int) -> int:
-        """Power-of-two bucket for ``n`` queries."""
-        return _bucket(n, self.config.max_batch)
+        """Power-of-two bucket for ``n`` queries, never below ``shards`` so
+        that a sharded dispatch always splits evenly."""
+        return max(_bucket(n, self.config.max_batch), self.config.shards)
 
     def bucket_key(self, n: int, tier: int = 0) -> Tuple[int, int]:
         """The dispatch key ``(bucket, beam_tier)``: both coordinates are
@@ -142,10 +212,28 @@ class XMRServingEngine:
 
     def _run(self, xi: torch.Tensor, xv: torch.Tensor, tier: int = 0):
         c, t = self.config, self.tiers[tier]
-        return self.tree.infer(
-            xi, xv, beam=t.beam, topk=c.topk, method=self.method,
-            score_mode=c.score_mode, qt=t.qt,
-        )
+        if self.planner is not None:
+            # The tier's beam/qt ride as per-call overrides only when degraded.
+            if tier:
+                return self.planner.infer(xi, xv, beam=t.beam, qt=t.qt)
+            return self.planner.infer(xi, xv)
+        kw = dict(beam=t.beam, topk=c.topk, method=self.method, score_mode=c.score_mode,
+                  qt=t.qt)
+        if self._replicas is None:
+            return self.tree.infer(xi, xv, **kw)
+        # Each slot serves its run of rows on its own stream; the caller's
+        # stream waits for every slot before the results are handed back.
+        caller = Slot.current(xi.device)
+        out_s, out_l = [], []
+        for (slot, tree), (r0, r1) in zip(self._replicas,
+                                          row_slices(xi.shape[0], len(self._replicas))):
+            xi_r, xv_r = send((xi[r0:r1], xv[r0:r1]), caller, slot)
+            with slot.enter():
+                s, l = tree.infer(xi_r, xv_r, **kw)
+            s, l = send((s, l), slot, caller)
+            out_s.append(s)
+            out_l.append(l)
+        return torch.cat(out_s), torch.cat(out_l)
 
     def _run_to_host(self, xi: torch.Tensor, xv: torch.Tensor, count: int, tier: int = 0):
         """Enqueue one bucket at ``tier`` and the copies of its first
@@ -183,7 +271,7 @@ class XMRServingEngine:
         """Warm every power-of-two bucket up to ``bucket_for(max_batch)`` at
         every tier (or at ``tiers``): each ``bucket_key`` a batcher capped
         at ``max_batch`` can dispatch."""
-        sizes, b = [], 1
+        sizes, b = [], self.config.shards
         target = self.bucket_for(max_batch)
         while b <= target:
             sizes.append(b)
@@ -249,18 +337,28 @@ class XMRServingEngine:
         return self.label_perm[leaves]
 
     def partition_hit_counts(self, leaves: np.ndarray) -> Optional[np.ndarray]:
-        """Per-partition result share of a batch; None: unpartitioned (the
-        partitioned index is ROADMAP.md queue 1 item 10)."""
-        return None
+        """Per-partition result share for a batch of *raw* leaf ids (before
+        ``label_perm``); None when serving unpartitioned."""
+        if self.planner is None:
+            return None
+        return self.planner.hit_counts(leaves)
 
     def beam_cache_stats(self) -> Optional[dict]:
-        """Hot-beam cache accounting; None: unpartitioned."""
-        return None
+        """Cumulative hot-beam cache accounting (None when off or
+        unpartitioned)."""
+        if self.planner is None:
+            return None
+        return self.planner.cache_stats()
 
     def last_degraded(self) -> Optional[dict]:
-        """Degraded-batch info of the last dispatch; None: unpartitioned,
-        every dispatch serves the whole tree."""
-        return None
+        """Degraded-batch info of the last dispatch: None when every
+        partition served it (or the engine is unpartitioned), else
+        ``{"partitions": [...], "label_ranges": [(lo, hi), ...]}``. Read it
+        right after the dispatch that produced it (the batcher snapshots it
+        per batch)."""
+        if self.planner is None:
+            return None
+        return self.planner.last_degraded
 
     def measure_batch_seconds(self, batch: int, iters: int = 3, tier: int = 0) -> float:
         """Median wall seconds for one ``batch``-sized dispatch at ``tier``

@@ -11,9 +11,10 @@ into queue wait (enqueue to batch formed) and compute (dispatch to results
 on the host), plus throughput (QPS, which is goodput: only completed
 requests count), coalescing triggers, bucket occupancy, overload accounting
 (shed and deadline-miss rates) and the beam-tier mix. Its summary keys are
-the reference's; the partition, pipeline-stall, beam-cache and replica
-fields stay empty until the partitioned index is ported (ROADMAP.md queue 1
-item 10).
+the reference's. A partitioned engine adds the partition occupancy (share
+of results per label partition), the pipeline stall (the worker's wall
+blocked on a dispatched batch's results, after dispatch returned) and the
+hot-beam cache's counters; a sharded one, the occupancy of each replica.
 """
 
 from __future__ import annotations

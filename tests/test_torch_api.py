@@ -212,7 +212,8 @@ def test_default_config_warns_nothing():
 def test_serving_and_index_import_without_jax_or_repro():
     modules = sorted(
         ".".join(p.relative_to(ROOT / "src").with_suffix("").parts).removesuffix(".__init__")
-        for d in ("serving", "index") for p in (ROOT / "src/repro_torch" / d).glob("*.py"))
+        for d in ("serving", "index", "distributed", "core")
+        for p in (ROOT / "src/repro_torch" / d).glob("*.py"))
     code = (
         "import sys\n"
         "for name in ('jax', 'jaxlib', 'repro'):\n"
@@ -227,6 +228,8 @@ def test_serving_and_index_import_without_jax_or_repro():
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          timeout=120, env={"PYTHONPATH": str(ROOT / "src"), "PATH": ""})
     assert out.returncode == 0, out.stderr
-    assert "repro_torch.serving.batcher" in modules and "repro_torch.index.planner" in modules
-    assert sorted(set(J.__all__) - set(T.__all__)) == [
-        "FleetConfig", "PartitionConfig", "ServingGateway"]
+    for m in ("repro_torch.serving.batcher", "repro_torch.index.planner",
+              "repro_torch.index.placement", "repro_torch.distributed.sharding",
+              "repro_torch.core.distributed"):
+        assert m in modules
+    assert sorted(set(J.__all__) - set(T.__all__)) == ["FleetConfig", "ServingGateway"]

@@ -478,3 +478,223 @@ def test_build_lock_two_threads_load_a_cleared_library(cuda_device, tmp_path, mo
     assert len(got) == 2 and got[0] is got[1]
     assert len(calls) == 1
     assert [p.name for p in tmp_path.iterdir()] == [build._target("mscm_grouped")[1].name]
+
+
+# ---------------------------------------------------------------------------
+# the label-partitioned index and multi-device dispatch on the card
+# ---------------------------------------------------------------------------
+
+def _card_batch(queries, n=45, width=32):
+    from repro_torch.sparse.csr import rows_to_ell
+
+    xi, xv = rows_to_ell(queries, np.arange(n), width)
+    return torch.from_numpy(xi).cuda(), torch.from_numpy(xv).cuda()
+
+
+def _bitwise(got, want):
+    assert torch.equal(got[1], want[1])
+    assert torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sync", ["level", "pipelined"])
+@pytest.mark.parametrize("n_partitions", [2, 4])
+@pytest.mark.parametrize("tier", ["exact", "int8", "fp8"])
+def test_partitioned_grouped_bitwise_on_card(cuda_device, tier, n_partitions, sync):
+    """Every partition through ``mscm_grouped`` (exact) or ``mscm_grouped_q``
+    (a ``quantize_index``ed index; the router head f32 through
+    ``mscm_grouped``): bitwise the unpartitioned tree on the card, with 1
+    router launch and one launch a partition a partitioned level. The
+    quantized index is held against the unpartitioned tree with the f32
+    head and, below it, the whole tree's codes dequantized: per-(chunk,
+    column) scales make the cut's codes the whole tree's, and grouped_q is
+    bitwise grouped on dequantized tiles."""
+    from repro_torch.index import ScatterGatherPlanner, partition_tree
+    from repro_torch.quant.storage import dequantize_tree, quantize_index
+
+    tree, queries = _serving_tree()
+    xi, xv = _card_batch(queries)
+    idx = partition_tree(tree, n_partitions)
+    method, whole = "mscm_pallas_grouped", tree
+    if tier != "exact":
+        method, idx = "mscm_pallas_grouped_q", quantize_index(idx, tier=tier)
+        deq = dequantize_tree(quantize_tree(tree, tier=tier))
+        whole = XMRTree(layers=tree.layers[:idx.level] + deq.layers[idx.level:],
+                        n_cols=tree.n_cols, branching=tree.branching, d=tree.d)
+    pl = ScatterGatherPlanner(idx, beam=10, topk=10, method=method, sync=sync)
+    pl.infer(xi, xv)  # builds and loads the kernels
+    before = (tk.GROUPED_LAUNCHES, qk.GROUPED_Q_LAUNCHES)
+    got = pl.infer(xi, xv)
+    grouped, grouped_q = tk.GROUPED_LAUNCHES - before[0], qk.GROUPED_Q_LAUNCHES - before[1]
+    part_launches = (tree.depth - idx.level) * n_partitions
+    assert (grouped, grouped_q) == ((1 + part_launches, 0) if tier == "exact"
+                                    else (1, part_launches))
+    _bitwise(got, whole.infer(xi, xv, beam=10, topk=10, method="mscm_pallas_grouped"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sync", ["level", "pipelined"])
+@pytest.mark.parametrize("method", ["mscm_pallas", "mscm_pallas_pregather", "vanilla",
+                                    "mscm_dense"])
+def test_planner_block_methods_bitwise_on_card(cuda_device, method, sync):
+    """The per-block kernels (and the plain methods) through the planner:
+    bitwise the unpartitioned tree on the card, in both exact modes (on the
+    card a score's bits do not depend on its position in the level)."""
+    from repro_torch.index import ScatterGatherPlanner, partition_tree
+
+    tree, queries = _serving_tree()
+    xi, xv = _card_batch(queries)
+    before = (tk.FUSED_LAUNCHES, tk.PREGATHER_LAUNCHES)
+    got = ScatterGatherPlanner(partition_tree(tree, 3), beam=10, topk=5, method=method,
+                               sync=sync).infer(xi, xv)
+    _bitwise(got, tree.infer(xi, xv, beam=10, topk=5, method=method))
+    fused, pregather = tk.FUSED_LAUNCHES - before[0], tk.PREGATHER_LAUNCHES - before[1]
+    if method == "mscm_pallas":
+        assert fused > 0 and pregather == 0
+    elif method == "mscm_pallas_pregather":
+        assert pregather > 0 and fused == 0
+
+
+@pytest.mark.cuda
+def test_per_slot_streams_on_one_card(cuda_device):
+    """Four partitions on ``cuda:0`` named five times: each partition on a
+    stream of its own, the coordinator on a fifth, none the default stream.
+    The results, read on the caller's stream with no synchronisation but
+    the copy's, are bitwise the unpartitioned tree's over many batches in
+    every exact mode (with the cache too); ``final`` dominates."""
+    from repro_torch.index import ScatterGatherPlanner, partition_tree, place
+
+    tree, queries = _serving_tree()
+    idx = partition_tree(tree, 4)
+    pm = place(idx, devices=["cuda:0"] * 5)
+    streams = [col[0].stream for col in pm.slots] + [pm.coordinator.stream]
+    assert pm.n_model == 4 and len({s.cuda_stream for s in streams}) == 5
+    assert torch.cuda.default_stream().cuda_stream not in {s.cuda_stream for s in streams}
+    planners = [ScatterGatherPlanner(idx, beam=10, topk=10, method="mscm_pallas_grouped",
+                                     sync=sync, placement=pm, cache_entries=cache)
+                for sync, cache in (("level", 0), ("pipelined", 0), ("pipelined", 64))]
+    for start in range(0, 40, 4):
+        xi, xv = _card_batch(queries.slice_rows(np.arange(start, 45)), n=45 - start)
+        want = tree.infer(xi, xv, beam=10, topk=10, method="mscm_pallas_grouped")
+        want = (want[0].cpu(), want[1].cpu())
+        for pl in planners:
+            s, l = pl.infer(xi, xv)
+            _bitwise((s.cpu(), l.cpu()), want)
+    final = ScatterGatherPlanner(idx, beam=4, topk=10, method="mscm_pallas_grouped",
+                                 sync="final", placement=pm)
+    s, _ = final.infer(xi, xv)
+    assert torch.all(s >= tree.infer(xi, xv, beam=4, topk=10, method="mscm_pallas_grouped")[0])
+
+
+@pytest.mark.cuda
+def test_sharded_engines_on_a_repeated_card(cuda_device):
+    """``shards=2`` on ``cuda:0`` twice and ``partitions=2, shards=2`` on it
+    four times (through the micro-batcher): bitwise one slot's serving on the
+    card, the bucket's halves on streams of their own."""
+    from repro_torch.serving import (BatchPolicy, MicroBatcher, PartitionConfig, Query,
+                                     ServeConfig, XMRServingEngine)
+
+    tree, queries = _serving_tree()
+    knobs = dict(ell_width=32, max_batch=64)
+    ref_s, ref_l = XMRServingEngine(tree, ServeConfig(**knobs)).serve_batch(queries)
+    rep = XMRServingEngine(tree, ServeConfig(shards=2, **knobs), devices=["cuda:0"] * 2)
+    assert rep.mesh.shape == {"data": 2}
+    s, l = rep.serve_batch(queries)
+    np.testing.assert_array_equal(s.view(np.uint32), ref_s.view(np.uint32))
+    np.testing.assert_array_equal(l, ref_l)
+    eng = XMRServingEngine(tree, ServeConfig(shards=2, partition=PartitionConfig(partitions=2),
+                                             **knobs), devices=["cuda:0"] * 4)
+    assert eng.mesh.shape == {"data": 2, "model": 2}
+    mb = MicroBatcher(eng, BatchPolicy(max_batch=16, max_wait_ms=5.0))
+    futs = [mb.submit(Query(*queries.row(i), qid=i)) for i in range(45)]
+    try:
+        mb.start()
+        res = [f.result(timeout=60) for f in futs]
+    finally:
+        mb.stop()
+    assert all(r.ok for r in res)
+    np.testing.assert_array_equal(np.stack([r.scores for r in res]).view(np.uint32),
+                                  ref_s.view(np.uint32))
+    np.testing.assert_array_equal(np.stack([r.ids for r in res]), ref_l)
+    summ = mb.metrics.summary()
+    assert len(summ["partition_occupancy"]) == 2 and len(summ["replica_occupancy"]) == 2
+    assert summ["pipeline_stall_avg_ms"] >= 0.0
+
+
+@pytest.mark.cuda
+def test_sharded_infer_on_card(cuda_device):
+    """``sharded_infer`` over a 2x2 mesh of ``cuda:0`` slots against the
+    tree's own ``mscm_dense`` traversal on the card."""
+    from repro_torch.core.distributed import shard_leaf_level, sharded_infer
+    from repro_torch.distributed.sharding import partition_mesh
+
+    tree, queries = _serving_tree()
+    xi, xv = _card_batch(queries, n=16)
+    mesh = partition_mesh(2, 2, devices=["cuda:0"] * 4)
+    upper, leaf = shard_leaf_level(tree, mesh)
+    s, l = sharded_infer(tree, upper, leaf, xi, xv, mesh, beam=10, topk=5)
+    want = tree.infer(xi, xv, beam=10, topk=5, method="mscm_dense")
+    check_ranking(s.cpu().numpy(), l.cpu().numpy(), want[0].cpu().numpy(),
+                  want[1].cpu().numpy())
+
+
+@pytest.mark.cuda
+def test_partitioned_and_sharded_across_cards(cuda_device):
+    """Every visible card a slot (skips with fewer than two): the partitions
+    on cards of their own and the coordinator on the first, so each hand-off
+    is a copy between cards; the replicated engine over all cards; and
+    ``sharded_infer`` over a mesh of cards. Bitwise one card's serving."""
+    from repro_torch.core.distributed import shard_leaf_level, sharded_infer
+    from repro_torch.distributed.sharding import partition_mesh
+    from repro_torch.serving import (BatchPolicy, MicroBatcher, PartitionConfig, Query,
+                                     ServeConfig, XMRServingEngine)
+
+    n_cards = torch.cuda.device_count()
+    if n_cards < 2:
+        pytest.skip("needs two or more CUDA devices")
+    tree, queries = _serving_tree()
+    knobs = dict(ell_width=32, max_batch=64)
+    ref_s, ref_l = XMRServingEngine(tree, ServeConfig(**knobs)).serve_batch(queries)
+
+    def same(s, l, what):
+        np.testing.assert_array_equal(l, ref_l, err_msg=what)
+        np.testing.assert_array_equal(s.view(np.uint32), ref_s.view(np.uint32), err_msg=what)
+
+    for sync in ("level", "pipelined"):
+        eng = XMRServingEngine(tree, ServeConfig(
+            partition=PartitionConfig(partitions=n_cards, partition_sync=sync), **knobs))
+        assert eng.mesh.shape == {"data": 1, "model": n_cards}
+        assert {p.device for p in eng.planner.parts} == {torch.device("cuda", i)
+                                                        for i in range(n_cards)}
+        same(*eng.serve_batch(queries), f"P={n_cards} {sync} across cards")
+    final = XMRServingEngine(tree, ServeConfig(
+        partition=PartitionConfig(partitions=n_cards, partition_sync="final"), **knobs))
+    assert (final.serve_batch(queries)[0] >= ref_s).all()
+    rep = XMRServingEngine(tree, ServeConfig(shards=n_cards, **knobs))
+    assert rep.mesh.shape == {"data": n_cards}
+    same(*rep.serve_batch(queries), f"shards={n_cards} across cards")
+    online_s, online_l = XMRServingEngine(tree, ServeConfig(**knobs)).serve_online(queries,
+                                                                                 limit=8)
+    s, l = rep.serve_online(queries, limit=8)
+    np.testing.assert_array_equal(s.view(np.uint32), online_s.view(np.uint32))
+    np.testing.assert_array_equal(l, online_l)
+    if n_cards >= 4:
+        eng = XMRServingEngine(tree, ServeConfig(shards=2, partition=PartitionConfig(
+            partitions=2, partition_sync="pipelined"), **knobs))
+        assert eng.mesh.shape == {"data": 2, "model": 2}
+        mb = MicroBatcher(eng, BatchPolicy(max_batch=16, max_wait_ms=5.0))
+        futs = [mb.submit(Query(*queries.row(i), qid=i)) for i in range(45)]
+        try:
+            mb.start()
+            res = [f.result(timeout=60) for f in futs]
+        finally:
+            mb.stop()
+        same(np.stack([r.scores for r in res]), np.stack([r.ids for r in res]),
+             "P=2 shards=2 across cards, through the batcher")
+        mesh = partition_mesh(2, 2)
+        upper, leaf = shard_leaf_level(tree, mesh)
+        xi, xv = _card_batch(queries, n=16)
+        s, l = sharded_infer(tree, upper, leaf, xi, xv, mesh, beam=10, topk=5)
+        want = tree.infer(xi, xv, beam=10, topk=5, method="mscm_dense")
+        check_ranking(s.cpu().numpy(), l.cpu().numpy(), want[0].cpu().numpy(),
+                      want[1].cpu().numpy())

@@ -129,12 +129,39 @@ def test_engine_needs_a_gpu_or_explicit_cpu(setup, monkeypatch):
 
 
 @pytest.mark.parametrize("kwargs,item", [
-    (dict(shards=2), "item 10"), (dict(partitions=2), "item 10"),
-    (dict(fleet=object()), "item 11"), (dict(partition=object()), "item 10"),
+    (dict(fleet=object()), "item 11"),
 ])
 def test_unported_options_raise(kwargs, item):
     with pytest.raises(NotImplementedError, match=item):
         ServeConfig(**kwargs)
+
+
+@pytest.mark.parametrize("case", ["shards", "flat_partitions", "partition_group"])
+def test_multi_device_options_match_reference(case):
+    """The options that raised until the partitioned index was ported build
+    as the reference's: ``shards=2``; flat ``partitions=2``, routed into the
+    partition group with the reference's DeprecationWarning; and a nested
+    ``PartitionConfig``. Every field is the reference's."""
+    from repro.serving import PartitionConfig as JPartition
+    from repro_torch.serving import PartitionConfig
+
+    assert [(f.name, f.default) for f in dataclasses.fields(PartitionConfig)] == [
+        (f.name, f.default) for f in dataclasses.fields(JPartition)]
+    if case == "shards":
+        c, j = ServeConfig(shards=2), JConfig(shards=2)
+    elif case == "flat_partitions":
+        with pytest.warns(DeprecationWarning):
+            c = ServeConfig(partitions=2)
+        with pytest.warns(DeprecationWarning):
+            j = JConfig(partitions=2)
+    else:
+        kw = dict(partitions=2, partition_sync="pipelined")
+        c, j = ServeConfig(partition=PartitionConfig(**kw)), JConfig(partition=JPartition(**kw))
+    for k in ("beam", "topk", "method", "ell_width", "max_batch", "score_mode", "qt", "shards",
+              "partitions", "partition_level", "partition_sync", "beam_cache"):
+        assert getattr(c, k) == getattr(j, k)
+    for group in ("admission", "partition", "quant", "slo"):
+        assert dataclasses.asdict(getattr(c, group)) == dataclasses.asdict(getattr(j, group))
 
 
 @pytest.mark.parametrize("group,kwargs", [
@@ -176,7 +203,7 @@ def test_config_defaults_and_unknown_options():
     for k in ("beam", "topk", "method", "ell_width", "max_batch", "score_mode", "qt", "shards",
               "queue_depth", "shed_policy", "deadline_ms", "target_p99_ms", "tier"):
         assert getattr(c, k) == getattr(j, k)
-    for group in ("admission", "quant", "slo"):
+    for group in ("admission", "partition", "quant", "slo"):
         assert dataclasses.asdict(getattr(c, group)) == dataclasses.asdict(getattr(j, group))
     with pytest.raises(TypeError):
         ServeConfig(beem=3)
