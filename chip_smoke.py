@@ -84,7 +84,27 @@ Phases, in order; any failure raises and the script exits non-zero:
             pipelined-on-5-slots engines in turns, and profiles (device
             activities, idle share) of one serve_batch of each of the first
             three. Each build logs its seconds and peak device memory.
-10. train   the training path at eurlex-4k's width (d = 5,000, L = 3,956,
+10. fleet   the same P = 4 pipelined partitions served by fleet workers
+            (``repro_torch.serving.fleet``): (1) four workers' own
+            connection loop in threads of this process on the card, over
+            localhost sockets, the int8 tier then the exact one, each bitwise
+            the in-process pipelined engine, launches counted (13 grouped a
+            bucket exact; 1 grouped and 12 grouped_q int8); (2) four worker
+            processes on the card (``PartitionFleet.launch(4)``): launch and
+            load seconds, bytes a partition, host memory; ms/query against
+            the in-process pipelined and unpartitioned engines in turns; the
+            256 queries as HTTP posts from 4 client threads through a
+            ``MicroBatcher(64, 2 ms)`` and ``ServingGateway``, every answer
+            200 and bitwise ``serve_batch``'s through JSON, client e2e
+            p50/p99 and QPS, ``/healthz`` and ``/metrics``; (3) failures:
+            ``reject`` (a killed worker: a typed 503 and ``/healthz`` 503,
+            then a manual respawn), ``serve_partial`` under a
+            ``FleetSupervisor`` (a killed worker: degraded results without
+            its labels, bitwise the thread workers with that partition down;
+            the supervisor respawns and re-ships it, then bitwise the full
+            results), the int8 tier through the processes (bitwise), fp8
+            refused by ``partition_payload``.
+11. train   the training path at eurlex-4k's width (d = 5,000, L = 3,956,
             n_test = 3,865 of ``PAPER_SHAPES``; n_train 15,460): a seeded
             ``synthetic_labeled_dataset``, PIFA + balanced-bisection
             clustering, ``train_xmr_model`` on the card (branching 8, 4
@@ -100,8 +120,9 @@ The line before last is a JSON object with one entry per kernel, whose
 ``launches`` count that kernel's path (grouped: path; grouped_q: the int8
 tier; pregather: search-1m online; fused: search-32k online; the grouped
 entry also counts the train phase's launches, and the grouped and grouped_q
-entries the server phase's, as ``server_launches``, and the partition
-phase's, as ``partition_launches``); the last is
+entries the server phase's, as ``server_launches``, the partition phase's,
+as ``partition_launches``, and the fleet phase's thread workers', as
+``fleet_launches``); the last is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -1577,8 +1598,379 @@ def partition(torch, mk, qk, gpu: str, tree, queries) -> tuple:
     return launches["grouped"], launches["grouped_q"]
 
 
+def http(url: str, doc=None):
+    """GET ``url`` (or POST ``doc`` as JSON): (HTTP status, JSON body), for
+    any status."""
+    import urllib.error
+    import urllib.request
+
+    data = None if doc is None else json.dumps(doc).encode()
+    req = urllib.request.Request(url, data=data, headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=SERVER_TIMEOUT_S) as resp:
+            return resp.status, json.load(resp)
+    except urllib.error.HTTPError as err:
+        return err.code, json.load(err)
+
+
+class ThreadWorkers:
+    """Fleet workers serving ``repro_torch.serving.fleet.worker.
+    _serve_connection`` on localhost sockets in threads of this process, on
+    ``device``: the worker's own loop without the process, so that this
+    process's launch counts see the workers' kernels."""
+
+    def __init__(self, n: int, device: str):
+        import socket
+        import threading
+
+        from repro_torch.serving.fleet.worker import _serve_connection
+
+        self.servers, self.threads = [], []
+        for _ in range(n):
+            srv = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+            srv.bind(("127.0.0.1", 0))
+            srv.listen(1)
+            t = threading.Thread(target=self._serve, daemon=True, args=(
+                srv, {"runner": None, "device": device}, _serve_connection))
+            t.start()
+            self.servers.append(srv)
+            self.threads.append(t)
+        self.addresses = [("127.0.0.1", s.getsockname()[1]) for s in self.servers]
+
+    @staticmethod
+    def _serve(srv, state, serve_connection):
+        while True:
+            try:
+                conn, _ = srv.accept()
+            except OSError:
+                return  # closed
+            try:
+                if serve_connection(conn, state):
+                    return
+            finally:
+                conn.close()
+
+    def close(self):
+        import socket
+
+        for s in self.servers:
+            try:
+                s.shutdown(socket.SHUT_RDWR)  # wakes a thread blocked in accept()
+            except OSError:
+                pass
+            s.close()
+        for t in self.threads:
+            t.join(timeout=SERVER_TIMEOUT_S)
+        if any(t.is_alive() for t in self.threads):
+            raise AssertionError("a thread worker did not stop")
+
+
+def proc_memory(pid) -> str:
+    """Resident host memory of a process (GB) from /proc: now (VmRSS, else
+    statm's resident pages) and its peak (VmHWM) where the kernel reports
+    one."""
+    import os
+
+    fields = {}
+    with open(f"/proc/{pid}/status") as f:
+        for line in f:
+            key, _, value = line.partition(":")
+            if key in ("VmHWM", "VmRSS"):
+                fields[key] = int(value.split()[0]) * 1024 / 1e9
+    if "VmRSS" not in fields:
+        with open(f"/proc/{pid}/statm") as f:
+            fields["VmRSS"] = int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE") / 1e9
+    peak = f"{fields['VmHWM']:.3f}" if "VmHWM" in fields else "not measured"
+    return f"now {fields['VmRSS']:.3f} GB, peak {peak}"
+
+
+def fleet(torch, mk, qk, gpu: str, tree, queries) -> tuple:
+    """Phase 10: search-1m's P = 4 partitions (split level 1, pipelined)
+    served by fleet workers, in three parts. (1) Launch counts: 4 workers in
+    threads of this process on the card, over sockets, the int8 tier then
+    the exact one, each bitwise the in-process pipelined engine (13 grouped
+    launches a bucket exact; 1 grouped and 12 grouped_q int8). (2) Worker
+    processes on the card (``PartitionFleet.launch(4)``): launch and load
+    seconds, bytes a partition, host memory; ms/query against the in-process
+    pipelined engine in turns; the 256 queries as HTTP posts through a
+    ``MicroBatcher(64, 2 ms)`` and ``ServingGateway`` from 4 client threads,
+    every answer 200 and bitwise; ``/healthz`` and ``/metrics``. (3)
+    Failures: ``reject`` -> a typed 503 and ``/healthz`` 503; a manual
+    respawn; ``serve_partial`` under a ``FleetSupervisor``: a killed worker
+    degrades results, bitwise the thread workers with that partition down,
+    then the supervisor respawns it and results are bitwise the full ones
+    again; then the int8 tier through the processes, bitwise, and fp8
+    refused by ``partition_payload``. Returns the grouped and grouped_q
+    launches of part 1."""
+    import dataclasses
+    import threading
+
+    from repro_torch.quant.storage import quantize_tree
+    from repro_torch.serving import (BatchPolicy, FleetConfig, MicroBatcher, PartitionConfig,
+                                     QuantConfig, Query, ServeConfig, ServingGateway,
+                                     XMRServingEngine)
+    from repro_torch.serving.fleet import FleetSupervisor, PartitionFleet, partition_payload
+
+    n, depth, P = queries.shape[0], tree.depth, PARTITIONS
+    mb_size = SERVE["max_batch"]
+    batches = -(-n // mb_size)
+    per_bucket = 1 + (depth - 1) * P
+    part = PartitionConfig(partitions=P, partition_sync="pipelined")
+
+    def bitwise(s, l, s_w, l_w, what):
+        if s.shape != (n, SERVE["topk"]) or not np.isfinite(s).all():
+            raise AssertionError(f"fleet {what}: bad scores, shape {s.shape}")
+        if not (np.array_equal(l, l_w) and np.array_equal(s.view(np.uint32),
+                                                          s_w.view(np.uint32))):
+            raise AssertionError(f"fleet {what}: not bitwise")
+
+    def counted(eng, what, grouped, grouped_q=0):
+        zero_counts(mk, qk)
+        s, l = eng.serve_batch(queries)
+        got = counts(mk, qk)
+        want = {"grouped": grouped, "grouped_q": grouped_q, "fused": 0, "pregather": 0}
+        if got != want:
+            raise AssertionError(f"fleet {what}: launches {got}, want {want}")
+        return s, l
+
+    plain = XMRServingEngine(tree, ServeConfig(method="auto", **SERVE))
+    s_x, l_x = plain.serve_batch(queries)
+    t0 = time.perf_counter()
+    exact = XMRServingEngine(tree, ServeConfig(method="auto", partition=part, **SERVE))
+    int8 = XMRServingEngine(tree, ServeConfig(method="auto", partition=part,
+                                              quant=QuantConfig(tier="int8"), **SERVE))
+    torch.cuda.synchronize()
+    dev = str(exact.device)  # the coordinator's card; the workers' too
+    log(f"  built the exact and int8 P={P} pipelined engines in "
+        f"{time.perf_counter() - t0:.3f} s  [{gpu}]")
+    s_p, l_p = exact.serve_batch(queries)
+    bitwise(s_p, l_p, s_x, l_x, "in-process pipelined vs unpartitioned")
+    s_qi, l_qi = int8.serve_batch(queries)
+
+    # 1. Launch counts: the workers' own loop in threads of this process.
+    threads = ThreadWorkers(P, dev)
+    local = PartitionFleet.connect(threads.addresses, rpc_timeout_s=SERVER_TIMEOUT_S)
+    fleet_launches = {"grouped": 0, "grouped_q": 0}
+    try:
+        for eng, what, want in ((int8, "int8", dict(grouped=batches,
+                                                     grouped_q=batches * (depth - 1) * P)),
+                                (exact, "exact", dict(grouped=batches * per_bucket))):
+            t0 = time.perf_counter()
+            local.attach(eng)
+            ship = time.perf_counter() - t0
+            eng.warmup(tree.d, (mb_size,))
+            s, l = counted(eng, f"thread workers {what}", **want)
+            bitwise(s, l, *((s_qi, l_qi) if what == "int8" else (s_x, l_x)),
+                    f"thread workers {what}")
+            for k in fleet_launches:
+                fleet_launches[k] += want.get(k, 0)
+            log(f"  {P} thread workers on {dev}, {what}: shipped in {ship:.3f} s over "
+                f"localhost; serve_batch of {n} bitwise the in-process pipelined engine; "
+                f"launches {want} ({ {k: v // batches for k, v in want.items()} } a bucket of "
+                f"{mb_size}), none of another kernel  [{gpu}]")
+        exact.planner.set_transport(None)
+
+        # 2. Worker processes on the card.
+        t0 = time.perf_counter()
+        procs = PartitionFleet.launch(P, rpc_timeout_s=SERVER_TIMEOUT_S)
+        t_launch = time.perf_counter() - t0
+        try:
+            part_bytes = [sum(t.numel() * t.element_size() for lay in p.layers
+                              for t in (lay.chunk_rows, lay.chunk_vals, lay.col_rows, lay.col_vals))
+                          for p in exact.index.parts]
+            rss0 = proc_memory("self")
+            t0 = time.perf_counter()
+            procs.attach(exact)
+            t_load = time.perf_counter() - t0
+            log(f"  {P} worker processes (python -m repro_torch.serving.fleet.worker, "
+                f"device default, the card): launched and announced in {t_launch:.3f} s; "
+                f"load of {sum(part_bytes) / 1e9:.4f} GB ({[round(b / 1e9, 4) for b in part_bytes]}"
+                f" GB a partition, chunk tiles and the per-column layout) in {t_load:.3f} s, "
+                f"{sum(part_bytes) / 1e9 / t_load:.3f} GB/s; coordinator host memory before "
+                f"{rss0}, after {proc_memory('self')}; workers "
+                f"{[proc_memory(h.proc.pid) for h in procs.handles]}  [{gpu}]")
+            exact.warmup(tree.d, (mb_size,))
+            s, l = exact.serve_batch(queries)
+            bitwise(s, l, s_x, l_x, "worker processes")
+            walls = {"unpartitioned": [], "in-process pipelined": [], "worker processes": []}
+            for r in range(4):
+                order = list(walls) if r % 2 == 0 else list(walls)[::-1]
+                for k in order:
+                    exact.planner.set_transport(procs if k == "worker processes" else None)
+                    t0 = time.perf_counter()
+                    (plain if k == "unpartitioned" else exact).serve_batch(queries)
+                    walls[k].append(time.perf_counter() - t0)
+            exact.planner.set_transport(procs)
+            for k, w in walls.items():
+                log(f"  {k}: serve_batch of {n}, wall s {[round(x, 6) for x in w]}, median "
+                    f"{1e3 * float(np.median(w)) / n:.5f} ms/query  [{gpu}]")
+            # Where a fleet bucket's wall goes, seen from the coordinator: its
+            # begin and step exchanges (frames out, the workers' levels,
+            # replies back), the rest being the router, marshalling, the
+            # router's read-back and the merges.
+            spent = {"begin": [], "step": []}
+            for name in spent:
+                def timed(*a, _call=getattr(procs, name), _out=spent[name], **k):
+                    t = time.perf_counter()
+                    out = _call(*a, **k)
+                    _out.append(time.perf_counter() - t)
+                    return out
+                setattr(procs, name, timed)
+            t0 = time.perf_counter()
+            exact.serve_batch(queries)
+            total = time.perf_counter() - t0
+            for name in spent:
+                delattr(procs, name)
+            rest = total - sum(map(sum, spent.values()))
+            log(f"  worker processes, one serve_batch of {n} ({batches} buckets): wall "
+                f"{1e3 * total:.3f} ms; begin exchanges {[round(1e3 * x, 3) for x in spent['begin']]}"
+                f" ms, step exchanges {[round(1e3 * x, 3) for x in spent['step']]} ms; the rest "
+                f"(router, marshalling, read-backs, merges) {1e3 * rest:.3f} ms  [{gpu}]")
+
+            # HTTP: 256 posts from 4 client threads.
+            mb = MicroBatcher(exact, BatchPolicy(max_batch=mb_size, max_wait_ms=2.0))
+            with mb, ServingGateway(mb, fleet=procs) as gw:
+                code, doc = http(gw.url + "/healthz")
+                if code != 200 or doc["status"] != "ok" or doc["workers"] != {
+                        f"worker{i}": True for i in range(P)}:
+                    raise AssertionError(f"fleet /healthz before traffic: {code} {doc}")
+                docs, e2e = [None] * n, [0.0] * n
+
+                def client(rows):
+                    for i in rows:
+                        t = time.perf_counter()
+                        docs[i] = http(gw.url + "/v1/query",
+                                       Query(*queries.row(i), qid=i).to_wire())
+                        e2e[i] = 1e3 * (time.perf_counter() - t)
+
+                t0 = time.perf_counter()
+                clients = [threading.Thread(target=client, args=(range(c, n, 4),))
+                           for c in range(4)]
+                for c in clients:
+                    c.start()
+                for c in clients:
+                    c.join(timeout=SERVER_TIMEOUT_S)
+                wall = time.perf_counter() - t0
+                if any(c.is_alive() for c in clients):
+                    raise AssertionError("fleet: an HTTP client did not finish")
+                for i, (code, doc) in enumerate(docs):
+                    if code != 200 or doc["status"] != "ok" or doc["qid"] != i:
+                        raise AssertionError(f"fleet HTTP qid {i}: {code} {doc}")
+                    got_s = np.asarray(doc["scores"], np.float32)
+                    if not (np.array_equal(np.asarray(doc["ids"]), l_x[i])
+                            and np.array_equal(got_s.view(np.uint32), s_x[i].view(np.uint32))):
+                        raise AssertionError(f"fleet HTTP qid {i}: not bitwise serve_batch's")
+                code, mdoc = http(gw.url + "/metrics")
+                if code != 200 or mdoc["count"] != n:
+                    raise AssertionError(f"fleet /metrics: {code} count {mdoc.get('count')}")
+                log(f"  HTTP through the gateway, {n} posts from 4 client threads: every answer "
+                    f"200 and bitwise serve_batch's through JSON; client e2e p50 / p99 "
+                    f"{np.percentile(e2e, 50):.3f} / {np.percentile(e2e, 99):.3f} ms, "
+                    f"{n / wall:.1f} QPS over {1e3 * wall:.3f} ms; server "
+                    f"{server_readings(mb.metrics)}; partition_occupancy "
+                    f"{mdoc['partition_occupancy']}  [{gpu}]")
+
+                # 3. Failures. reject: a dead worker fails queries typed.
+                procs.degraded_policy = "reject"
+                procs.handles[0].kill()
+                t0 = time.perf_counter()
+                code, doc = http(gw.url + "/v1/query", Query(*queries.row(0), qid=0).to_wire())
+                t_503 = time.perf_counter() - t0
+                if not (code == 503 and doc["status"] == "worker_unavailable"
+                        and "worker0" in doc["detail"] and t_503 < 60):
+                    raise AssertionError(f"fleet reject: {code} {doc} in {t_503:.3f} s")
+                hcode, hdoc = http(gw.url + "/healthz")
+                if hcode != 503 or hdoc["status"] != "degraded" or hdoc["workers"]["worker0"]:
+                    raise AssertionError(f"fleet reject /healthz: {hcode} {hdoc}")
+                t0 = time.perf_counter()
+                procs.respawn_worker(0)
+                t_manual = time.perf_counter() - t0
+                s, l = exact.serve_batch(queries)
+                bitwise(s, l, s_x, l_x, "after a manual respawn")
+                log(f"  reject: worker0 killed; a post answered 503 worker_unavailable in "
+                    f"{1e3 * t_503:.3f} ms ({doc['detail']!r}); /healthz {hcode} "
+                    f"{hdoc['status']!r}; respawn_worker(0) (launch and re-ship) in "
+                    f"{t_manual:.3f} s, then bitwise again  [{gpu}]")
+
+                # serve_partial under the supervisor.
+                procs.degraded_policy = "serve_partial"
+                cfg = FleetConfig(poll_interval_s=0.05, ping_timeout_s=5.0, suspect_after=1,
+                                  backoff_base_s=0.05, restart_budget=3)
+                dead = 2
+                with FleetSupervisor(procs, cfg) as sup:
+                    t_kill = time.perf_counter()
+                    procs.handles[dead].proc.kill()
+                    s, l = exact.serve_batch(queries)
+                    info = exact.last_degraded()
+                    lo, hi = exact.index.label_ranges()[dead]
+                    if info is None or info["partitions"] != [dead]:
+                        raise AssertionError(f"fleet serve_partial: degraded info {info}")
+                    if ((l >= lo) & (l < hi)).any():
+                        raise AssertionError("fleet serve_partial: a label of the dead range")
+                    local.mark_down(dead)
+                    exact.planner.set_transport(local)
+                    s_w, l_w = exact.serve_batch(queries)
+                    exact.planner.set_transport(procs)
+                    local.mark_up(dead)
+                    bitwise(s, l, s_w, l_w, "degraded vs the thread workers without it")
+                    code, doc = http(gw.url + "/v1/query",
+                                     Query(*queries.row(1), qid=1).to_wire())
+                    degraded_post = code == 200 and doc.get("degraded") is True
+                    while time.perf_counter() - t_kill < SERVER_TIMEOUT_S:
+                        st = sup.states()[f"worker{dead}"]
+                        if st["state"] == "up" and st["restarts"] >= 1 and not procs.down_pids():
+                            break
+                        time.sleep(0.05)
+                    t_respawn = time.perf_counter() - t_kill
+                    states, metrics = sup.states(), sup.metrics()
+                    if ({w["state"] for w in states.values()} != {"up"}
+                            or metrics["restarts_total"] != 1):
+                        raise AssertionError(f"fleet supervisor: {states} {metrics}")
+                    s, l = exact.serve_batch(queries)
+                    if exact.last_degraded() is not None:
+                        raise AssertionError("fleet: degraded after the respawn")
+                    bitwise(s, l, s_x, l_x, "after the supervisor's respawn")
+                    hcode, hdoc = http(gw.url + "/healthz")
+                    code, mdoc = http(gw.url + "/metrics")
+                    if hcode != 200 or mdoc["fleet"]["up"] != P:
+                        raise AssertionError(f"fleet after respawn: {hcode} {hdoc} {mdoc}")
+                log(f"  serve_partial: worker{dead} killed (SIGKILL); serve_batch degraded "
+                    f"(partitions {info['partitions']}, labels {info['label_ranges']} missing, "
+                    f"none served), bitwise the thread workers with partition {dead} down; a post "
+                    f"{'answered 200 degraded' if degraded_post else f'answered {code}'}; the "
+                    f"supervisor respawned and re-shipped it: up {t_respawn:.3f} s after the "
+                    f"kill, restarts_total {metrics['restarts_total']}; then bitwise the full "
+                    f"results, /healthz {hcode}, /metrics fleet {mdoc['fleet']}  [{gpu}]")
+
+            # int8 through the processes; fp8 refused on the wire.
+            t0 = time.perf_counter()
+            procs.attach(int8)
+            t_q = time.perf_counter() - t0
+            s, l = int8.serve_batch(queries)
+            bitwise(s, l, s_qi, l_qi, "int8 worker processes")
+            fp8 = dataclasses.replace(exact.index, parts=[quantize_tree(
+                exact.index.parts[0], tier="fp8")] + exact.index.parts[1:])
+            try:
+                partition_payload(fp8, 0, beam=SERVE["beam"], topk=SERVE["topk"],
+                                  method="mscm_pallas_grouped_q")
+                raise AssertionError("fleet: partition_payload shipped an fp8 partition")
+            except ValueError as exc:
+                refused = str(exc)
+            del fp8
+            log(f"  int8 through the worker processes: shipped "
+                f"{sum(p.memory_bytes for p in int8.index.manifest.partitions) / 1e9:.4f} GB in "
+                f"{t_q:.3f} s, serve_batch bitwise the in-process int8 pipelined engine; fp8 "
+                f"refused: {refused!r}  [{gpu}]")
+        finally:
+            procs.close()
+    finally:
+        local.close()
+        threads.close()
+    return fleet_launches["grouped"], fleet_launches["grouped_q"]
+
+
 def train(torch, mk, gpu: str, random_levels: list) -> int:
-    """Phase 10: the training path at eurlex-4k's width (d, L, n_test of
+    """Phase 11: the training path at eurlex-4k's width (d, L, n_test of
     ``PAPER_SHAPES``; n_train 4 x n_test, the quickstart's ratio), trained
     on the card, then its test split served in batch through
     ``method="auto"`` (the grouped kernel) and held against ``mscm_dense``
@@ -1733,6 +2125,9 @@ def main() -> int:
         torch, mk, qk, gpu, tree, queries)
     log(f"phase partition (at {time.perf_counter() - t_all:.1f} s)")
     grouped["partition_launches"], grouped_q["partition_launches"] = partition(
+        torch, mk, qk, gpu, tree, queries)
+    log(f"phase fleet (at {time.perf_counter() - t_all:.1f} s)")
+    grouped["fleet_launches"], grouped_q["fleet_launches"] = fleet(
         torch, mk, qk, gpu, tree, queries)
     del tree, queries
     torch.cuda.empty_cache()

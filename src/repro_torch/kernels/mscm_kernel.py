@@ -31,6 +31,7 @@ a run can show its main path went through it.
 from __future__ import annotations
 
 import functools
+import threading
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -41,6 +42,9 @@ import torch.nn.functional as F
 GROUPED_LAUNCHES = 0
 FUSED_LAUNCHES = 0
 PREGATHER_LAUNCHES = 0
+#: Held while a count is raised: wrappers run on several threads at once (a
+#: batcher's worker, in-process fleet workers), and ``+=`` is not atomic.
+COUNT_LOCK = threading.Lock()
 
 #: Element types the per-block kernels take, by their code in the C interface.
 BLOCK_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -208,7 +212,8 @@ def mscm_grouped(
                                   tile_src=tile_src)
     global GROUPED_LAUNCHES
     out = launch_grouped(xg_tiles, vals, None, tile_chunk, tile_src, parent_scores, mode)
-    GROUPED_LAUNCHES += 1
+    with COUNT_LOCK:
+        GROUPED_LAUNCHES += 1
     return out
 
 
@@ -675,8 +680,9 @@ def _launch_block(x, vals, block_c, rows=None, block_q=None) -> torch.Tensor:
             f"{name} launch failed with CUDA error {err} "
             f"(A={a}, R={r}, B={b}, C={c}, x {tuple(x.shape)} {x.dtype}, {plan})"
         )
-    if rows is not None:
-        FUSED_LAUNCHES += 1
-    else:
-        PREGATHER_LAUNCHES += 1
+    with COUNT_LOCK:
+        if rows is not None:
+            FUSED_LAUNCHES += 1
+        else:
+            PREGATHER_LAUNCHES += 1
     return out

@@ -25,6 +25,7 @@ import torch
 
 from repro_torch.kernels import ops
 from repro_torch.kernels.mscm_kernel import (
+    COUNT_LOCK,
     Q_DTYPES,
     check_grouped_args,
     common_device,
@@ -90,7 +91,8 @@ def mscm_grouped_q(
                                     mode=mode, tile_src=tile_src)
     global GROUPED_Q_LAUNCHES
     out = launch_grouped(xg_tiles, vals, scales, tile_chunk, tile_src, parent_scores, mode)
-    GROUPED_Q_LAUNCHES += 1
+    with COUNT_LOCK:
+        GROUPED_Q_LAUNCHES += 1
     return out
 
 

@@ -1,9 +1,10 @@
 """Serving tier of the port: engine, micro-batcher, admission, SLO beam
-tiers, metrics and the v1 wire types (counterpart of ``repro.serving``).
+tiers, metrics, the v1 wire types and the HTTP gateway (counterpart of
+``repro.serving``).
 
-``__all__`` is the reference's Public API v1 surface but for
-``FleetConfig`` and ``ServingGateway``, which come with the fleet
-(ROADMAP.md queue 1 item 11).
+``__all__`` is the reference's Public API v1 surface. The cross-process
+fleet lives in :mod:`repro_torch.serving.fleet` (imported on demand:
+spawning workers is opt-in).
 """
 
 from repro_torch.serving.admission import (
@@ -31,20 +32,22 @@ from repro_torch.serving.batcher import (
 from repro_torch.serving.config import (
     QUANT_TIERS,
     AdmissionConfig,
+    FleetConfig,
     PartitionConfig,
     QuantConfig,
     ServeConfig,
     SLOConfig,
 )
 from repro_torch.serving.engine import XMRServingEngine, resolve_method
+from repro_torch.serving.gateway import ServingGateway
 from repro_torch.serving.metrics import LatencyStats, ServerMetrics
 from repro_torch.serving.slo import BeamTier, BeamTierPolicy, resolve_tiers
 
 __all__ = [
     # configuration
     "AdmissionConfig",
+    "FleetConfig",
     "PartitionConfig",
-    "QUANT_TIERS",
     "QuantConfig",
     "ServeConfig",
     "SLOConfig",
@@ -74,6 +77,8 @@ __all__ = [
     "AdmissionPolicy",
     "LatencyStats",
     "ServerMetrics",
+    # network edge
+    "ServingGateway",
     # legacy aliases
     "RequestQueue",
     "StreamResult",

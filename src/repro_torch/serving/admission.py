@@ -90,9 +90,9 @@ class DeadlineExceeded(ServingError):
 class WorkerUnavailable(ServingError):
     """A fleet partition worker died or timed out mid-request.
 
-    Raised by the reference's fleet RPC layer (``repro.serving.fleet``; the
-    port's is ROADMAP.md queue 1 item 11) when a partition process is
-    unreachable — connection refused/reset, EOF, or a per-call timeout. The
+    Raised by the fleet's RPC layer (:mod:`repro_torch.serving.fleet.rpc`)
+    when a partition process is unreachable — connection refused/reset,
+    EOF, a corrupt frame, or a per-call timeout. The
     batcher fails the in-flight batch's futures with it (never hangs), and
     the gateway maps it to HTTP 503: the request *may* be retried once the
     fleet is repaired, unlike a 4xx.

@@ -1,12 +1,14 @@
 """Serving configuration: the reference's ``ServeConfig`` with its inference
-knobs and its ``admission``, ``partition``, ``quant`` and ``slo`` groups,
-with the same names, defaults and validation, so one configuration drives
-both packages.
+knobs and its ``admission``, ``partition``, ``fleet``, ``quant`` and ``slo``
+groups, with the same names, defaults and validation, so one configuration
+drives both packages.
 
 * :class:`AdmissionConfig` — the overload policy the
   :class:`~repro_torch.serving.batcher.MicroBatcher` applies at the queue;
 * :class:`PartitionConfig` — the label-partitioned dispatch topology
   (:mod:`repro_torch.index`);
+* :class:`FleetConfig` — the cross-process fleet's resilience: degraded
+  serving and the supervisor's knobs (:mod:`repro_torch.serving.fleet`);
 * :class:`QuantConfig` — the compressed-weight storage tier
   (:mod:`repro_torch.quant`);
 * :class:`SLOConfig` — latency-SLO adaptive inference: a ladder of degraded
@@ -19,9 +21,6 @@ splits each dispatched bucket over N device slots.
 The pre-v1 flat kwargs (``queue_depth=``, ``partitions=``, ``tier=``, …)
 are routed into their group with a :class:`DeprecationWarning`, and the
 read side keeps flat properties, as in the reference.
-
-The reference's ``fleet`` group is not ported yet: asking for it raises
-``NotImplementedError`` naming the ROADMAP.md item that ports it.
 """
 
 from __future__ import annotations
@@ -29,13 +28,6 @@ from __future__ import annotations
 import dataclasses
 import warnings
 from typing import Any, Optional, Tuple, Union
-
-#: Options of the reference's config this port does not run yet:
-#: name -> (the value that keeps it off, ROADMAP.md item).
-UNPORTED_OPTIONS = {
-    "fleet": (None, "queue 1 item 11 (fleet and gateway)"),
-}
-
 
 @dataclasses.dataclass
 class AdmissionConfig:
@@ -58,6 +50,43 @@ class PartitionConfig:
     # "final"     — one merge, no per-level sync; dominates, not bitwise
     partition_sync: str = "level"
     beam_cache: int = 0                    # hot-beam LRU entries (0 = off)
+
+
+#: Valid :attr:`FleetConfig.degraded_policy` values.
+DEGRADED_POLICIES = ("serve_partial", "reject")
+
+
+@dataclasses.dataclass
+class FleetConfig:
+    """Cross-process fleet resilience: degraded serving and supervision.
+
+    ``degraded_policy`` decides what a partition loss mid-query means:
+
+    * ``"serve_partial"`` (default) — complete the beam exchange over the
+      surviving partitions and stamp the result ``degraded`` with the
+      unsearched label ranges; survivor scores keep their exact bits.
+    * ``"reject"`` — fail the query with a typed ``worker_unavailable``.
+
+    The other knobs tune :class:`~repro_torch.serving.fleet.FleetSupervisor`:
+    its sweep cadence, the bound of one liveness probe, the consecutive
+    failed probes that turn ``SUSPECT`` into a restart, and the exponential
+    backoff and attempt budget of the respawn loop.
+    """
+
+    degraded_policy: str = "serve_partial"
+    poll_interval_s: float = 0.5   # supervisor sweep cadence
+    ping_timeout_s: float = 2.0    # per-worker probe bound
+    suspect_after: int = 2         # failed probes before a restart
+    backoff_base_s: float = 0.25   # delay after the first failed respawn
+    backoff_max_s: float = 10.0    # backoff doubles up to this cap
+    restart_budget: int = 5        # respawn attempts before FAILED
+
+    def __post_init__(self) -> None:
+        if self.degraded_policy not in DEGRADED_POLICIES:
+            raise ValueError(
+                f"degraded_policy={self.degraded_policy!r}; choose from "
+                f"{DEGRADED_POLICIES}"
+            )
 
 
 #: Valid :attr:`QuantConfig.tier` values.
@@ -123,13 +152,11 @@ class SLOConfig:
             prev = b
 
 
+#: Each group's name and class, in the order of the deprecation message.
+_GROUPS = (("admission", AdmissionConfig), ("partition", PartitionConfig),
+           ("fleet", FleetConfig), ("quant", QuantConfig), ("slo", SLOConfig))
 #: Flat kwarg name -> the group it belongs to.
-_GROUP_OF = {
-    **{f.name: "admission" for f in dataclasses.fields(AdmissionConfig)},
-    **{f.name: "partition" for f in dataclasses.fields(PartitionConfig)},
-    **{f.name: "quant" for f in dataclasses.fields(QuantConfig)},
-    **{f.name: "slo" for f in dataclasses.fields(SLOConfig)},
-}
+_GROUP_OF = {f.name: name for name, cls in _GROUPS for f in dataclasses.fields(cls)}
 
 
 @dataclasses.dataclass(init=False)
@@ -146,6 +173,7 @@ class ServeConfig:
     shards: int = 1               # data-parallel device slots per dispatch
     admission: AdmissionConfig = dataclasses.field(default_factory=AdmissionConfig)
     partition: PartitionConfig = dataclasses.field(default_factory=PartitionConfig)
+    fleet: FleetConfig = dataclasses.field(default_factory=FleetConfig)
     quant: QuantConfig = dataclasses.field(default_factory=QuantConfig)
     slo: SLOConfig = dataclasses.field(default_factory=SLOConfig)
 
@@ -161,6 +189,7 @@ class ServeConfig:
         shards: int = 1,
         admission: AdmissionConfig | None = None,
         partition: PartitionConfig | None = None,
+        fleet: FleetConfig | None = None,
         quant: QuantConfig | None = None,
         slo: SLOConfig | None = None,
         **flat: Any,
@@ -173,39 +202,34 @@ class ServeConfig:
         self.score_mode = score_mode
         self.qt = qt
         self.shards = shards
-        self.admission = admission if admission is not None else AdmissionConfig()
-        self.partition = partition if partition is not None else PartitionConfig()
-        self.quant = quant if quant is not None else QuantConfig()
-        self.slo = slo if slo is not None else SLOConfig()
-        for name, cls in (("admission", AdmissionConfig), ("partition", PartitionConfig),
-                          ("quant", QuantConfig), ("slo", SLOConfig)):
-            if not isinstance(getattr(self, name), cls):
-                raise TypeError(f"{name} must be a {cls.__name__}; "
-                                f"got {type(getattr(self, name)).__name__}")
-        grouped = {k: v for k, v in flat.items() if k in _GROUP_OF}
-        for name, value in flat.items():
-            if name in grouped:
-                continue
-            if name not in UNPORTED_OPTIONS:
-                raise TypeError(f"ServeConfig got an unexpected keyword argument {name!r}")
-            off, item = UNPORTED_OPTIONS[name]
-            if value != off:
-                raise NotImplementedError(
-                    f"ServeConfig({name}={value!r}) is not ported yet: ROADMAP.md {item}"
-                )
-        if grouped:
+        groups = dict(admission=admission, partition=partition, fleet=fleet, quant=quant,
+                      slo=slo)
+        for name, cls in _GROUPS:
+            group = groups[name]
+            if group is None:
+                group = cls()
+            elif not isinstance(group, cls):
+                raise TypeError(f"{name} must be a {cls.__name__}; got {type(group).__name__}")
+            setattr(self, name, group)
+        unknown = sorted(set(flat) - set(_GROUP_OF))
+        if unknown:
+            raise TypeError(f"ServeConfig got unexpected keyword argument(s) {unknown}")
+        if flat:
+            by_group = {name: {k: v for k, v in flat.items() if _GROUP_OF[k] == name}
+                        for name, _ in _GROUPS}
             warnings.warn(
-                f"flat ServeConfig kwarg(s) {sorted(grouped)} are deprecated; pass "
-                "admission=AdmissionConfig(...) / partition=PartitionConfig(...) / "
+                f"flat ServeConfig kwarg(s) "
+                f"{[k for name, _ in _GROUPS for k in sorted(by_group[name])]} "
+                "are deprecated; pass admission=AdmissionConfig(...) / "
+                "partition=PartitionConfig(...) / fleet=FleetConfig(...) / "
                 "quant=QuantConfig(...) / slo=SLOConfig(...) instead",
                 DeprecationWarning,
                 stacklevel=2,
             )
             # replace(), not setattr: never mutate a caller-shared group.
-            for group in ("admission", "partition", "quant", "slo"):
-                kw = {k: v for k, v in grouped.items() if _GROUP_OF[k] == group}
+            for name, kw in by_group.items():
                 if kw:
-                    setattr(self, group, dataclasses.replace(getattr(self, group), **kw))
+                    setattr(self, name, dataclasses.replace(getattr(self, name), **kw))
 
     # -- flat read-side forwarding (the reference's pre-v1 call sites) -------
     @property
@@ -235,6 +259,10 @@ class ServeConfig:
     @property
     def beam_cache(self) -> int:
         return self.partition.beam_cache
+
+    @property
+    def degraded_policy(self) -> str:
+        return self.fleet.degraded_policy
 
     @property
     def tier(self) -> str:

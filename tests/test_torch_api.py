@@ -10,8 +10,9 @@ The counterparts of ``tests/test_api.py``:
 3. the nested config groups, flat kwargs that warn and never mutate a
    shared group, an unknown kwarg raising, a default config warning
    nothing;
-4. every module of ``repro_torch.serving`` and ``repro_torch.index``
-   imports with ``jax`` and ``repro`` blocked.
+4. every module of ``repro_torch.serving`` (the fleet's and the gateway
+   included) and ``repro_torch.index`` imports with ``jax`` and ``repro``
+   blocked, and ``__all__`` is the reference's.
 """
 
 import dataclasses
@@ -212,7 +213,7 @@ def test_default_config_warns_nothing():
 def test_serving_and_index_import_without_jax_or_repro():
     modules = sorted(
         ".".join(p.relative_to(ROOT / "src").with_suffix("").parts).removesuffix(".__init__")
-        for d in ("serving", "index", "distributed", "core")
+        for d in ("serving", "serving/fleet", "index", "distributed", "core")
         for p in (ROOT / "src/repro_torch" / d).glob("*.py"))
     code = (
         "import sys\n"
@@ -230,6 +231,9 @@ def test_serving_and_index_import_without_jax_or_repro():
     assert out.returncode == 0, out.stderr
     for m in ("repro_torch.serving.batcher", "repro_torch.index.planner",
               "repro_torch.index.placement", "repro_torch.distributed.sharding",
-              "repro_torch.core.distributed"):
+              "repro_torch.core.distributed", "repro_torch.serving.gateway",
+              "repro_torch.serving.fleet", "repro_torch.serving.fleet.rpc",
+              "repro_torch.serving.fleet.worker", "repro_torch.serving.fleet.launcher",
+              "repro_torch.serving.fleet.supervisor"):
         assert m in modules
-    assert sorted(set(J.__all__) - set(T.__all__)) == ["FleetConfig", "ServingGateway"]
+    assert T.__all__ == J.__all__

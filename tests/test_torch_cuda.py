@@ -698,3 +698,62 @@ def test_partitioned_and_sharded_across_cards(cuda_device):
         want = tree.infer(xi, xv, beam=10, topk=5, method="mscm_dense")
         check_ranking(s.cpu().numpy(), l.cpu().numpy(), want[0].cpu().numpy(),
                       want[1].cpu().numpy())
+
+
+# ---------------------------------------------------------------------------
+# the fleet: worker processes on the card
+# ---------------------------------------------------------------------------
+
+def _fleet_served(tree, queries, method="auto", tier="exact"):
+    """``serve_batch`` through a P = 2 pipelined engine whose partitions two
+    worker processes serve on ``cuda:0`` (``device=`` forwarded to each as
+    ``--device``), and through the same engine in process."""
+    from repro_torch.serving import PartitionConfig, QuantConfig, ServeConfig, XMRServingEngine
+    from repro_torch.serving.fleet import PartitionFleet
+
+    cfg = ServeConfig(method=method, ell_width=32, max_batch=64, quant=QuantConfig(tier=tier),
+                      partition=PartitionConfig(partitions=2, partition_sync="pipelined"))
+    local = XMRServingEngine(tree, cfg).serve_batch(queries)
+    eng = XMRServingEngine(tree, cfg)
+    with PartitionFleet.launch(2, device="cuda:0") as fleet:
+        fleet.attach(eng)
+        assert all(h.alive() for h in fleet.handles)
+        got = eng.serve_batch(queries)
+        assert eng.last_degraded() is None
+    return got, local
+
+
+def _same(got, want):
+    np.testing.assert_array_equal(got[1], want[1])
+    np.testing.assert_array_equal(got[0].view(np.uint32), want[0].view(np.uint32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tier", ["exact", "int8"])
+def test_fleet_processes_on_card_bitwise(cuda_device, tier):
+    """Worker processes on the card: the exact tier bitwise the in-process
+    pipelined engine and the unpartitioned one; the int8 tier (grouped_q in
+    the workers) bitwise the in-process int8 pipelined engine."""
+    from repro_torch.serving import ServeConfig, XMRServingEngine
+
+    tree, queries = _serving_tree()
+    got, local = _fleet_served(tree, queries, tier=tier)
+    _same(got, local)
+    if tier == "exact":
+        _same(got, XMRServingEngine(tree, ServeConfig(ell_width=32, max_batch=64))
+              .serve_batch(queries))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["mscm_pallas", "mscm_pallas_pregather"])
+def test_fleet_forced_block_method_through_workers(cuda_device, method):
+    """A forced per-block method through worker processes on the card: each
+    worker runs the per-block kernel on its partition; bitwise the
+    in-process pipelined engine and the unpartitioned tree."""
+    from repro_torch.serving import ServeConfig, XMRServingEngine
+
+    tree, queries = _serving_tree()
+    got, local = _fleet_served(tree, queries, method=method)
+    _same(got, local)
+    _same(got, XMRServingEngine(tree, ServeConfig(method=method, ell_width=32, max_batch=64))
+          .serve_batch(queries))

@@ -3,10 +3,9 @@
 Both engines get the same ``ServeConfig`` knobs, weights and queries and
 serve them in the batch and online settings; results agree under the rule
 of ``test_torch_tree.py`` (scores within ``rtol=1e-5, atol=1e-6``, labels
-equal wherever the reference's score gap exceeds that). Options not ported
-yet raise ``NotImplementedError``; the config groups that are ported build
-as the reference's; the quantized tiers are held against the reference in
-``test_torch_quant.py``.
+equal wherever the reference's score gap exceeds that). Every config group
+builds as the reference's (the fleet's too); the quantized tiers are held
+against the reference in ``test_torch_quant.py``.
 """
 
 import dataclasses
@@ -128,12 +127,46 @@ def test_engine_needs_a_gpu_or_explicit_cpu(setup, monkeypatch):
         XMRServingEngine(tt, ServeConfig())
 
 
-@pytest.mark.parametrize("kwargs,item", [
-    (dict(fleet=object()), "item 11"),
-])
-def test_unported_options_raise(kwargs, item):
-    with pytest.raises(NotImplementedError, match=item):
-        ServeConfig(**kwargs)
+@pytest.mark.parametrize("case", ["defaults", "nested", "flat", "bad_policy", "bad_group"])
+def test_fleet_config_matches_reference(case):
+    """``FleetConfig`` and the ``fleet`` group build as the reference's: the
+    same fields and defaults, nested and from flat kwargs (with the
+    reference's DeprecationWarning, word for word), the same refusal of an
+    unknown ``degraded_policy``, and the read-side ``degraded_policy``."""
+    from repro.serving import FleetConfig as JFleet
+    from repro.serving.config import DEGRADED_POLICIES as J_POLICIES
+    from repro_torch.serving import FleetConfig
+    from repro_torch.serving.config import DEGRADED_POLICIES
+
+    assert DEGRADED_POLICIES == J_POLICIES
+    assert [(f.name, f.default) for f in dataclasses.fields(FleetConfig)] == [
+        (f.name, f.default) for f in dataclasses.fields(JFleet)]
+    kw = dict(degraded_policy="reject", poll_interval_s=0.05, suspect_after=1,
+              restart_budget=3)
+    if case == "defaults":
+        c, j = ServeConfig(), JConfig()
+    elif case == "nested":
+        c, j = ServeConfig(fleet=FleetConfig(**kw)), JConfig(fleet=JFleet(**kw))
+    elif case == "flat":
+        with pytest.warns(DeprecationWarning) as t_warn:
+            c = ServeConfig(partitions=2, **kw)
+        with pytest.warns(DeprecationWarning) as j_warn:
+            j = JConfig(partitions=2, **kw)
+        assert [str(w.message) for w in t_warn] == [str(w.message) for w in j_warn]
+    elif case == "bad_policy":
+        with pytest.raises(ValueError) as t_err:
+            FleetConfig(degraded_policy="best_effort")
+        with pytest.raises(ValueError) as j_err:
+            JFleet(degraded_policy="best_effort")
+        assert str(t_err.value) == str(j_err.value)
+        return
+    else:
+        with pytest.raises(TypeError, match="FleetConfig"):
+            ServeConfig(fleet=object())
+        return
+    assert dataclasses.asdict(c.fleet) == dataclasses.asdict(j.fleet)
+    assert c.degraded_policy == j.degraded_policy
+    assert c.partitions == j.partitions
 
 
 @pytest.mark.parametrize("case", ["shards", "flat_partitions", "partition_group"])
@@ -203,7 +236,7 @@ def test_config_defaults_and_unknown_options():
     for k in ("beam", "topk", "method", "ell_width", "max_batch", "score_mode", "qt", "shards",
               "queue_depth", "shed_policy", "deadline_ms", "target_p99_ms", "tier"):
         assert getattr(c, k) == getattr(j, k)
-    for group in ("admission", "partition", "quant", "slo"):
+    for group in ("admission", "partition", "fleet", "quant", "slo"):
         assert dataclasses.asdict(getattr(c, group)) == dataclasses.asdict(getattr(j, group))
     with pytest.raises(TypeError):
         ServeConfig(beem=3)
