@@ -1,7 +1,8 @@
 """PyTorch/CUDA port of the XMR tree inference system (``repro``).
 
 The package mirrors ``repro``'s layout — ``sparse``, ``core``, ``kernels``,
-``quant``, ``trees``, ``data``, ``serving`` — with the same module and
+``quant``, ``trees``, ``data``, ``serving``, ``index``, ``distributed``,
+``checkpoint``, ``configs``, ``models``, ``launch`` — with the same module and
 function names. It imports ``torch`` and numpy, never ``jax`` and nothing of
 ``repro``. Entry points place the model on a CUDA device unless the caller
 passes ``device="cpu"``. Each of the reference's four Pallas kernels has a

@@ -1,0 +1,2 @@
+from repro_torch.configs.base import ARCH_IDS, all_configs, get_config, reduced_config
+from repro_torch.configs.shapes import SHAPES, ShapeSpec, runnable

@@ -13,6 +13,9 @@ model the reference trained serves in the port.
 :func:`partitioned_index_from_numpy` carries a label-partitioned index
 across (router head, parts, quantized ones included, and manifest), so both
 packages serve the same partitions.
+:func:`lm_params_from_numpy` carries an LM's parameter pytree (or its cache)
+across with the same keys, shapes and dtypes, bf16 and fp8 leaves included,
+and :func:`vocab_head_from_numpy` a vocab-tree head.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ import torch
 
 from repro_torch.core.tree import TreeLayerArrays, XMRTree, resolve_device
 from repro_torch.index.partition import PartitionedIndex, PartitionManifest
+from repro_torch.models.xmr_head import VocabTreeHead
 from repro_torch.quant.storage import QUANT_DTYPES, QuantizedTree, QuantLayerArrays, tier_dtype
 from repro_torch.trees.cluster import TreeStructure
 from repro_torch.trees.train import TrainedXMRModel
@@ -178,3 +182,46 @@ def partitioned_index_from_numpy(
         n_cols=tuple(int(c) for c in n_cols),
         branching=tuple(manifest.branching),
     )
+
+
+# numpy dtypes (by name, as ``ml_dtypes`` names them) that torch reads only
+# through an integer view of their bytes
+_RAW_NUMPY = {
+    "bfloat16": (np.int16, torch.bfloat16),
+    "float8_e4m3fn": (np.uint8, torch.float8_e4m3fn),
+}
+
+
+def _leaf_from_numpy(a, dev: torch.device) -> torch.Tensor:
+    a = np.asarray(a)
+    raw = _RAW_NUMPY.get(a.dtype.name)
+    if raw is not None:
+        return torch.from_numpy(np.array(a, order="C").view(raw[0])).view(raw[1]).to(dev)
+    return torch.from_numpy(np.array(a, order="C")).to(dev)
+
+
+def lm_params_from_numpy(params: Any, device: str | torch.device | None = None) -> Any:
+    """The port's parameter pytree from the reference's (numpy leaves, e.g.
+    from ``jax.device_get``): the same nested dicts, lists and tuples, each
+    leaf a tensor of the same shape and dtype on ``device`` (CUDA unless
+    named). bf16 and fp8 leaves cross as their bytes. A decode cache crosses
+    the same way."""
+    dev = resolve_device(device)
+
+    def conv(x):
+        if isinstance(x, dict):
+            return {k: conv(v) for k, v in x.items()}
+        if isinstance(x, (list, tuple)):
+            return type(x)(conv(v) for v in x)
+        return _leaf_from_numpy(x, dev)
+
+    return conv(params)
+
+
+def vocab_head_from_numpy(wc: np.ndarray, chunks: np.ndarray, n_vocab: int, *,
+                          device: str | torch.device | None = None) -> VocabTreeHead:
+    """The port's :class:`VocabTreeHead` from a reference head's ``wc``
+    [d, C], ``chunks`` [C, d, B] and ``n_vocab``, on ``device``."""
+    dev = resolve_device(device)
+    return VocabTreeHead(wc=_leaf_from_numpy(wc, dev), chunks=_leaf_from_numpy(chunks, dev),
+                         n_vocab=int(n_vocab))

@@ -211,9 +211,12 @@ def test_default_config_warns_nothing():
 # ---------------------------------------------------------------------------
 
 def test_serving_and_index_import_without_jax_or_repro():
+    """Every module of the serving, index, distributed, core, checkpoint,
+    configs, models and launch packages imports with jax and repro blocked."""
     modules = sorted(
         ".".join(p.relative_to(ROOT / "src").with_suffix("").parts).removesuffix(".__init__")
-        for d in ("serving", "serving/fleet", "index", "distributed", "core")
+        for d in ("serving", "serving/fleet", "index", "distributed", "core", "checkpoint",
+                  "configs", "models", "launch")
         for p in (ROOT / "src/repro_torch" / d).glob("*.py"))
     code = (
         "import sys\n"
@@ -234,6 +237,10 @@ def test_serving_and_index_import_without_jax_or_repro():
               "repro_torch.core.distributed", "repro_torch.serving.gateway",
               "repro_torch.serving.fleet", "repro_torch.serving.fleet.rpc",
               "repro_torch.serving.fleet.worker", "repro_torch.serving.fleet.launcher",
-              "repro_torch.serving.fleet.supervisor"):
+              "repro_torch.serving.fleet.supervisor", "repro_torch.checkpoint.ckpt",
+              "repro_torch.configs.base", "repro_torch.configs.yi_6b",
+              "repro_torch.models.lm", "repro_torch.models.xmr_head",
+              "repro_torch.models.attention", "repro_torch.models.moe",
+              "repro_torch.models.ssm", "repro_torch.launch.specs"):
         assert m in modules
     assert T.__all__ == J.__all__

@@ -757,3 +757,121 @@ def test_fleet_forced_block_method_through_workers(cuda_device, method):
     _same(got, local)
     _same(got, XMRServingEngine(tree, ServeConfig(method=method, ell_width=32, max_batch=64))
           .serve_batch(queries))
+
+
+# ---------------------------------------------------------------------------
+# the LM scaffold's serving path and checkpoints on the card
+# ---------------------------------------------------------------------------
+
+# Card against CPU (chip_smoke.py's lm phase): f32 prefill logits within 1e-4
+# (other summation orders; RWKV's chunked scan magnifies last-bit
+# differences); decode reads the bf16 cache, where a last-bit difference
+# before rounding can round either way: 5e-3. Both scaled by 1 + max|logit|.
+LM_PREFILL_TOL, LM_DECODE_TOL = 1e-4, 5e-3
+
+
+def _lm_arch_ids():
+    from repro_torch.configs import ARCH_IDS
+
+    return ARCH_IDS
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", _lm_arch_ids())
+def test_reduced_lm_on_card_matches_cpu(cuda_device, arch):
+    """Prefill and four greedy decode steps on the card against the same on
+    the CPU, with the same parameters (the port's seeded init, copied to the
+    card) and inputs."""
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.launch.specs import make_demo_batch
+    from repro_torch.models import lm
+
+    cfg = reduced_config(get_config(arch))
+    params = lm.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    batch = make_demo_batch(cfg, np.random.default_rng(0), 2, 12, device="cpu")
+
+    def to_card(tree):
+        if isinstance(tree, dict):
+            return {k: to_card(v) for k, v in tree.items()}
+        return tree.to(cuda_device)
+
+    gp, gb = to_card(params), to_card(batch)
+    cl, cc = lm.prefill(cfg, params, batch, max_len=20)
+    gl, gc = lm.prefill(cfg, gp, gb, max_len=20)
+    assert gl.device.type == "cuda" and all(v.device.type == "cuda" for v in gc.values())
+    scale = 1 + float(cl.abs().max())
+    assert float((gl.cpu() - cl).abs().max()) <= LM_PREFILL_TOL * scale
+    pos = 12 + (batch["patch_embeds"].shape[1] if cfg.family == "vlm" else 0)
+    tok = cl[:, -1].argmax(-1)
+    for i in range(4):
+        cl, cc = lm.decode_step(cfg, params, cc, tok, pos + i)
+        gl, gc = lm.decode_step(cfg, gp, gc, tok.to(cuda_device), pos + i)
+        assert torch.isfinite(gl).all()
+        assert float((gl.cpu() - cl).abs().max()) <= LM_DECODE_TOL * (1 + float(cl.abs().max()))
+        tok = cl.argmax(-1)
+    fl, _ = lm.forward_train(cfg, gp, gb)
+    cf, _ = lm.forward_train(cfg, params, batch)
+    assert float((fl.cpu() - cf).abs().max()) <= LM_PREFILL_TOL * (1 + float(cf.abs().max()))
+
+
+@pytest.mark.cuda
+def test_vocab_tree_head_on_card(cuda_device):
+    """Beam = C gives the dense argmax on the card; the beams' token ids
+    equal the CPU's."""
+    from repro_torch.models.xmr_head import VocabTreeHead, greedy_token
+
+    g = torch.Generator().manual_seed(0)
+    w = torch.randn(64, 1000, generator=g) / 8
+    h = torch.randn(16, 64, generator=g)
+    cpu = VocabTreeHead.from_lm_head(w, 16)
+    card = VocabTreeHead.from_lm_head(w.to(cuda_device), 16)
+    hc = h.to(cuda_device)
+    assert torch.equal(greedy_token(card, hc, beam=card.n_clusters).cpu(), (h @ w).argmax(1))
+    for beam in (1, 4, 16):
+        assert torch.equal(card.decode_logits(hc, beam=beam)[1].cpu(),
+                           cpu.decode_logits(h, beam=beam)[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("async_write", [False, True])
+def test_checkpoint_round_trip_onto_card(cuda_device, tmp_path, async_write):
+    """Leaves of every dtype, a quantized layer and a reduced LM's params
+    saved from the card and restored onto it bitwise; restored onto the CPU
+    with ``device="cpu"``; a CPU-written checkpoint restored onto the card."""
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.checkpoint.ckpt import _leaves_with_path
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.models import lm
+    from repro_torch.quant.storage import QuantLayerArrays
+
+    g = torch.Generator(cuda_device).manual_seed(1)
+    q = QuantLayerArrays(
+        chunk_rows=torch.randint(0, 50, (3, 4), device=cuda_device, dtype=torch.int32),
+        chunk_vals=torch.randn(3, 4, 8, generator=g, device=cuda_device).to(torch.float8_e4m3fn),
+        chunk_scales=torch.rand(3, 8, generator=g, device=cuda_device))
+    state = {
+        "misc": {"bf16": torch.randn(5, 7, generator=g, device=cuda_device).to(torch.bfloat16),
+                 "i8": torch.randint(-127, 128, (9,), device=cuda_device, dtype=torch.int8),
+                 "layers": [q]},
+        "lm": lm.init_params(reduced_config(get_config("hymba-1.5b")), g, device=cuda_device),
+    }
+    ck = Checkpointer(str(tmp_path / "card"), async_write=async_write)
+    ck.save(3, state)
+    _, out = ck.restore(state)
+    _, host = ck.restore(state, device="cpu")
+    for name in state:
+        want = list(_leaves_with_path(state[name]))
+        got = dict(_leaves_with_path(out[name]))
+        on_host = dict(_leaves_with_path(host[name]))
+        for key, a in want:
+            assert got[key].device == a.device and on_host[key].device.type == "cpu"
+            width = {1: torch.uint8, 2: torch.int16, 4: torch.int32}[a.element_size()]
+            assert torch.equal(got[key].view(width), a.view(width)), key
+            assert torch.equal(on_host[key].view(width), a.cpu().view(width)), key
+    cpu_state = {"w": torch.randn(4, 4).to(torch.bfloat16)}
+    ck2 = Checkpointer(str(tmp_path / "host"), async_write=False)
+    ck2.save(1, {"p": cpu_state})
+    _, back = ck2.restore({"p": {"w": torch.zeros(4, 4, dtype=torch.bfloat16,
+                                                  device=cuda_device)}})
+    assert back["p"]["w"].device.type == "cuda"
+    assert torch.equal(back["p"]["w"].cpu(), cpu_state["w"])
