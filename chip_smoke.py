@@ -139,6 +139,25 @@ Phases, in order; any failure raises and the script exits non-zero:
             profiled step's device activities and idle share, tree-head ms
             against the dense head, peak memory; then every reduced config's
             prefill and 4 decode steps on the card against the CPU.
+14. lm_train the LM's training path (plain torch ops and autograd, no kernel
+            of the port): ``yi-6b`` at full width and depth (32 layers, d =
+            4,096, remat ``full``) trained on the card with Adafactor in
+            place of its config's AdamW (params, grads, m and v would need 4
+            x 24.24 GB), 2 sequences of 1,024 tokens a step from
+            ``batch_at_step``, 6 steps (warmup 2) through ``make_train_step``:
+            init seconds, ms a step (median of steps 2-5, CUDA events),
+            tokens/s, MFU (6·N·T over 67 TFLOP/s f32) beside the rate with
+            remat's recompute (8·N·T), the optimizer update's ms, peak
+            memory, the losses (a non-finite loss or gradient fails); one
+            step profiled; two steps with the layer loop's per-layer
+            ``a[i]`` views against two with ``torch.unbind``; then every
+            reduced config's ``make_train_step`` step (remat ``full``, the
+            config's optimizer) on the card against the CPU from the same
+            parameters and batch (the loss and every gradient; every leaf
+            the card's update makes from the CPU's gradients); then ``train_loop`` on the card (reduced yi-6b, 12 steps,
+            checkpoints every 4, a failure injected at step 6, bf16 gradient
+            compression) and again on the same directory to 16 steps: it
+            resumes at step 12.
 
 The line before last is a JSON object with one entry per kernel, whose
 ``launches`` count that kernel's path (grouped: path; grouped_q: the int8
@@ -162,8 +181,6 @@ from pathlib import Path
 import numpy as np
 
 ROOT = Path(__file__).resolve().parent
-HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
-F32_FLOPS = 67e12           # H100 SXM f32 outside the tensor cores
 # Kernel vs plain version: R-term f32 sums taken in different orders. With
 # inputs in [0, 1) x N(0, 1) the terms' magnitudes add up to ~200 at
 # R = 496, so reordering moves a sum by up to ~1e-4.
@@ -260,6 +277,29 @@ LM_TREE_B, LM_TREE_BEAMS = 128, (8, 16, 64)
 # logits).
 LM_REDUCED = dict(batch=2, seq=12, max_len=20, steps=4)
 LM_REDUCED_TOL = {"prefill": 1e-4, "decode": 5e-3}
+# The lm_train phase: yi-6b at full width and depth with Adafactor (AdamW's m
+# and v do not fit beside params and grads on 80 GB), 2 x 1,024 tokens a
+# step from batch_at_step (seed 0), 6 steps with a warmup of 2; steps 2-5 are
+# timed. Then 2 steps with per-layer a[i] views and 2 with unbind, the second
+# of each pair timed.
+LM_TRAIN = dict(batch=2, seq=1024, steps=6, warmup=2, timed=slice(2, 6), pair=2)
+# Every reduced config, one step card against CPU (remat full, the config's
+# optimizer, lr 1e-2 from step 0), in two parts. The backward: each gradient
+# leaf within 1e-5 of its max |grad|, the CPU tests' bound of the port against
+# jax.grad; RWKV within 1e-3: its chunked scan is ill-conditioned in f32
+# (each device's distance from an f64 run of the step, logged beside, is
+# of the same size: 2.3e-4 on the CPU, 5.9e-4 on the card in the first
+# readings), and the loss within 1e-5. The update: the
+# card's optimizer applied to the CPU's gradients gives the CPU's parameters
+# within 1e-7 + 1e-6 |p| (ULPs of pow, rsqrt and the means' sums; the
+# update's own error is not amplified by a gradient's sign or scale).
+LM_TRAIN_REDUCED = dict(batch=2, seq=12, lr=1e-2)
+LM_TRAIN_TOL = dict(loss=1e-5, grad=1e-5, ssm_grad=1e-3, param_rtol=1e-6, param_atol=1e-7)
+# The loop on the card: reduced yi-6b, 12 steps (a checkpoint every 4, a
+# failure injected at step 6, bf16 gradient compression), then 16 steps on
+# the same directory.
+LM_LOOP = dict(batch=4, seq=16, steps=12, resume_steps=16, save_every=4,
+               inject_failure_at=6)
 
 
 def log(msg: str) -> None:
@@ -311,7 +351,9 @@ def time_ms(fn, reps: int = 25, inner: int = 10) -> float:
 def bound(nbytes: float, flops: float):
     """(bound ms, what bounds it): bytes over the memory rate against f32
     operations over the CUDA cores' rate."""
-    bytes_ms, flops_ms = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * flops / F32_FLOPS
+    from repro_torch.launch.hw import HBM_BW, PEAK_FLOPS_F32
+
+    bytes_ms, flops_ms = 1e3 * nbytes / HBM_BW, 1e3 * flops / PEAK_FLOPS_F32
     return max(bytes_ms, flops_ms), "bytes" if bytes_ms >= flops_ms else "operations"
 
 
@@ -962,6 +1004,7 @@ def path(torch, mk, gpu: str):
     kernel's launches, the tree and the queries."""
     from repro_torch.data.build import build_benchmark_tree
     from repro_torch.data.xmr_data import XMRShape, benchmark_queries
+    from repro_torch.launch import hw
     from repro_torch.parity import check_ranking
     from repro_torch.serving import ServeConfig, XMRServingEngine
 
@@ -1023,7 +1066,7 @@ def path(torch, mk, gpu: str):
     table_bytes = SERVE["max_batch"] * (shape.d + 1) * 4
     scatter_ms = time_ms(lambda: scatter_dense(xi, xv, shape.d), reps=10, inner=4)
     log(f"  scatter_dense of one {SERVE['max_batch']}-query batch: {scatter_ms:.5f} ms for a "
-        f"{table_bytes / 1e9:.3f} GB table (write bound {1e3 * table_bytes / HBM_BYTES_PER_S:.5f} ms)"
+        f"{table_bytes / 1e9:.3f} GB table (write bound {1e3 * table_bytes / hw.HBM_BW:.5f} ms)"
         f"  [{gpu}]")
 
     # Where the time goes: device time by kernel over one serve_batch.
@@ -2026,6 +2069,7 @@ def train(torch, mk, gpu: str, random_levels: list) -> int:
     ``method="auto"`` (the grouped kernel) and held against ``mscm_dense``
     and the reference's P@1. Returns the grouped kernel's launches."""
     from repro_torch.data import synthetic_labeled_dataset
+    from repro_torch.launch import hw
     from repro_torch.metrics import precision_at_k, recall_at_k
     from repro_torch.parity import check_ranking
     from repro_torch.serving import ServeConfig, XMRServingEngine
@@ -2054,7 +2098,7 @@ def train(torch, mk, gpu: str, random_levels: list) -> int:
     for size, (train_s, sparsify_s) in zip(structure.level_sizes, model.level_seconds):
         flops = TRAIN_STEPS * 2 * (2 * n * d * size)
         levels.append(f"L={size}: {train_s:.3f} s training ({flops / 1e12:.2f} TFLOP, "
-                      f"{100 * flops / train_s / F32_FLOPS:.1f}% of 67 TFLOP/s), "
+                      f"{100 * flops / train_s / hw.PEAK_FLOPS_F32:.1f}% of 67 TFLOP/s), "
                       f"{sparsify_s:.3f} s sparsify")
     host = t_data + t_cluster + sum(s for _, s in model.level_seconds)
     log(f"  trained {ds.name}: d={d:,} L={ds.n_labels:,} n_train={n:,} n_test="
@@ -2253,6 +2297,7 @@ def lm_phase(torch, gpu: str, device: str = "cuda") -> None:
 
     from repro_torch.checkpoint.ckpt import _leaves_with_path
     from repro_torch.configs import get_config
+    from repro_torch.launch import hw
     from repro_torch.launch.specs import make_demo_batch
     from repro_torch.models import lm
     from repro_torch.models.common import rms_norm
@@ -2294,7 +2339,7 @@ def lm_phase(torch, gpu: str, device: str = "cuda") -> None:
     attn = 2 * 2 * b * cfg.n_heads * s * s * cfg.head_dim  # QK^T and PV, full S x S
     flops = L * (b * s * dense_per_tok + attn) + 2 * b * d * V
     log(f"  prefill {b} x {s} tokens (max_len {LM_MAX_LEN}): naive {1e3 * pre_s:.3f} ms = "
-        f"{flops / pre_s / 1e12:.2f} TFLOP/s, {100 * flops / pre_s / F32_FLOPS:.1f}% of 67 "
+        f"{flops / pre_s / 1e12:.2f} TFLOP/s, {100 * flops / pre_s / hw.PEAK_FLOPS_F32:.1f}% of 67 "
         f"TFLOP/s f32 (TF32 off; {flops / 1e12:.2f} TFLOP); chunked (key blocks "
         f"{LM_CHUNKED['attn_kblock']}, query blocks {LM_CHUNKED['attn_qblock']}) "
         f"{1e3 * pre_c_s:.3f} ms; last-position logits naive vs chunked max|diff| "
@@ -2309,7 +2354,7 @@ def lm_phase(torch, gpu: str, device: str = "cuda") -> None:
         step_s.append(t)
         tok = step.argmax(-1)
     weight_bytes = (cfg.n_params() - V * d) * params["lm_head"].element_size()
-    bound_ms = 1e3 * weight_bytes / HBM_BYTES_PER_S
+    bound_ms = 1e3 * weight_bytes / hw.HBM_BW
     med = float(np.median(step_s[1:]))
     log(f"  decode {LM_STEPS} greedy steps at batch {b}: median {1e3 * med:.3f} ms/step "
         f"(first {1e3 * step_s[0]:.3f} ms), {b / med:.1f} tokens/s; weight-read bound "
@@ -2383,6 +2428,274 @@ def lm_phase(torch, gpu: str, device: str = "cuda") -> None:
     del params, cache, head, h, hb, dense
     torch.cuda.empty_cache()
     lm_reduced(torch, gpu, device)
+
+
+def _flat_f32(tree) -> dict:
+    from repro_torch.checkpoint.ckpt import _leaves_with_path
+
+    return {k: v.detach().float().cpu().numpy() for k, v in _leaves_with_path(tree)}
+
+
+def _f64_grads(torch, cfg, params, nb) -> dict:
+    """The gradients of one step of ``cfg`` in float64 on the CPU (the
+    parameters and float inputs cast up), as f32 numpy."""
+    import dataclasses
+
+    from repro_torch.launch.train import init_opt_state, make_train_step
+    from repro_torch.models import lm
+    from repro_torch.optim import Optimizer, get_optimizer
+
+    seen, inner = {}, get_optimizer(cfg.optimizer)
+
+    def capture(grads, state, prm, lr):
+        seen["grads"] = _flat_f32(grads)
+        return prm, state
+
+    cfg64 = dataclasses.replace(cfg, param_dtype=torch.float64)
+    prm = lm._map(lambda a: a.double(), params)
+    batch = {k: torch.from_numpy(v) for k, v in nb.items()}
+    batch = {k: v.double() if v.is_floating_point() else v for k, v in batch.items()}
+    make_train_step(cfg64, Optimizer(inner.init, capture, inner.name))(
+        prm, init_opt_state(inner, prm), batch)
+    return seen["grads"]
+
+
+def lm_train_reduced(torch, gpu: str, device: str = "cuda") -> None:
+    """Every reduced config: one ``make_train_step`` step on the card
+    against the CPU, from the same parameters and batch: the loss and the
+    gradients, then the update, the card's on the CPU's gradients."""
+    import dataclasses
+
+    from repro_torch.configs import ARCH_IDS, get_config, reduced_config
+    from repro_torch.data import batch_at_step
+    from repro_torch.launch.train import init_opt_state, make_train_step
+    from repro_torch.models import lm
+    from repro_torch.optim import Optimizer, get_optimizer
+
+    r, tol = LM_TRAIN_REDUCED, LM_TRAIN_TOL
+    for arch in ARCH_IDS:
+        cfg = dataclasses.replace(reduced_config(get_config(arch)), remat=True,
+                                  remat_policy="full")
+        params = lm.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+        nb = batch_at_step(cfg, seed=0, step=0, host=0, n_hosts=1, batch=r["batch"],
+                           seq=r["seq"])
+        out, cpu_grads = {}, {}
+        t0 = time.perf_counter()
+        exact = _f64_grads(torch, cfg, params, nb)
+        for dev in ("cpu", device):
+            inner = get_optimizer(cfg.optimizer)
+            seen = {}
+
+            def update(grads, state, prm, lr, inner=inner, seen=seen, dev=dev):
+                seen["grads"] = _flat_f32(grads)
+                if cpu_grads:  # the card's update on the CPU's gradients
+                    grads = lm._map(lambda g: g.to(dev), cpu_grads["tree"])
+                else:
+                    cpu_grads["tree"] = grads
+                return inner.update(grads, state, prm, lr)
+
+            step = make_train_step(cfg, Optimizer(inner.init, update, inner.name),
+                                   peak_lr=r["lr"], warmup=0, total_steps=10)
+            prm = lm._map(lambda a: a.to(dev, copy=True), params)
+            new, _, metrics = step(prm, init_opt_state(inner, prm),
+                                   {k: torch.from_numpy(v).to(dev) for k, v in nb.items()})
+            out[dev] = (float(metrics["loss"]), seen["grads"], _flat_f32(new))
+        (l_c, g_c, p_c), (l_g, g_g, p_g) = out["cpu"], out[device]
+        rel = tol["ssm_grad"] if cfg.family == "ssm" else tol["grad"]
+        if not (np.isfinite(l_g) and abs(l_g - l_c) <= tol["loss"] * abs(l_c)):
+            raise AssertionError(f"{arch}: train-step loss on the card {l_g} against {l_c}")
+        g_err = p_err = 0.0
+        from_f64 = [max(float(np.abs(g[k] - e).max()) / max(float(np.abs(e).max()), 1e-30)
+                        for k, e in exact.items()) for g in (g_c, g_g)]
+        for k, g in g_c.items():
+            e = float(np.abs(g_g[k] - g).max()) / max(float(np.abs(g).max()), 1e-30)
+            if not e <= rel:
+                raise AssertionError(f"{arch} {k}: gradient on the card off the CPU's by "
+                                     f"{e:.3e} of its max")
+            g_err = max(g_err, e)
+            off = np.abs(p_g[k] - p_c[k])
+            if not np.all(off <= tol["param_atol"] + tol["param_rtol"] * np.abs(p_c[k])):
+                raise AssertionError(f"{arch} {k}: updated leaf on the card off the CPU's by "
+                                     f"{float(off.max()):.3e}")
+            p_err = max(p_err, float(off.max()))
+        log(f"  {arch} ({cfg.family}, {cfg.optimizer}) reduced train step, card against CPU: "
+            f"loss {l_g:.6f} / {l_c:.6f}; max gradient diff {g_err:.3e} of the leaf's max "
+            f"(tolerance {rel:g}; from an f64 run on the CPU: CPU {from_f64[0]:.3e}, card "
+            f"{from_f64[1]:.3e}); updated leaves from the same gradients within "
+            f"{p_err:.3e} (tolerance {tol['param_atol']:g} + {tol['param_rtol']:g} |p|); "
+            f"{time.perf_counter() - t0:.2f} s")
+
+
+def lm_train_loop(torch, gpu: str, device=None) -> None:
+    """``train_loop`` on the card (no device named): checkpoints, an
+    injected failure, and a second run that resumes where the first ended."""
+    import os
+    import shutil
+    import tempfile
+
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.launch.train import train_loop
+
+    r = LM_LOOP
+    cfg = reduced_config(get_config(LM_ARCH))
+    root = tempfile.mkdtemp(prefix="lm_train_")
+    try:
+        d = os.path.join(root, "ckpt")
+        kw = dict(batch=r["batch"], seq=r["seq"], ckpt_dir=d, save_every=r["save_every"],
+                  compress_grads=True, device=device)
+        t0 = time.perf_counter()
+        first = train_loop(cfg, steps=r["steps"], inject_failure_at=r["inject_failure_at"], **kw)
+        t1 = time.perf_counter()
+        steps_after_first = Checkpointer(d).list_steps()
+        second = train_loop(cfg, steps=r["resume_steps"], **kw)
+        t2 = time.perf_counter()
+        ck = Checkpointer(d)
+        step, state = ck.restore({"opt": {"inner": {"step": torch.zeros((), dtype=torch.int32)}}},
+                                 device="cpu")
+        losses = first["losses"] + second["losses"]
+        want_dev = "cuda" if device is None else torch.device(device).type
+        if not (first["steps_run"] == r["steps"]
+                and second["steps_run"] == r["resume_steps"] - r["steps"]
+                and np.all(np.isfinite(losses))
+                and steps_after_first == [4, 8, 12] and step == r["resume_steps"]
+                and second["final_params"]["embed"].device.type == want_dev):
+            raise AssertionError(f"train_loop: ran {first['steps_run']} + "
+                                 f"{second['steps_run']} steps, checkpoints "
+                                 f"{steps_after_first} then {ck.list_steps()}")
+        # the retry restored the step-4 checkpoint and went on at step 6
+        opt_steps = int(state["opt"]["inner"]["step"])
+        if opt_steps != r["resume_steps"] - (r["inject_failure_at"] - 4):
+            raise AssertionError(f"optimizer step {opt_steps} after the rollback")
+        log(f"  train_loop on {second['final_params']['embed'].device} (no device named), "
+            f"reduced {LM_ARCH}, {r['batch']} x {r['seq']} tokens, bf16 gradient compression: "
+            f"{first['steps_run']} steps in {t1 - t0:.2f} s with a failure injected at step "
+            f"{r['inject_failure_at']} (retried from the step-4 checkpoint), checkpoints "
+            f"{steps_after_first}; a second run on the directory resumed at step "
+            f"{r['steps']} and ran {second['steps_run']} more in {t2 - t1:.2f} s (checkpoint "
+            f"{step}, optimizer step {opt_steps}); loss {losses[0]:.4f} -> {losses[-1]:.4f}; "
+            f"watchdog {first['watchdog']} then {second['watchdog']}  [{gpu}]")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def lm_train_phase(torch, gpu: str, device: str = "cuda") -> None:
+    """Phase 14: yi-6b trained on the card at full width and depth, every
+    reduced config's train step on the card against the CPU, and the
+    training loop's checkpoint, failure and resume path on the card."""
+    import dataclasses
+
+    from repro_torch.checkpoint.ckpt import _leaves_with_path
+    from repro_torch.configs import get_config
+    from repro_torch.data import batch_at_step
+    from repro_torch.launch import hw
+    from repro_torch.launch.train import init_opt_state, make_train_step
+    from repro_torch.models import lm
+    from repro_torch.optim import Optimizer, get_optimizer
+
+    base = get_config(LM_ARCH)
+    cfg = dataclasses.replace(base, optimizer="adafactor")
+    r = LM_TRAIN
+    b, s = r["batch"], r["seq"]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, torch.Generator(device).manual_seed(0), device=device)
+    inner = get_optimizer(cfg.optimizer)
+    opt_state = init_opt_state(inner, params)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for _, p in _leaves_with_path(params))
+    state_bytes = sum(v.numel() * v.element_size() for _, v in _leaves_with_path(opt_state))
+    log(f"  {LM_ARCH} training: {cfg.n_layers} layers, d {cfg.d_model}, {n_params:,} parameters"
+        f" ({4 * n_params / 1e9:.2f} GB f32), remat {cfg.remat_policy!r}; optimizer "
+        f"{cfg.optimizer} in place of the config's {base.optimizer} (AdamW's m and v would "
+        f"add 2 x {4 * n_params / 1e9:.2f} GB to params and grads: more than 80 GB), its "
+        f"state {state_bytes / 1e6:.1f} MB; drawn on {device} in {init_s:.3f} s  [{gpu}]")
+
+    updates, finite, peaks = [], [], []
+
+    def update(grads, state, prm, lr):
+        # a NaN or inf anywhere in a leaf makes its sum non-finite
+        finite.append(torch.stack([g.sum() for _, g in _leaves_with_path(grads)])
+                      .isfinite().all())
+        backward_peak = torch.cuda.max_memory_allocated()  # the step's, up to here
+        torch.cuda.reset_peak_memory_stats()
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = inner.update(grads, state, prm, lr)
+        stop.record()
+        updates.append((start, stop))
+        peaks.append((backward_peak, torch.cuda.max_memory_allocated()))
+        return out
+
+    step_fn = make_train_step(cfg, Optimizer(inner.init, update, inner.name),
+                              warmup=r["warmup"], total_steps=r["steps"])
+    losses, step_ms = [], []
+
+    def run(i: int) -> float:
+        """Step ``i`` on batch ``i``; returns its ms (CUDA events)."""
+        nonlocal params, opt_state
+        nb = batch_at_step(cfg, seed=0, step=i, host=0, n_hosts=1, batch=b, seq=s)
+        batch = {k: torch.from_numpy(v).to(device) for k, v in nb.items()}
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.reset_peak_memory_stats()
+        start.record()
+        params, opt_state, metrics = step_fn(params, opt_state, batch)
+        stop.record()
+        loss = float(metrics["loss"])
+        if not (np.isfinite(loss) and bool(finite[-1])):
+            raise AssertionError(f"step {i}: loss {loss}, gradients finite {bool(finite[-1])}")
+        losses.append(loss)
+        return start.elapsed_time(stop)
+
+    for i in range(r["steps"]):
+        step_ms.append(run(i))
+    peak = max(max(pk) for pk in peaks)
+    back_peak, upd_peak = (max(pk[j] for pk in peaks) for j in (0, 1))
+    upd_ms = [a.elapsed_time(z) for a, z in updates]
+    med = float(np.median(step_ms[r["timed"]]))
+    upd = float(np.median(upd_ms[r["timed"]]))
+    tokens = b * s
+    mfu = 6 * n_params * tokens / (med / 1e3) / hw.PEAK_FLOPS_F32
+    hw_rate = 8 * n_params * tokens / (med / 1e3) / hw.PEAK_FLOPS_F32
+    log(f"  {r['steps']} steps of {b} x {s} tokens (batch_at_step, seed 0; warmup "
+        f"{r['warmup']}): ms a step {', '.join(f'{t:.1f}' for t in step_ms)}; median of steps "
+        f"2-5 {med:.1f} ms, {tokens / (med / 1e3):.1f} tokens/s; MFU (6·N·T) "
+        f"{100 * mfu:.1f}% of 67 TFLOP/s f32, with remat's recompute (8·N·T) {100 * hw_rate:.1f}%"
+        f"; optimizer update {upd:.2f} ms (median of steps 2-5; each "
+        f"{', '.join(f'{t:.2f}' for t in upd_ms)}); peak device memory {peak / 1e9:.3f} GB "
+        f"(forward and backward {back_peak / 1e9:.3f} GB, the update {upd_peak / 1e9:.3f} GB); "
+        f"losses {', '.join(f'{x:.4f}' for x in losses)}  [{gpu}]")
+
+    # the layer loop's views: a[i] per layer (the serving path's before
+    # unbind) against one unbind per leaf, steps in turns
+    by_unbind = lm._layers
+
+    def by_index(stacked, n):
+        return [lm._map(lambda a, i=i: a[i], stacked) for i in range(n)]
+
+    pairs = {}
+    for name, views in (("a[i]", by_index), ("unbind", by_unbind)):
+        lm._layers = views
+        try:
+            t = [run(r["steps"] + len(pairs) * r["pair"] + j) for j in range(r["pair"])]
+        finally:
+            lm._layers = by_unbind
+        pairs[name] = (t[-1], max(peaks[-1]))
+    log(f"  layer views, a step (the second of {r['pair']}) and its peak memory: a[i] "
+        f"{pairs['a[i]'][0]:.1f} ms, {pairs['a[i]'][1] / 1e9:.3f} GB; unbind "
+        f"{pairs['unbind'][0]:.1f} ms, {pairs['unbind'][1] / 1e9:.3f} GB  [{gpu}]")
+    step_no = r["steps"] + len(pairs) * r["pair"]
+    wall, acts, busy_us, rows = device_profile(lambda: run(step_no))
+    log_profile(f"one yi-6b train step ({b} x {s} tokens)", wall, acts, busy_us, rows, gpu, 10)
+    if busy_us:
+        log(f"  train step: {acts} device activities, idle share "
+            f"{1 - busy_us / (1e6 * wall):.4f} (profiler on)")
+    del params, opt_state, step_fn
+    torch.cuda.empty_cache()
+    lm_train_reduced(torch, gpu, device)
+    lm_train_loop(torch, gpu, None if device == "cuda" else device)
 
 
 def main() -> int:
@@ -2459,6 +2772,8 @@ def main() -> int:
     grouped["train_launches"] = train(torch, mk, gpu, random_levels)
     log(f"phase lm (at {time.perf_counter() - t_all:.1f} s)")
     lm_phase(torch, gpu)
+    log(f"phase lm_train (at {time.perf_counter() - t_all:.1f} s)")
+    lm_train_phase(torch, gpu)
     log(f"done in {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": [grouped, fused, pregather, grouped_q]}))
     print(json.dumps({"ok": True, "device": {

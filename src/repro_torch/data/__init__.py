@@ -1,3 +1,4 @@
+from repro_torch.data.lm_data import PrefetchingLoader, batch_at_step
 from repro_torch.data.xmr_data import (
     ENTERPRISE_SHAPE,
     PAPER_SHAPES,
@@ -12,8 +13,10 @@ from repro_torch.data.xmr_data import (
 __all__ = [
     "ENTERPRISE_SHAPE",
     "PAPER_SHAPES",
+    "PrefetchingLoader",
     "XMRDataset",
     "XMRShape",
+    "batch_at_step",
     "benchmark_queries",
     "load_svmlight_xmr",
     "scaled_shape",

@@ -92,8 +92,8 @@ class ArchConfig:
     attn_act_shard: str = "none"
     # keep attention scores in bf16 end-to-end
     attn_scores_bf16: bool = False
-    # Remat knob of the reference's backward pass (not ported: forward only);
-    # kept so configs compare equal.
+    # remat of a layer under autograd (models.lm._remat): full | dots | moe |
+    # none
     remat_policy: str = "full"
     # MoE dispatch: "global" (one token stream) or "grouped" (per-batch-row
     # queues, see moe.moe_ffn_grouped)
@@ -198,6 +198,32 @@ def softmax(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
 def silu(x: torch.Tensor) -> torch.Tensor:
     """``jax.nn.silu``: ``x * sigmoid(x)``."""
     return x * torch.sigmoid(x)
+
+
+# ---------------------------------------------------------------------------
+# names a remat policy can see
+# ---------------------------------------------------------------------------
+
+@torch.library.custom_op("repro_torch::checkpoint_name", mutates_args=())
+def _named(x: torch.Tensor, name: str) -> torch.Tensor:
+    return x.clone()
+
+
+@_named.register_fake
+def _(x: torch.Tensor, name: str) -> torch.Tensor:
+    return torch.empty_like(x)
+
+
+_named.register_autograd(lambda ctx, grad: (grad, None))
+
+
+def checkpoint_name(x: torch.Tensor, name: str) -> torch.Tensor:
+    """``x`` marked ``name`` for a selective remat policy, as
+    ``jax.ad_checkpoint.checkpoint_name``: where autograd records ``x``, a
+    copy of it made by the op ``repro_torch::checkpoint_name``, which a
+    policy sees with its name (``models.lm._remat``); elsewhere (serving)
+    ``x`` itself."""
+    return _named(x, name) if torch.is_grad_enabled() and x.requires_grad else x
 
 
 # ---------------------------------------------------------------------------

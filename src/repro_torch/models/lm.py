@@ -1,11 +1,15 @@
 """Unified LM: parameter init, forward, prefill, decode — all families.
 
-Counterpart of ``repro.models.lm`` for serving: ``init_params``,
-``param_shapes``, ``forward_train`` and ``loss_fn`` (forward only; the
-backward pass and the reference's remat policies come with training),
-``init_cache``, ``prefill`` and ``decode_step``. Layers are stacked on a
-leading L axis, in the reference's parameter layout, and driven by a Python
-loop over the stacked leaves where the reference scans. Families:
+Counterpart of ``repro.models.lm``: ``init_params``, ``param_shapes``,
+``forward_train`` and ``loss_fn`` (differentiated by autograd, see
+``repro_torch.launch.train``), ``init_cache``, ``prefill`` and
+``decode_step``. Layers are stacked on a leading L axis, in the reference's
+parameter layout, and driven by a Python loop where the reference scans: each
+stacked leaf is split into its layers by one ``torch.unbind``, whose backward
+stacks the layers' gradients once (an ``a[i]`` view per layer would add a
+zero-filled copy of the whole leaf into its gradient at every layer). Under
+autograd, the layer body runs under the config's remat policy (``_remat``).
+Families:
 
   dense | moe | vlm   decoder-only attention (GQA or MLA) + SwiGLU/MoE FFN
   ssm                 RWKV6 blocks (time-mix + channel-mix)
@@ -23,16 +27,21 @@ them; the reference returns new arrays.
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Optional
+import functools
+from typing import Any, Callable, Dict, List, Optional
 
 import torch
+from torch.utils._pytree import tree_leaves
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                     create_selective_checkpoint_contexts)
 
 from repro_torch.core.tree import resolve_device
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
-from repro_torch.models.common import (ArchConfig, apply_rope, cross_entropy_loss, dense_init,
-                                       dot, full_init, rms_norm, rope_angles, silu)
+from repro_torch.models.common import (ArchConfig, apply_rope, checkpoint_name,
+                                       cross_entropy_loss, dense_init, dot, full_init,
+                                       rms_norm, rope_angles, silu)
 
 Params = Dict[str, Any]
 Device = Optional[str | torch.device]
@@ -48,9 +57,11 @@ def _map(fn: Callable, tree):
     return fn(tree)
 
 
-def _layer(stacked: Params, i: int) -> Params:
-    """Layer ``i``'s leaves (views) of a stack with a leading L axis."""
-    return _map(lambda a: a[i], stacked)
+def _layers(stacked: Params, n: int) -> List[Params]:
+    """The ``n`` layers' leaves (views) of a stack with a leading L axis,
+    each leaf split by one ``torch.unbind``."""
+    split = _map(torch.unbind, stacked)
+    return [_map(lambda parts: parts[i], split) for i in range(n)]
 
 
 # ---------------------------------------------------------------------------
@@ -181,6 +192,51 @@ def param_shapes(cfg: ArchConfig, generator: Optional[torch.Generator] = None) -
 # layer bodies (full-sequence mode: train / prefill)
 # ---------------------------------------------------------------------------
 
+_MATMULS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """``checkpoint_dots_with_no_batch_dims``: keep the outputs of matrix
+    products without batch dims (``x @ w`` folds to ``mm``; an einsum with a
+    batch dim runs as ``bmm`` and is recomputed)."""
+    return CheckpointPolicy.MUST_SAVE if op in _MATMULS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _save_moe_buffers(ctx, op, *args, **kwargs):
+    """``save_only_these_names("moe_xin", "moe_out")``."""
+    if op is torch.ops.repro_torch.checkpoint_name.default and args[1] in ("moe_xin",
+                                                                          "moe_out"):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+_POLICIES = {"dots": _save_dots, "moe": _save_moe_buffers}
+
+
+def _remat(cfg: ArchConfig, body: Callable) -> Callable:
+    """The layer body under the config's remat policy: ``full`` saves only
+    the body's inputs and recomputes the rest in backward; ``dots`` also
+    keeps the outputs of its matrix products without batch dims; ``moe``
+    keeps the MoE dispatch buffers marked ``moe_xin`` and ``moe_out`` (the
+    forward scatter chain is not run again); ``none`` (or ``remat=False``)
+    keeps everything. A call that autograd does not record (under
+    ``torch.no_grad``, or with no input that requires grad: prefill, decode)
+    runs the body as it is."""
+    if not cfg.remat or cfg.remat_policy == "none":
+        return body
+    policy = _POLICIES.get(cfg.remat_policy)
+    extra = {} if policy is None else {
+        "context_fn": functools.partial(create_selective_checkpoint_contexts, policy)}
+
+    def run(*args):
+        if not (torch.is_grad_enabled() and any(
+                isinstance(t, torch.Tensor) and t.requires_grad for t in tree_leaves(args))):
+            return body(*args)
+        return checkpoint(body, *args, use_reentrant=False, **extra)
+
+    return run
+
+
 def _cast_layer(cfg: ArchConfig, lp):
     """Mixed precision: bf16 copies of the layer weights in compute (f32
     master params) when activations_bf16."""
@@ -243,20 +299,27 @@ def _decoder_stack(cfg: ArchConfig, params: Params, x: torch.Tensor, *,
     Returns (hidden [B,S,d], per-layer caches stacked on L or None, aux)."""
     windows = layer_windows(cfg).tolist()
     use_cross = cfg.family == "encdec"
-    aux = _zero(x)
-    caches = []
-    for i, w in enumerate(windows):
-        lp = _cast_layer(cfg, _layer(params["layers"], i))
+    layers = _layers(params["layers"], cfg.n_layers)
+    cross = (_layers(params["cross_layers"], cfg.n_layers) if use_cross
+             else [None] * cfg.n_layers)
+
+    def body(x, lp, cp, w):
+        lp = _cast_layer(cfg, lp)
         if cfg.family == "ssm":
             x, cache = _rwkv_block_full(cfg, lp, x)
-            a = _zero(x)  # channel-mix IS the ffn for rwkv
-        else:
-            x, cache = _attn_block_full(cfg, lp, x, w, q_offset)
-            if use_cross:
-                cp = _cast_layer(cfg, _layer(params["cross_layers"], i))
-                x, ck, cv = _cross_attn(cfg, cp, x, enc_out)
-                cache = cache + (ck, cv)
-            x, a = _ffn_block(cfg, lp, x)
+            return x, cache, _zero(x)  # channel-mix IS the ffn for rwkv
+        x, cache = _attn_block_full(cfg, lp, x, w, q_offset)
+        if use_cross:
+            x, ck, cv = _cross_attn(cfg, _cast_layer(cfg, cp), x, enc_out)
+            cache = cache + (ck, cv)
+        x, a = _ffn_block(cfg, lp, x)
+        return x, cache, a
+
+    body_fn = _remat(cfg, body)
+    aux = _zero(x)
+    caches = []
+    for lp, cp, w in zip(layers, cross, windows):
+        x, cache, a = body_fn(x, lp, cp, w)
         aux = aux + a
         if collect_cache:
             caches.append(cache)
@@ -290,10 +353,10 @@ def _cross_attn(cfg, cp, x, enc_out, cached_kv=None):
 
 def _encoder_stack(cfg: ArchConfig, params: Params, src: torch.Tensor) -> torch.Tensor:
     """Bidirectional encoder over frame embeddings (stub frontend)."""
-    x = src
     hh, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    for i in range(cfg.n_enc_layers):
-        lp = _cast_layer(cfg, _layer(params["enc_layers"], i))
+
+    def body(x, lp):
+        lp = _cast_layer(cfg, lp)
         h = rms_norm(x, lp["ln1"])
         b, s, d = h.shape
         q = dot(h, lp["attn"]["wq"]).reshape(b, s, hh, dh)
@@ -304,7 +367,12 @@ def _encoder_stack(cfg: ArchConfig, params: Params, src: torch.Tensor) -> torch.
         out = attn_lib._sdpa(q, k, v, torch.ones((s, s), dtype=torch.bool, device=x.device))
         x = x + dot(out.reshape(b, s, hh * dh), lp["attn"]["wo"])
         h2 = rms_norm(x, lp["ln2"])
-        x = x + _ffn(lp["ffn"], h2)
+        return x + _ffn(lp["ffn"], h2)
+
+    body_fn = _remat(cfg, body)
+    x = src
+    for lp in _layers(params["enc_layers"], cfg.n_enc_layers):
+        x = body_fn(x, lp)
     return rms_norm(x, params["enc_norm"])
 
 
@@ -457,8 +525,10 @@ def decode_step(cfg: ArchConfig, params: Params, cache: Dict[str, torch.Tensor],
         # activations' dtype, so after a step they are no longer the cache's.
         for key in ("tm_x", "cm_x"):
             cache[key] = cache[key].to(x.dtype)
+    layers = _layers(params["layers"], cfg.n_layers)
+    cross = _layers(params["cross_layers"], cfg.n_layers) if use_cross else None
     for i, w in enumerate(windows):
-        lp = _cast_layer(cfg, _layer(params["layers"], i))
+        lp = _cast_layer(cfg, layers[i])
         if cfg.family == "ssm":
             h = rms_norm(x, lp["ln1"])
             out, tm_x, tm_s = ssm_lib.rwkv_time_mix(
@@ -485,7 +555,7 @@ def decode_step(cfg: ArchConfig, params: Params, cache: Dict[str, torch.Tensor],
             out = 0.5 * (out + sout)
         x = x + out
         if use_cross:
-            cp = _cast_layer(cfg, _layer(params["cross_layers"], i))
+            cp = _cast_layer(cfg, cross[i])
             x, _, _ = _cross_attn(cfg, cp, x, None,
                                   cached_kv=(cache["cross_k"][i], cache["cross_v"][i]))
         x, _ = _ffn_block(cfg, lp, x)

@@ -26,7 +26,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.beam import topk_canonical
-from repro_torch.models.common import ArchConfig, dense_init, dot, einsum, silu, softmax
+from repro_torch.models.common import (ArchConfig, checkpoint_name, dense_init, dot, einsum,
+                                       silu, softmax)
 
 
 def moe_init(generator: torch.Generator, cfg: ArchConfig,
@@ -102,10 +103,10 @@ def moe_ffn_grouped(p, x: torch.Tensor, cfg: ArchConfig) -> Tuple[torch.Tensor, 
     rows = torch.arange(b, device=x.device)[:, None]
     buf = torch.zeros((b, e * capg + 1, d), dtype=x.dtype, device=x.device)
     buf[rows, dest] = x_rep
-    xin = buf[:, : e * capg].reshape(b, e, capg, d)
+    xin = checkpoint_name(buf[:, : e * capg].reshape(b, e, capg, d), "moe_xin")
 
     h = silu(einsum("becd,edf->becf", xin, p["w1"])) * einsum("becd,edf->becf", xin, p["w3"])
-    out_e = einsum("becf,efd->becd", h, p["w2"])             # [B, E, capg, d]
+    out_e = checkpoint_name(einsum("becf,efd->becd", h, p["w2"]), "moe_out")  # [B,E,capg,d]
 
     flat_out = torch.cat(
         [out_e.reshape(b, e * capg, d),
@@ -136,10 +137,10 @@ def moe_ffn(p, x: torch.Tensor, cfg: ArchConfig) -> Tuple[torch.Tensor, torch.Te
     buf = torch.zeros((e * cap + 1, d), dtype=x.dtype, device=x.device)
     tok_of = torch.arange(t, device=x.device).repeat_interleave(k)   # [T*K]
     buf[dest] = x2[tok_of]
-    xin = buf[: e * cap].reshape(e, cap, d)
+    xin = checkpoint_name(buf[: e * cap].reshape(e, cap, d), "moe_xin")
 
     h = silu(einsum("ecd,edf->ecf", xin, p["w1"])) * einsum("ecd,edf->ecf", xin, p["w3"])
-    out_e = einsum("ecf,efd->ecd", h, p["w2"])               # [E, cap, d]
+    out_e = checkpoint_name(einsum("ecf,efd->ecd", h, p["w2"]), "moe_out")  # [E, cap, d]
 
     flat_out = torch.cat(
         [out_e.reshape(e * cap, d), torch.zeros((1, d), dtype=out_e.dtype, device=x.device)])

@@ -11,8 +11,11 @@ The counterparts of ``tests/test_api.py``:
    shared group, an unknown kwarg raising, a default config warning
    nothing;
 4. every module of ``repro_torch.serving`` (the fleet's and the gateway
-   included) and ``repro_torch.index`` imports with ``jax`` and ``repro``
-   blocked, and ``__all__`` is the reference's.
+   included), ``repro_torch.index`` and the LM's packages (the trainer's
+   ``optim``, ``data.lm_data``, ``distributed.fault``, ``launch.train`` and
+   ``launch.hw`` included) imports with ``jax`` and ``repro`` blocked, and
+   ``__all__`` is the reference's; without a card, the trainer and
+   ``resolve_device`` raise when no device is named.
 """
 
 import dataclasses
@@ -212,11 +215,12 @@ def test_default_config_warns_nothing():
 
 def test_serving_and_index_import_without_jax_or_repro():
     """Every module of the serving, index, distributed, core, checkpoint,
-    configs, models and launch packages imports with jax and repro blocked."""
+    configs, models, launch, optim and data packages imports with jax and
+    repro blocked."""
     modules = sorted(
         ".".join(p.relative_to(ROOT / "src").with_suffix("").parts).removesuffix(".__init__")
         for d in ("serving", "serving/fleet", "index", "distributed", "core", "checkpoint",
-                  "configs", "models", "launch")
+                  "configs", "models", "launch", "optim", "data")
         for p in (ROOT / "src/repro_torch" / d).glob("*.py"))
     code = (
         "import sys\n"
@@ -241,6 +245,25 @@ def test_serving_and_index_import_without_jax_or_repro():
               "repro_torch.configs.base", "repro_torch.configs.yi_6b",
               "repro_torch.models.lm", "repro_torch.models.xmr_head",
               "repro_torch.models.attention", "repro_torch.models.moe",
-              "repro_torch.models.ssm", "repro_torch.launch.specs"):
+              "repro_torch.models.ssm", "repro_torch.launch.specs",
+              "repro_torch.optim", "repro_torch.optim.optimizers", "repro_torch.data.lm_data",
+              "repro_torch.distributed.fault", "repro_torch.launch.train",
+              "repro_torch.launch.hw"):
         assert m in modules
     assert T.__all__ == J.__all__
+
+
+def test_trainer_needs_a_card_unless_a_device_is_named(monkeypatch):
+    """With no card, naming no device raises; it never trains on the CPU."""
+    import torch
+
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.core.tree import resolve_device
+    from repro_torch.launch.train import train_loop
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device(None)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_loop(reduced_config(get_config("yi-6b")), steps=1, batch=2, seq=8)
+    assert resolve_device("cpu") == torch.device("cpu")

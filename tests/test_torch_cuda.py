@@ -875,3 +875,108 @@ def test_checkpoint_round_trip_onto_card(cuda_device, tmp_path, async_write):
                                                   device=cuda_device)}})
     assert back["p"]["w"].device.type == "cuda"
     assert torch.equal(back["p"]["w"].cpu(), cpu_state["w"])
+
+
+# The LM trainer on the card against the CPU (chip_smoke.py's lm_train
+# phase): one make_train_step step from the same parameters and batch. The
+# loss within 1e-5; each gradient leaf within 1e-5 of its max |grad| (the
+# CPU tests' bound against jax.grad), RWKV's within 1e-3 (its chunked scan
+# is ill-conditioned in f32: chip_smoke.py logs each device's distance
+# from an f64 run, of the same size as their gap); the card's update on the
+# CPU's gradients within 1e-7 + 1e-6 |p| of the CPU's parameters.
+LM_TRAIN_LOSS, LM_GRAD_REL, LM_SSM_GRAD_REL = 1e-5, 1e-5, 1e-3
+LM_PARAM_ATOL, LM_PARAM_RTOL = 1e-7, 1e-6
+
+
+def _train_step(cfg, params, nb, device, lr=1e-2, grads_from=None):
+    """(loss, grads, new params as numpy, grads as tensors) of one step on
+    ``device``; with ``grads_from``, the update takes those gradients."""
+    from repro_torch.checkpoint.ckpt import _leaves_with_path
+    from repro_torch.launch.train import init_opt_state, make_train_step
+    from repro_torch.models import lm
+    from repro_torch.optim import Optimizer, get_optimizer
+
+    def flat(tree):
+        return {k: v.detach().float().cpu().numpy() for k, v in _leaves_with_path(tree)}
+
+    inner, seen = get_optimizer(cfg.optimizer), {}
+
+    def update(grads, state, prm, lr_):
+        seen["grads"], seen["tree"] = flat(grads), grads
+        if grads_from is not None:
+            grads = lm._map(lambda g: g.to(device), grads_from)
+        return inner.update(grads, state, prm, lr_)
+
+    step = make_train_step(cfg, Optimizer(inner.init, update, inner.name), peak_lr=lr,
+                           warmup=0, total_steps=10)
+    prm = lm._map(lambda a: a.to(device, copy=True), params)
+    new, state, metrics = step(prm, init_opt_state(inner, prm),
+                               {k: torch.from_numpy(v).to(device) for k, v in nb.items()})
+    assert all(v.device.type == torch.device(device).type
+               for v in (new["embed"], state["inner"]["step"], metrics["loss"]))
+    return float(metrics["loss"]), seen["grads"], flat(new), seen["tree"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", _lm_arch_ids())
+def test_train_step_on_card_matches_cpu(cuda_device, arch):
+    import dataclasses
+
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.data import batch_at_step
+    from repro_torch.models import lm
+
+    cfg = dataclasses.replace(reduced_config(get_config(arch)), remat=True)
+    params = lm.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    nb = batch_at_step(cfg, seed=0, step=0, host=0, n_hosts=1, batch=2, seq=12)
+    l_c, g_c, p_c, tree = _train_step(cfg, params, nb, "cpu")
+    l_g, g_g, p_g, _ = _train_step(cfg, params, nb, cuda_device, grads_from=tree)
+    assert abs(l_g - l_c) <= LM_TRAIN_LOSS * abs(l_c)
+    rel = LM_SSM_GRAD_REL if cfg.family == "ssm" else LM_GRAD_REL
+    for k, g in g_c.items():
+        assert float(np.abs(g_g[k] - g).max()) <= rel * max(float(np.abs(g).max()), 1e-30), k
+        assert np.all(np.abs(p_g[k] - p_c[k]) <= LM_PARAM_ATOL + LM_PARAM_RTOL * np.abs(p_c[k])), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["yi-6b", "qwen3-moe-235b-a22b"])
+def test_remat_gradients_on_card(cuda_device, arch):
+    """Every remat policy gives the gradients of no remat on the card, within
+    1e-5 of each leaf's max |grad| (a policy only changes what is computed
+    again in backward; the card need not repeat a sum in the same order)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.data import batch_at_step
+    from repro_torch.models import lm
+
+    nb = batch_at_step(reduced_config(get_config(arch)), seed=0, step=0, host=0, n_hosts=1,
+                       batch=2, seq=12)
+    base = lm.init_params(reduced_config(get_config(arch)), torch.Generator().manual_seed(0),
+                          device="cpu")
+    grads = {}
+    for policy in ("none", "full", "dots", "moe"):
+        cfg = dataclasses.replace(reduced_config(get_config(arch)), remat=True,
+                                  remat_policy=policy)
+        _, grads[policy], _, _ = _train_step(cfg, base, nb, cuda_device)
+    for policy in ("full", "dots", "moe"):
+        for k, g in grads["none"].items():
+            scale = max(float(np.abs(g).max()), 1e-30)
+            assert float(np.abs(grads[policy][k] - g).max()) <= LM_GRAD_REL * scale, (policy, k)
+
+
+@pytest.mark.cuda
+def test_train_loop_on_card_by_default(cuda_device, tmp_path):
+    """``train_loop`` with no device trains on the card, checkpoints, and a
+    second run resumes where the first ended."""
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.launch.train import train_loop
+
+    cfg = reduced_config(get_config("yi-6b"))
+    kw = dict(batch=2, seq=8, ckpt_dir=str(tmp_path / "ck"), save_every=3, compress_grads=True)
+    first = train_loop(cfg, steps=6, inject_failure_at=4, **kw)
+    assert first["final_params"]["embed"].device.type == "cuda"
+    assert first["steps_run"] == 6 and np.all(np.isfinite(first["losses"]))
+    second = train_loop(cfg, steps=9, **kw)
+    assert second["steps_run"] == 3 and Checkpointer(kw["ckpt_dir"]).list_steps()[-1] == 9
