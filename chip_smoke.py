@@ -158,6 +158,31 @@ Phases, in order; any failure raises and the script exits non-zero:
             checkpoints every 4, a failure injected at step 6, bf16 gradient
             compression) and again on the same directory to 16 steps: it
             resumes at step 12.
+15. dryrun  the dry runs, on ``meta`` tensors (no card memory):
+            ``repro_torch.launch.dryrun.run_cell`` for yi-6b in train_4k,
+            prefill_32k and decode_32k on the (16, 16) production mesh
+            (each status ok: argument bytes a device, counted FLOPs and
+            bytes, the bound); yi-6b's step at the lm_train phase's shape
+            counted, its compute and memory bounds printed beside the step
+            that phase measured; the enterprise serving dry run
+            (``launch/serve_dryrun.py``: 100,663,296 labels, d = 4M, tree
+            [64, 32, 32, 32, 48]) on the single- and multi-pod meshes, its
+            argument bytes a device held to 13,599,411,200.
+16. enterprise that model at full geometry on the card: one device's shards
+            (data row 0, model slot 0: the replicated upper levels and a
+            sixteenth of the leaf, 13.6 GB, bf16 values) drawn on the card
+            from seeds, their bytes held to the dry run's; its program
+            (scatter, dense lookups, beam steps, the owned-leaf top-10) on
+            64 queries timed (CUDA events) and profiled beside the dry
+            run's bound, and held against the same program on the CPU on
+            the same tensors (``ENTERPRISE``'s tolerance); then all 16
+            model slots streamed (each leaf shard drawn, run, freed) and
+            merged into the 64 queries' top-10 of 100M labels: wall time,
+            peak memory, the merge bitwise a CPU merge of the same
+            candidates.
+17. examples ``examples/serve_search_torch.py --small --queries 64`` and
+            ``examples/lm_tree_head_torch.py`` as subprocesses on the card:
+            each exits 0, the tree head prints full-beam exactness 1.000.
 
 The line before last is a JSON object with one entry per kernel, whose
 ``launches`` count that kernel's path (grouped: path; grouped_q: the int8
@@ -300,6 +325,20 @@ LM_TRAIN_TOL = dict(loss=1e-5, grad=1e-5, ssm_grad=1e-3, param_rtol=1e-6, param_
 # the same directory.
 LM_LOOP = dict(batch=4, seq=16, steps=12, resume_steps=16, save_every=4,
                inject_failure_at=6)
+# The dryrun phase: the LM cells run on meta tensors on the single-pod mesh.
+DRYRUN_CELLS = ("train_4k", "prefill_32k", "decode_32k")
+# The enterprise phase (src/repro/launch/serve_dryrun.py's model, paper §6):
+# data row 0's 64 queries (a batch of 1,024 over 16 data rows), beam 10,
+# top-10, shards drawn from seed 0. Card against CPU: the scores of one
+# device's program within 1e-7 + 1e-6 |s| (the same f32 sums, ~10 nonzero
+# terms of 768, taken in other orders), the labels equal wherever the CPU's
+# gap to a neighbour exceeds that.
+ENTERPRISE = dict(batch=1024, n=64, beam=10, topk=10, seed=0, rtol=1e-6, atol=1e-7)
+ENTERPRISE_ARGUMENT_BYTES = 13_599_411_200
+# The examples phase: both new examples at the reference's small settings.
+EXAMPLES = (("examples/serve_search_torch.py", "--small", "--queries", "64"),
+            ("examples/lm_tree_head_torch.py",))
+EXAMPLES_TIMEOUT_S = 400
 
 
 def log(msg: str) -> None:
@@ -2579,10 +2618,11 @@ def lm_train_loop(torch, gpu: str, device=None) -> None:
         shutil.rmtree(root, ignore_errors=True)
 
 
-def lm_train_phase(torch, gpu: str, device: str = "cuda") -> None:
+def lm_train_phase(torch, gpu: str, device: str = "cuda") -> float:
     """Phase 14: yi-6b trained on the card at full width and depth, every
     reduced config's train step on the card against the CPU, and the
-    training loop's checkpoint, failure and resume path on the card."""
+    training loop's checkpoint, failure and resume path on the card.
+    Returns the median ms of a yi-6b step."""
     import dataclasses
 
     from repro_torch.checkpoint.ckpt import _leaves_with_path
@@ -2696,6 +2736,219 @@ def lm_train_phase(torch, gpu: str, device: str = "cuda") -> None:
     torch.cuda.empty_cache()
     lm_train_reduced(torch, gpu, device)
     lm_train_loop(torch, gpu, None if device == "cuda" else device)
+    return med
+
+
+def dryrun_phase(torch, gpu: str, step_ms: float) -> dict:
+    """Phase 15: the dry runs on ``meta`` tensors (no card memory): yi-6b's
+    cells on the single-pod mesh, yi-6b's step at the lm_train phase's shape
+    counted and its bound held against the measured step, and the
+    enterprise serving step on both production meshes. Returns the
+    single-pod enterprise record."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.launch import dryrun, hw
+    from repro_torch.launch import serve_dryrun as sd
+    from repro_torch.launch.mesh import make_production_mesh
+
+    for shape in DRYRUN_CELLS:
+        rec = dryrun.run_cell(LM_ARCH, shape, "single")
+        if rec.get("status") != "ok":
+            raise AssertionError(f"dry run {LM_ARCH} {shape}: {rec.get('status')}")
+        rf = rec["roofline"]
+        log(f"  {LM_ARCH} {shape} on the (16, 16) meta mesh: status ok in {rec['meta_run_s']} s;"
+            f" {rec['memory']['argument_size_in_bytes']:,} argument bytes a device; counted "
+            f"{rec['counted_flops']:.4e} FLOP, {rec['counted_bytes']:.4e} bytes; model/counted "
+            f"FLOPs {rec['model_vs_counted_flops']:.4f}; bound a step compute "
+            f"{1e3 * rf['compute_s']:.3f} ms, memory {1e3 * rf['memory_s']:.3f} ms "
+            f"({rf['dominant']}; H100 SXM data sheet rates)")
+    cfg = dataclasses.replace(get_config(LM_ARCH), optimizer="adafactor")
+    shape = ShapeSpec("lm_train", LM_TRAIN["seq"], LM_TRAIN["batch"], "train")
+    fn, args, _ = dryrun._step_and_specs(cfg, shape, make_production_mesh())
+    t0 = time.perf_counter()
+    counter = dryrun.count_step(fn, args)
+    rf = hw.roofline_terms(flops=counter.flops, bytes_hbm=counter.bytes, bytes_collective=0.0,
+                           chips=1)
+    log(f"  {LM_ARCH} train step at the lm_train phase's shape ({LM_TRAIN['batch']} x "
+        f"{LM_TRAIN['seq']} tokens, remat {cfg.remat_policy!r}, Adafactor), counted on meta in "
+        f"{time.perf_counter() - t0:.1f} s: {counter.flops:.4e} FLOP "
+        f"({counter.flops / (6 * cfg.n_active_params() * LM_TRAIN['batch'] * LM_TRAIN['seq']):.4f}"
+        f" x 6·N·T), {counter.bytes:.4e} bytes; bound compute {1e3 * rf['compute_s']:.1f} ms "
+        f"(67 TFLOP/s f32), memory {1e3 * rf['memory_s']:.1f} ms (3.35 TB/s); the lm_train "
+        f"phase's measured step {step_ms:.1f} ms = {step_ms / (1e3 * rf['bound_s']):.3f} x the "
+        f"{rf['dominant']} bound  [{gpu}]")
+    for name, n, flops, nbytes in counter.top(5):
+        log(f"    {name:24s} x{n:<6d} {flops:.4e} FLOP {nbytes:.4e} bytes")
+    recs = {}
+    for kind in ("single", "multi"):
+        rec = sd.dry_run(ENTERPRISE["batch"], ENTERPRISE["beam"], ENTERPRISE["topk"],
+                         multi_pod=kind == "multi")
+        recs[kind] = rec
+        mem, rf = rec["memory"], rec["roofline"]
+        log(f"  enterprise serve ({rec['model']}), {kind}-pod mesh of {rec['chips']} meta slots,"
+            f" batch {rec['batch']}: {mem['argument_bytes_per_device']:,} argument bytes a "
+            f"device; counted {rec['counted_flops_per_device']:.4e} FLOP and "
+            f"{rec['counted_bytes_per_device']:.4e} bytes a device; bound a step "
+            f"{1e3 * rf['bound_s']:.4f} ms ({rf['dominant']}), {rec['per_query_bound_us']:.4f} "
+            f"us a query; candidates sent between slots {rec['collectives']['TOTAL']['count']}"
+            f" x, {rec['collectives']['TOTAL']['operand_bytes']:,.0f} bytes; run on meta in "
+            f"{rec['meta_run_s']} s")
+        if mem["argument_bytes_per_device"] != ENTERPRISE_ARGUMENT_BYTES:
+            raise AssertionError(f"enterprise {kind}: {mem['argument_bytes_per_device']:,} "
+                                 f"argument bytes a device, not {ENTERPRISE_ARGUMENT_BYTES:,}")
+    return recs["single"]
+
+
+def enterprise_phase(torch, gpu: str, dry: dict, device: str = "cuda") -> None:
+    """Phase 16: one device's shards of the 100M-label model drawn on the
+    card (data row 0, model slot 0), its program timed, profiled and held
+    against the CPU; then all 16 model slots streamed through the card and
+    merged into the top-10 of 64 queries, the slot that owns most of the
+    answer held against the CPU too."""
+    from repro_torch.core.mscm import scatter_dense
+    from repro_torch.launch import serve_dryrun as sd
+    from repro_torch.launch.hw import HBM_BW
+    from repro_torch.parity import check_ranking
+
+    e, geom = ENTERPRISE, sd.ENTERPRISE
+    n_model = 16
+    step_kw = dict(geom=geom, beam=e["beam"], topk=e["topk"])
+    tol = dict(rtol=e["rtol"], atol=e["atol"])
+
+    def host(ts):
+        return tuple(t.cpu() for t in ts)
+
+    def held_cpu(got, want, what: str) -> str:
+        """check_ranking of the card's (scores, ids) against the CPU's."""
+        swaps = check_ranking(got[0].cpu().numpy(), got[1].cpu().numpy(), want[0].numpy(),
+                              want[1].numpy(), what, **tol)
+        err = float((got[0].cpu() - want[0]).abs().max())
+        real = want[0][want[0] > -1e29]  # the rest: rows with no block of the slot
+        return (f"max|diff| {err:.3e}, {swaps} near-tie swaps, {real.numel()} of "
+                f"{want[0].numel()} scores real ({float(real.min()) if real.numel() else 0:.6f}"
+                f"..{float(real.max()) if real.numel() else 0:.6f})")
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    upper = sd.make_upper(geom, device=device, seed=e["seed"])
+    leaf = sd.make_leaf_shard(0, n_model, geom, device=device, seed=e["seed"])
+    xi, xv = sd.make_queries(e["n"], 0, geom, device=device, seed=e["seed"])
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    args = (xi, xv, *upper, *leaf)
+    nbytes = sum(t.numel() * t.element_size() for t in args)
+    log(f"  device (data 0, model 0) of {dry['model']}: {nbytes:,} bytes drawn on the card "
+        f"in {gen_s:.2f} s (the dry run: {dry['memory']['argument_bytes_per_device']:,}); "
+        f"leaf shard {leaf[1].shape[0]:,} chunks of {geom.ell_r} x {geom.branching[-1]} bf16")
+    if nbytes != dry["memory"]["argument_bytes_per_device"]:
+        raise AssertionError("the device's shards differ from the dry run's bytes")
+
+    def step():
+        return sd.device_step(*args, m=0, **step_kw)
+
+    ms = time_ms(step, reps=10, inner=4)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        step()
+    torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t0) / 10
+    wall, acts, busy_us, rows = device_profile(step)
+    log_profile("one enterprise device call (64 queries)", wall, acts, busy_us, rows, gpu, 8)
+    idle = 1 - busy_us / (1e6 * wall) if busy_us else None
+    bound_ms = 1e3 * dry["counted_bytes_per_device"] / HBM_BW
+    log(f"  enterprise device call: {ms:.4f} ms on the card ({1e3 * ms / e['n']:.3f} us a "
+        f"query; CUDA events behind a sleep), {wall_ms:.4f} ms wall a call (10 in a row, "
+        f"host clock); the dry run's bound {bound_ms:.4f} ms a call ({ms / bound_ms:.2f} x), "
+        f"{dry['per_query_bound_us']:.4f} us a query of the 1,024; {acts} device activities, "
+        f"idle share {'not measured' if idle is None else f'{idle:.4f}'} (profiler on)  [{gpu}]")
+
+    out = step()
+    xd = scatter_dense(xi, xv, geom.d_feat)
+    beam = sd.upper_beam(xd, *upper, geom=geom, beam=e["beam"])
+    del xd
+    t0 = time.perf_counter()
+    cpu_upper, cpu_leaf, (cxi, cxv) = host(upper), host(leaf), host((xi, xv))
+    copy_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu_out = sd.device_step(cxi, cxv, *cpu_upper, *cpu_leaf, m=0, **step_kw)
+    cpu_s = time.perf_counter() - t0
+    cxd = scatter_dense(cxi, cxv, geom.d_feat)
+    cpu_beam = sd.upper_beam(cxd, *cpu_upper, geom=geom, beam=e["beam"])
+    del cxd, cpu_leaf
+    log(f"  card vs CPU (the same {nbytes / 1e9:.2f} GB copied to the host in {copy_s:.1f} s; "
+        f"the CPU's call {cpu_s:.2f} s; tolerance {e['atol']:g} + {e['rtol']:g}|s|): the "
+        f"device's top-10 {held_cpu(out, cpu_out, 'enterprise device call, card vs CPU')}; "
+        f"the beam into the leaf level (parents and scores) "
+        f"{held_cpu(beam[::-1], cpu_beam[::-1], 'enterprise upper beam, card vs CPU')}")
+
+    del leaf, args
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cands = []
+    for m in range(n_model):
+        leaf = sd.make_leaf_shard(m, n_model, geom, device=device, seed=e["seed"])
+        cands.append(sd.device_step(xi, xv, *upper, *leaf, m=m, **step_kw))
+        del leaf
+    s, i = sd.merge_candidates([c[0] for c in cands], [c[1] for c in cands], e["topk"])
+    torch.cuda.synchronize()
+    stream_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    if not (torch.equal(cands[0][0], out[0]) and torch.equal(cands[0][1], out[1])):
+        raise AssertionError("model slot 0 redrawn from its seed gave other candidates")
+    cs, ci = sd.merge_candidates([c[0].cpu() for c in cands], [c[1].cpu() for c in cands],
+                                 e["topk"])
+    if not (torch.equal(cs, s.cpu()) and torch.equal(ci, i.cpu())):
+        raise AssertionError("the card's merge differs from the CPU's on the same candidates")
+    labels = i.cpu().numpy()
+    n_labels = geom.level_sizes()[-1]
+    ok = (np.isfinite(s.cpu().numpy()).all() and (labels >= 0).all()
+          and (labels < n_labels).all()
+          and all(len(set(r)) == len(r) for r in labels.tolist())
+          and bool((s[:, :-1] >= s[:, 1:]).all()) and bool((s > 0).all()))
+    if not ok:
+        raise AssertionError("the merged top-10 is not a ranking of distinct leaf labels")
+    owners = np.bincount(labels.ravel() // (n_labels // n_model), minlength=n_model)
+    log(f"  all {n_model} model slots streamed (each leaf shard drawn from its seed, its "
+        f"program run, the shard freed): {e['n']} queries' top-{e['topk']} of "
+        f"{n_labels:,} labels in {stream_s:.3f} s wall, peak {peak / 1e9:.3f} GB; the merge "
+        f"bitwise the CPU's merge of the same candidates; slot 0 bitwise its first draw; "
+        f"top-10 labels a model slot {owners.tolist()}  [{gpu}]")
+    top = int(owners.argmax())
+    cpu_leaf = host(sd.make_leaf_shard(top, n_model, geom, device=device, seed=e["seed"]))
+    cpu_top = sd.device_step(cxi, cxv, *cpu_upper, *cpu_leaf, m=top, **step_kw)
+    log(f"  model slot {top} (the most top-10 labels), card vs CPU: "
+        f"{held_cpu(cands[top], cpu_top, f'enterprise slot {top}, card vs CPU')}")
+
+
+def examples_phase(gpu: str) -> None:
+    """Phase 17: both new examples as subprocesses on the card."""
+    import os
+
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT / "src") + (os.pathsep + env["PYTHONPATH"]
+                                             if env.get("PYTHONPATH") else "")
+    for cmd in EXAMPLES:
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, *cmd], cwd=ROOT, env=env, capture_output=True,
+                              text=True, timeout=EXAMPLES_TIMEOUT_S)
+        lines = proc.stdout.strip().splitlines()
+        log(f"  {' '.join(cmd)}: exit {proc.returncode} in {time.perf_counter() - t0:.1f} s")
+        for ln in lines[-12:]:
+            log(f"    | {ln}")
+        if proc.returncode != 0:
+            log(proc.stderr[-3000:])
+            raise AssertionError(f"{cmd[0]} exited {proc.returncode}")
+        if cmd[0].endswith("lm_tree_head_torch.py") and \
+                "full-beam exactness: 1.000" not in proc.stdout:
+            raise AssertionError("lm_tree_head_torch.py: full-beam exactness is not 1.000")
+        if cmd[0].endswith("serve_search_torch.py") and "microbatch-" not in proc.stdout:
+            raise AssertionError("serve_search_torch.py did not reach its online setting")
 
 
 def main() -> int:
@@ -2773,7 +3026,15 @@ def main() -> int:
     log(f"phase lm (at {time.perf_counter() - t_all:.1f} s)")
     lm_phase(torch, gpu)
     log(f"phase lm_train (at {time.perf_counter() - t_all:.1f} s)")
-    lm_train_phase(torch, gpu)
+    step_ms = lm_train_phase(torch, gpu)
+    torch.cuda.empty_cache()
+    log(f"phase dryrun (at {time.perf_counter() - t_all:.1f} s)")
+    dry = dryrun_phase(torch, gpu, step_ms)
+    log(f"phase enterprise (at {time.perf_counter() - t_all:.1f} s)")
+    enterprise_phase(torch, gpu, dry)
+    torch.cuda.empty_cache()
+    log(f"phase examples (at {time.perf_counter() - t_all:.1f} s)")
+    examples_phase(gpu)
     log(f"done in {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": [grouped, fused, pregather, grouped_q]}))
     print(json.dumps({"ok": True, "device": {

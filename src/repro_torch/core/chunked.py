@@ -44,6 +44,11 @@ class ChunkedLayer:
     def n_cols(self) -> int:
         return self.C * self.B
 
+    @property
+    def nnz_dense_tile(self) -> int:
+        """Elements stored (explicit zeros included): the memory model."""
+        return int(self.vals.size)
+
     @classmethod
     def from_csc(
         cls,
@@ -94,6 +99,10 @@ class ChunkedLayer:
 
     def memory_bytes(self) -> int:
         return self.rows.nbytes + self.vals.nbytes
+
+    def occupancy(self) -> float:
+        """Share of the [C, R, B] tile holding true nonzeros (paper item 2)."""
+        return float((self.vals != 0).mean())
 
 
 @dataclasses.dataclass

@@ -50,10 +50,14 @@ def mscm_dense_lookup(
     block_q: torch.Tensor,   # int [A]
     block_c: torch.Tensor,   # int [A]
 ) -> torch.Tensor:
-    """Dense-lookup MSCM: gather query values at chunk rows, contract."""
+    """Dense-lookup MSCM: gather query values at chunk rows, contract.
+
+    ``vals`` may be stored narrower than the table (bf16): the gathered
+    blocks are cast, never the whole tensor, which gives the bits the
+    reference's cast-then-gather gives without a copy of every chunk."""
     bc = block_c.clamp(0, rows.shape[0] - 1)
     xg = x_dense[block_q[:, None], rows[bc]]                   # [A, R]
-    return torch.einsum("ar,arb->ab", xg, vals[bc])            # [A, B]
+    return torch.einsum("ar,arb->ab", xg, vals[bc].to(xg.dtype))   # [A, B]
 
 
 def gather_query_rows(

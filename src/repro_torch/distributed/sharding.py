@@ -155,6 +155,24 @@ class Slot:
         return torch.cuda.stream(self.stream)
 
 
+#: The open :func:`record_sends` logs; :func:`send` appends to each.
+_SEND_LOGS: List[list] = []
+
+
+@contextlib.contextmanager
+def record_sends():
+    """Within the block, every :func:`send` between two distinct slots
+    appends ``(src, dst, bytes)`` to the yielded list: the traffic that
+    crosses device slots, counted on ``meta`` devices too, where nothing is
+    copied. A slot sending to itself moves nothing and is not logged."""
+    log: list = []
+    _SEND_LOGS.append(log)
+    try:
+        yield log
+    finally:
+        _SEND_LOGS.remove(log)
+
+
 def send(tensors: Sequence[torch.Tensor], src: Slot, dst: Slot) -> Tuple[torch.Tensor, ...]:
     """``tensors``, enqueued on ``src``, made readable by work enqueued on
     ``dst``. On one device the tensors are shared: ``dst``'s stream waits for
@@ -163,6 +181,12 @@ def send(tensors: Sequence[torch.Tensor], src: Slot, dst: Slot) -> Tuple[torch.T
     Between devices they are copied, on ``src``'s stream, which PyTorch
     orders against ``dst``'s."""
     tensors = tuple(tensors)
+    if src is dst:
+        return tensors
+    if _SEND_LOGS:
+        nbytes = sum(t.numel() * t.element_size() for t in tensors)
+        for log in _SEND_LOGS:
+            log.append((src, dst, nbytes))
     if src.device == dst.device:
         s_src, s_dst = src.current_stream(), dst.current_stream()
         if s_src is None or s_src == s_dst:
@@ -211,6 +235,14 @@ class NamedSharding:
 
     mesh: Any
     spec: PartitionSpec
+
+    def shard_shape(self, global_shape: Sequence[int]) -> Tuple[int, ...]:
+        """One device's block of a tensor of ``global_shape``: each dim
+        divided by the product of its spec's mesh axes, rounded up (XLA
+        pads the last block)."""
+        spec = tuple(self.spec) + (None,) * (len(global_shape) - len(self.spec))
+        return tuple(-(-int(n) // axis_size(self.mesh, ax))
+                     for n, ax in zip(global_shape, spec))
 
 
 def data_axes(mesh) -> Tuple[str, ...]:

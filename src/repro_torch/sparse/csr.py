@@ -146,6 +146,11 @@ class CSC:
     shape: Tuple[int, int]  # (d, L)
 
     @classmethod
+    def from_dense(cls, w: np.ndarray) -> "CSC":
+        t = CSR.from_dense(np.ascontiguousarray(w.T))
+        return cls(t.indptr, t.indices, t.data, (w.shape[0], w.shape[1]))
+
+    @classmethod
     def from_cols(cls, cols_idx, cols_val, shape) -> "CSC":
         t = CSR.from_rows(cols_idx, cols_val, (shape[1], shape[0]))
         return cls(t.indptr, t.indices, t.data, shape)
@@ -156,6 +161,10 @@ class CSC:
 
     def col_nnz(self) -> np.ndarray:
         return np.diff(self.indptr)
+
+    @property
+    def nnz(self) -> int:
+        return int(self.indptr[-1])
 
     def to_dense(self) -> np.ndarray:
         d, L = self.shape

@@ -13,7 +13,9 @@ The counterparts of ``tests/test_api.py``:
 4. every module of ``repro_torch.serving`` (the fleet's and the gateway
    included), ``repro_torch.index`` and the LM's packages (the trainer's
    ``optim``, ``data.lm_data``, ``distributed.fault``, ``launch.train`` and
-   ``launch.hw`` included) imports with ``jax`` and ``repro`` blocked, and
+   ``launch.hw`` included), the launch tools (``mesh``, ``hlo_stats``,
+   ``dryrun``, ``serve_dryrun``) and the port's last two examples import
+   with ``jax`` and ``repro`` blocked, and
    ``__all__`` is the reference's; without a card, the trainer and
    ``resolve_device`` raise when no device is named.
 """
@@ -34,6 +36,7 @@ import repro_torch.serving as T
 import repro_torch.serving.api as tapi
 
 ROOT = Path(__file__).resolve().parents[1]
+EXAMPLES = [ROOT / "examples" / f"{name}_torch.py" for name in ("serve_search", "lm_tree_head")]
 
 
 def _exotic_f32():
@@ -215,8 +218,9 @@ def test_default_config_warns_nothing():
 
 def test_serving_and_index_import_without_jax_or_repro():
     """Every module of the serving, index, distributed, core, checkpoint,
-    configs, models, launch, optim and data packages imports with jax and
-    repro blocked."""
+    configs, models, launch, optim and data packages, and the port's
+    examples ``serve_search_torch.py`` and ``lm_tree_head_torch.py``,
+    import with jax and repro blocked."""
     modules = sorted(
         ".".join(p.relative_to(ROOT / "src").with_suffix("").parts).removesuffix(".__init__")
         for d in ("serving", "serving/fleet", "index", "distributed", "core", "checkpoint",
@@ -231,6 +235,10 @@ def test_serving_and_index_import_without_jax_or_repro():
         "    importlib.import_module(m)\n"
         "import repro_torch.serving as s\n"
         "assert 'MicroBatcher' in s.__all__\n"
+        "import importlib.util\n"
+        f"for path in {[str(p) for p in EXAMPLES]!r}:\n"
+        "    spec = importlib.util.spec_from_file_location('example', path)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "print(len(s.__all__))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
@@ -248,7 +256,9 @@ def test_serving_and_index_import_without_jax_or_repro():
               "repro_torch.models.ssm", "repro_torch.launch.specs",
               "repro_torch.optim", "repro_torch.optim.optimizers", "repro_torch.data.lm_data",
               "repro_torch.distributed.fault", "repro_torch.launch.train",
-              "repro_torch.launch.hw"):
+              "repro_torch.launch.hw", "repro_torch.launch.mesh",
+              "repro_torch.launch.hlo_stats", "repro_torch.launch.dryrun",
+              "repro_torch.launch.serve_dryrun"):
         assert m in modules
     assert T.__all__ == J.__all__
 

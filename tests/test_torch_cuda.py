@@ -11,7 +11,9 @@ without padding tiles (``tile_src``); the quantized grouped kernel also
 bitwise against the f32 grouped kernel on the dequantized tiles; every
 kernel bitwise against a second launch; the traversal on the card against the same traversal on the CPU, by
 the ranking rule of ``repro_torch.parity`` (scores within rtol 1e-5 / atol
-1e-6, labels equal outside near-ties).
+1e-6, labels equal outside near-ties). The enterprise serving step at a
+small geometry, card against CPU, is held by the same rule at rtol 1e-6 /
+atol 1e-7 (sums of a few terms; see ``chip_smoke.py``'s ``ENTERPRISE``).
 """
 
 import numpy as np
@@ -980,3 +982,138 @@ def test_train_loop_on_card_by_default(cuda_device, tmp_path):
     assert first["steps_run"] == 6 and np.all(np.isfinite(first["losses"]))
     second = train_loop(cfg, steps=9, **kw)
     assert second["steps_run"] == 3 and Checkpointer(kw["ckpt_dir"]).list_steps()[-1] == 9
+
+
+# -- the launch tools and the last examples ----------------------------------
+
+def _enterprise_small(batch=8, seed=5):
+    """A small enterprise geometry (d = 300, tree [4, 4, 8]) and its step's
+    global arguments, drawn from a numpy seed: int32 rows skewed toward
+    the low feature ids, bf16 values (rounded from f32), queries of 16
+    nonzeros."""
+    from repro_torch.launch import serve_dryrun as sd
+
+    geom = sd.Geometry(d_feat=300, branching=(4, 4, 8), level_nnz=8, ell_r=32, query_nnz=16)
+    rng = np.random.default_rng(seed)
+    args = [torch.from_numpy((geom.d_feat * rng.random((batch, geom.query_nnz)) ** 2)
+                             .astype(np.int32)),
+            torch.from_numpy(rng.random((batch, geom.query_nnz), dtype=np.float32))]
+    for c, r, b in geom.level_shapes():
+        args.append(torch.from_numpy(((geom.d_feat + 1) * rng.random((c, r)) ** 2)
+                                     .astype(np.int32)))
+        args.append(torch.from_numpy(rng.standard_normal((c, r, b), dtype=np.float32))
+                    .to(torch.bfloat16))
+    return geom, args
+
+
+@pytest.mark.cuda
+def test_enterprise_step_small_on_card_matches_cpu(cuda_device):
+    """The enterprise serving step at a small geometry over a (2, 2) mesh of
+    ``cuda:0`` slots (a stream each) against the same step over four CPU
+    slots: scores within 1e-7 + 1e-6 |s|, labels equal outside near-ties;
+    the candidate hand-offs logged as sends, the same on both."""
+    from repro_torch.distributed.sharding import record_sends
+    from repro_torch.launch import serve_dryrun as sd
+    from repro_torch.launch.mesh import make_host_mesh
+
+    geom, args = _enterprise_small()
+    got = {}
+    for dev in ("cpu", "cuda:0"):
+        mesh = make_host_mesh(2, 2, devices=[dev] * 4)
+        fn, specs, _ = sd.serve_step_spec(8, 3, 5, mesh, geom)
+        assert [tuple(a.shape) for a in args] == [tuple(s.shape) for s in specs]
+        with record_sends() as log:
+            blocks = fn(*[a.to(dev) for a in args])
+        s, i = sd.collect(blocks, dev)
+        got[dev] = (s.cpu().numpy(), i.cpu().numpy(), [b for _, _, b in log])
+    assert got["cpu"][2] == got["cuda:0"][2] == [2 * 4 * 5 * 4] * 2
+    check_ranking(got["cuda:0"][0], got["cuda:0"][1], got["cpu"][0], got["cpu"][1],
+                  "enterprise step, card vs CPU", rtol=1e-6, atol=1e-7)
+
+
+def _profiled_copy_stats(copy):
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch.hlo_stats import collective_stats, trace_events
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        copy()
+        torch.cuda.synchronize()
+    return collective_stats(trace_events(prof))
+
+
+@pytest.mark.cuda
+def test_collective_stats_reads_a_device_copy(cuda_device):
+    """A device-to-device copy of 4 MiB on one card, profiled: the trace's
+    ``Memcpy DtoD`` counted once as ``device-copy`` with its bytes."""
+    x = torch.rand(1 << 20, device=cuda_device)
+    y = torch.empty_like(x)
+    st = _profiled_copy_stats(lambda: y.copy_(x))
+    assert st["device-copy"]["count"] == 1
+    assert st["device-copy"]["operand_bytes"] == st["device-copy"]["result_bytes"] == 4 << 20
+    assert st["TOTAL"]["count"] == 1
+
+
+@pytest.mark.cuda
+def test_collective_stats_reads_a_peer_copy(cuda_device):
+    """A 4 MiB copy from card 0 to card 1, profiled: ``Memcpy PtoP`` counted
+    as ``peer-copy`` with its bytes (skips with one card)."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards")
+    x = torch.rand(1 << 20, device="cuda:0")
+    st = _profiled_copy_stats(lambda: x.to("cuda:1"))
+    assert st["peer-copy"]["count"] == 1
+    assert st["peer-copy"]["operand_bytes"] == 4 << 20
+
+
+def _example(name):
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "examples" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.cuda
+def test_serve_search_example_on_card(cuda_device):
+    """``examples/serve_search_torch.py`` on the card: the partitioned
+    engine behind the micro-batcher and the in-process HTTP gateway, each
+    bitwise the unpartitioned engine (the gateway's clients post one query
+    at a time: against ``serve_online``)."""
+    from repro_torch.data.build import build_benchmark_tree
+    from repro_torch.data.xmr_data import XMRShape, benchmark_queries
+    from repro_torch.serving import ServeConfig, XMRServingEngine
+
+    ex = _example("serve_search_torch")
+    shape = XMRShape("tiny", 2000, 8 ** 3, 100, 20, 8)
+    rng = np.random.default_rng(0)
+    tree = build_benchmark_tree(shape, 8, rng, device="cuda")
+    queries = benchmark_queries(shape, 24, rng)
+    args = ex.parse_args(["--partitions", "2", "--queries", "24"])
+    s, l, ref_s, ref_l = ex.serve_partitioned(tree, queries, shape, args)
+    np.testing.assert_array_equal(s.view(np.uint32), ref_s.view(np.uint32))
+    np.testing.assert_array_equal(l, ref_l)
+    gs, gl = ex.serve_gateway(tree, queries, ex.parse_args(["--gateway", "0", "--queries", "24"]))
+    os_, ol = XMRServingEngine(tree, ServeConfig(beam=10, topk=10, max_batch=64)
+                               ).serve_online(queries)
+    np.testing.assert_array_equal(gs.view(np.uint32), os_.view(np.uint32))
+    np.testing.assert_array_equal(gl, ol)
+
+
+@pytest.mark.cuda
+def test_lm_tree_head_example_on_card(cuda_device):
+    """``examples/lm_tree_head_torch.py``'s evaluation on the card: full-beam
+    exactness 1.0, and at beams 4, 16 and 64 the tokens the CPU gives on the
+    same head and hidden states."""
+    ex = _example("lm_tree_head_torch")
+    g = torch.Generator().manual_seed(3)
+    head = ex.structured_head(g, 128, 8192, 64)
+    hidden = torch.randn((16, 128), generator=g)
+    cpu = ex.evaluate(head, hidden, 64)
+    card = ex.evaluate(head.to(cuda_device), hidden.to(cuda_device), 64)
+    assert card["exact"] == cpu["exact"] == 1.0
+    for beam in ex.BEAMS:
+        torch.testing.assert_close(card[beam][0].cpu(), cpu[beam][0], rtol=0, atol=0)

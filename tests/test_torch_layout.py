@@ -118,3 +118,18 @@ def test_import_with_jax_blocked():
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+@pytest.mark.parametrize("d,L,B,nnz", [(150, 64, 8, 10), (60, 6, 6, 5)])
+def test_csc_from_dense_nnz_and_tile_occupancy_match(d, L, B, nnz):
+    """``CSC.from_dense`` and ``CSC.nnz``, ``ChunkedLayer.nnz_dense_tile``
+    and ``ChunkedLayer.occupancy``: the reference's values, bitwise."""
+    w = jcsr.random_sparse_csc(d, L, nnz, np.random.default_rng(2), sibling_groups=B).to_dense()
+    wj, wt = jcsr.CSC.from_dense(w), tcsr.CSC.from_dense(w)
+    _same_sparse(wj, wt)
+    assert wt.nnz == wj.nnz == int((w != 0).sum())
+    np.testing.assert_array_equal(wt.to_dense(), w)
+    cj, ct = JChunked.from_csc(wj, B), ChunkedLayer.from_csc(wt, B)
+    assert ct.nnz_dense_tile == cj.nnz_dense_tile == ct.C * ct.R * ct.B
+    assert ct.occupancy() == cj.occupancy()
+    assert ct.occupancy() == pytest.approx(wt.nnz / ct.nnz_dense_tile)
