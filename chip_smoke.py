@@ -160,9 +160,11 @@ Phases, in order; any failure raises and the script exits non-zero:
             resumes at step 12.
 15. dryrun  the dry runs, on ``meta`` tensors (no card memory):
             ``repro_torch.launch.dryrun.run_cell`` for yi-6b in train_4k,
-            prefill_32k and decode_32k on the (16, 16) production mesh
-            (each status ok: argument bytes a device, counted FLOPs and
-            bytes, the bound); yi-6b's step at the lm_train phase's shape
+            prefill_32k and decode_32k on the (16, 16) production mesh, each
+            rank 0's DTensor program on a fake process group of 256 (each
+            status ok: argument bytes a device, that rank's own counted
+            FLOPs, bytes and collectives by kind, the compute, memory and
+            collective terms); yi-6b's step at the lm_train phase's shape
             counted, its compute and memory bounds printed beside the step
             that phase measured; the enterprise serving dry run
             (``launch/serve_dryrun.py``: 100,663,296 labels, d = 4M, tree
@@ -183,6 +185,25 @@ Phases, in order; any failure raises and the script exits non-zero:
 17. examples ``examples/serve_search_torch.py --small --queries 64`` and
             ``examples/lm_tree_head_torch.py`` as subprocesses on the card:
             each exits 0, the tree head prints full-beam exactness 1.000.
+18. spmd    the LM as one program over a mesh (DTensor, plain torch ops and
+            NCCL, no kernel of the port): (a) on a world-1 NCCL mesh of
+            (1, 1), reduced yi-6b's sharded ``make_train_step`` (AdamW,
+            remat, an f32 cache), ``prefill`` and 4 greedy ``decode_step``s
+            against the plain port on the card from the same parameters
+            (``SPMD_TOL``);
+            (b) rank 0's program of the (16, 16) production mesh at yi-6b's
+            full width and depth, its shards drawn on the card by
+            ``spmd.local_tree`` from seeds and its collectives sent to a
+            fake group (no byte crosses a card, no value is checked):
+            ``train_4k`` (16 x 4,096 tokens a device, AdamW, remat
+            ``full``; 1 warm-up, 2 timed steps, 1 profiled), ``prefill_32k`` (2 x
+            32,768; 1 call), ``decode_32k`` (8 sequences, a cache of 32,768
+            over ``model``; 8 steps), each in ms (CUDA events) against that
+            rank's counted compute and memory bounds from the dry run, peak
+            memory against the dry run's argument bytes, and one profiled
+            decode step's activities and idle share; (c) with 2 or more
+            cards, (a) on a (2, n/2) NCCL mesh, one process a card (with one
+            card it says it did not run, and why).
 
 The line before last is a JSON object with one entry per kernel, whose
 ``launches`` count that kernel's path (grouped: path; grouped_q: the int8
@@ -339,6 +360,24 @@ ENTERPRISE_ARGUMENT_BYTES = 13_599_411_200
 EXAMPLES = (("examples/serve_search_torch.py", "--small", "--queries", "64"),
             ("examples/lm_tree_head_torch.py",))
 EXAMPLES_TIMEOUT_S = 400
+# The spmd phase (a): reduced yi-6b (remat on, an f32 cache), 4 x 32 tokens
+# from np.random.default_rng(0), AdamW at lr 1e-2 from step 0, a cache of
+# 40, 4 greedy decode steps; the sharded run against the plain port on the
+# card. The cache is f32 here: a bf16 cache rounds an entry to either side
+# when the two runs' f32 values differ in their last bits, which moved
+# decode logits by up to 4.3e-3 x (1 + max) on a (2, 2) gloo mesh; the
+# config's bf16 cache is held against the reference on the CPU
+# (tests/test_torch_spmd.py) and runs at full width in (b).
+SPMD_SMALL = dict(batch=4, seq=32, max_len=40, steps=4, lr=1e-2)
+# The loss within rtol 1e-5; each gradient within 1e-5 of its leaf's max
+# |grad|; each updated leaf (the sharded update applied to the plain step's
+# gradients) within 1e-5 of its leaf's max |p|; prefill and decode logits
+# within 1e-5 x (1 + max |logit|), the greedy tokens equal wherever the
+# top-2 gap exceeds that.
+SPMD_TOL = dict(loss=1e-5, leaf=1e-5, logits=1e-5)
+# (b): rank 0 of the (16, 16) production mesh, the dry run's cells.
+SPMD_RANK0 = dict(train_steps=2, decode_steps=8, seed=0)
+SPMD_CARDS_TIMEOUT_S = 300
 
 
 def log(msg: str) -> None:
@@ -2741,10 +2780,10 @@ def lm_train_phase(torch, gpu: str, device: str = "cuda") -> float:
 
 def dryrun_phase(torch, gpu: str, step_ms: float) -> dict:
     """Phase 15: the dry runs on ``meta`` tensors (no card memory): yi-6b's
-    cells on the single-pod mesh, yi-6b's step at the lm_train phase's shape
-    counted and its bound held against the measured step, and the
-    enterprise serving step on both production meshes. Returns the
-    single-pod enterprise record."""
+    cells on the single-pod mesh (rank 0's DTensor program), yi-6b's step at
+    the lm_train phase's shape counted and its bound held against the
+    measured step, and the enterprise serving step on both production
+    meshes. Returns the single-pod enterprise record and yi-6b's cells."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -2753,17 +2792,25 @@ def dryrun_phase(torch, gpu: str, step_ms: float) -> dict:
     from repro_torch.launch import serve_dryrun as sd
     from repro_torch.launch.mesh import make_production_mesh
 
+    lm_cells = {}
     for shape in DRYRUN_CELLS:
         rec = dryrun.run_cell(LM_ARCH, shape, "single")
-        if rec.get("status") != "ok":
+        if rec.get("status") != "ok" or not rec.get("spmd"):
             raise AssertionError(f"dry run {LM_ARCH} {shape}: {rec.get('status')}")
-        rf = rec["roofline"]
-        log(f"  {LM_ARCH} {shape} on the (16, 16) meta mesh: status ok in {rec['meta_run_s']} s;"
-            f" {rec['memory']['argument_size_in_bytes']:,} argument bytes a device; counted "
-            f"{rec['counted_flops']:.4e} FLOP, {rec['counted_bytes']:.4e} bytes; model/counted "
-            f"FLOPs {rec['model_vs_counted_flops']:.4f}; bound a step compute "
-            f"{1e3 * rf['compute_s']:.3f} ms, memory {1e3 * rf['memory_s']:.3f} ms "
-            f"({rf['dominant']}; H100 SXM data sheet rates)")
+        lm_cells[shape] = rec
+        rf, coll = rec["roofline"], rec["collectives"]
+        kinds = ", ".join(f"{k} {v['count']} x {v['operand_bytes']:.4e} B"
+                          for k, v in coll.items() if k != "TOTAL")
+        log(f"  {LM_ARCH} {shape}, rank 0's program of the (16, 16) mesh on meta (fake group "
+            f"of {rec['chips']}): status ok in {rec['meta_run_s']} s; "
+            f"{rec['memory']['argument_size_in_bytes']:,} argument bytes a device; counted a "
+            f"device {rec['counted_flops_per_device']:.4e} FLOP, "
+            f"{rec['counted_bytes_per_device']:.4e} bytes, collectives {kinds} (operand "
+            f"{rec['collective_bytes_per_device']:.4e} B); model/counted FLOPs "
+            f"{rec['model_vs_counted_flops']:.4f}; bound a step compute "
+            f"{1e3 * rf['compute_s']:.3f} ms, memory {1e3 * rf['memory_s']:.3f} ms, collective "
+            f"{1e3 * rf['collective_s']:.3f} ms ({rf['dominant']}; H100 SXM data sheet rates, "
+            f"NVLink 4 for the collectives)")
     cfg = dataclasses.replace(get_config(LM_ARCH), optimizer="adafactor")
     shape = ShapeSpec("lm_train", LM_TRAIN["seq"], LM_TRAIN["batch"], "train")
     fn, args, _ = dryrun._step_and_specs(cfg, shape, make_production_mesh())
@@ -2798,7 +2845,7 @@ def dryrun_phase(torch, gpu: str, step_ms: float) -> dict:
         if mem["argument_bytes_per_device"] != ENTERPRISE_ARGUMENT_BYTES:
             raise AssertionError(f"enterprise {kind}: {mem['argument_bytes_per_device']:,} "
                                  f"argument bytes a device, not {ENTERPRISE_ARGUMENT_BYTES:,}")
-    return recs["single"]
+    return recs["single"], lm_cells
 
 
 def enterprise_phase(torch, gpu: str, dry: dict, device: str = "cuda") -> None:
@@ -2951,6 +2998,287 @@ def examples_phase(gpu: str) -> None:
             raise AssertionError("serve_search_torch.py did not reach its online setting")
 
 
+def _leaf_err(torch, got, want) -> float:
+    """max |got - want| over max |want| (both tensors)."""
+    return float((got.float() - want.float()).abs().max()) / max(
+        float(want.float().abs().max()), 1e-30)
+
+
+def spmd_vs_plain(torch, mesh, device) -> str:
+    """Reduced yi-6b on ``mesh`` (DTensor) against the plain port on
+    ``device``, from the same parameters: prefill and greedy decode (the
+    sharded run fed the plain run's tokens), then one ``make_train_step``
+    step (AdamW): the loss, every gradient (none reaching the optimizer
+    with placements other than its parameter's), and every leaf the sharded
+    update makes from the plain step's gradients. Raises past ``SPMD_TOL``;
+    returns a summary."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.distributed import spmd
+    from repro_torch.distributed.sharding import batch_specs, shard_opt_state, shard_params
+    from repro_torch.launch.train import init_opt_state, make_train_step
+    from repro_torch.models import lm
+    from repro_torch.optim import Optimizer, get_optimizer
+    from torch.utils._pytree import tree_flatten
+
+    r, tol = SPMD_SMALL, SPMD_TOL
+    cfg = dataclasses.replace(reduced_config(get_config(LM_ARCH)), remat=True,
+                              activ_dtype=torch.float32)
+    rules = spmd.RuleMesh(mesh)
+    params = lm.init_params(cfg, torch.Generator(device).manual_seed(0), device=device)
+    rng = np.random.default_rng(0)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab, (r["batch"], r["seq"]))
+                                 .astype(np.int32)).to(device) for k in ("tokens", "targets")}
+    p_sh = shard_params(params, rules)
+
+    def copy(tree):
+        return lm._map(lambda a: a.clone(), tree)
+
+    def place(tree, shardings):
+        return spmd.distribute_tree(tree, shardings, mesh)
+
+    dbatch = place(batch, batch_specs(cfg, batch, rules))
+    plain, sharded = copy(params), place(copy(params), p_sh)
+    logits, cache = lm.prefill(cfg, plain, batch, r["max_len"])
+    dlogits, dcache = lm.prefill(cfg, sharded, dbatch, r["max_len"])
+    scale = 1 + float(logits[:, -1].abs().max())
+    pre_err = float((dlogits.full_tensor()[:, -1] - logits[:, -1]).abs().max()) / scale
+    if not pre_err <= tol["logits"]:
+        raise AssertionError(f"sharded prefill logits off the plain ones by {pre_err:.3e}")
+    tok, dec_err, decided = logits[:, -1].argmax(-1).int(), 0.0, 0
+    for i in range(r["steps"]):
+        lg, cache = lm.decode_step(cfg, plain, cache, tok, r["seq"] + i)
+        dtok = spmd.distribute_tensor(tok, mesh, spmd.batch_placements(tok.shape, mesh),
+                                      src_data_rank=None)
+        dlg, dcache = lm.decode_step(cfg, sharded, dcache, dtok, r["seq"] + i)
+        dlg = dlg.full_tensor()
+        scale = 1 + float(lg.abs().max())
+        err = float((dlg - lg).abs().max()) / scale
+        top2 = lg.topk(2, -1).values
+        sure = (top2[:, 0] - top2[:, 1]) > tol["logits"] * scale
+        if not (err <= tol["logits"] and torch.equal(dlg.argmax(-1)[sure], lg.argmax(-1)[sure])):
+            raise AssertionError(f"sharded decode step {i}: logits off by {err:.3e}")
+        dec_err, decided = max(dec_err, err), decided + int(sure.sum())
+        tok = lg.argmax(-1).int()
+
+    inner, seen = get_optimizer("adamw"), {}
+
+    def update(grads, state, prm, lr):
+        if "plain" not in seen:
+            seen["plain"] = grads
+            return inner.update(grads, state, prm, lr)
+        flat_g, _ = tree_flatten(grads)
+        flat_p, _ = tree_flatten(prm)
+        seen["mismatch"] = sum(tuple(g.placements) != tuple(p.placements)
+                               for g, p in zip(flat_g, flat_p))
+        seen["sharded"] = spmd.full_tree(grads)
+        return inner.update(place(seen["plain"], p_sh), state, prm, lr)
+
+    step = make_train_step(cfg, Optimizer(inner.init, update, "adamw"), peak_lr=r["lr"],
+                           warmup=0)
+    p1, _, m = step(copy(params), init_opt_state(inner, params), batch)
+    dstate = place(init_opt_state(inner, params), shard_opt_state(
+        init_opt_state(inner, params), params, rules))
+    dp1, _, dm = step(place(copy(params), p_sh), dstate, dbatch)
+    loss, dloss = float(m["loss"]), float(dm["loss"])
+    if not abs(dloss - loss) <= tol["loss"] * abs(loss) or seen["mismatch"]:
+        raise AssertionError(f"sharded loss {dloss} against {loss}; {seen['mismatch']} "
+                             "gradients off their parameter's placements")
+    g_err = max(_leaf_err(torch, g, w) for g, w in zip(tree_flatten(seen["sharded"])[0],
+                                                      tree_flatten(seen["plain"])[0]))
+    p_err = max(_leaf_err(torch, g, w) for g, w in zip(tree_flatten(spmd.full_tree(dp1))[0],
+                                                      tree_flatten(p1)[0]))
+    if not (g_err <= tol["leaf"] and p_err <= tol["leaf"]):
+        raise AssertionError(f"sharded gradients off by {g_err:.3e}, updated leaves by "
+                             f"{p_err:.3e} of their leaf's max")
+    return (f"loss {dloss:.6f} / {loss:.6f}; gradients within {g_err:.3e} and updated leaves "
+            f"within {p_err:.3e} of each leaf's max; no gradient off its parameter's "
+            f"placements; prefill logits within {pre_err:.3e} x (1 + max); {r['steps']} decode "
+            f"steps' logits within {dec_err:.3e} x (1 + max), {decided} greedy tokens decided "
+            f"and equal")
+
+
+def spmd_rank0(torch, gpu: str, dry: dict) -> None:
+    """Phase 18 (b): rank 0's program of the (16, 16) production mesh at
+    yi-6b's full width, its collectives sent to a fake group: train_4k,
+    prefill_32k and decode_32k timed against that rank's counted bounds."""
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.distributed import spmd
+    from repro_torch.distributed.sharding import (batch_specs, shard_opt_state,
+                                                  shard_params)
+    from repro_torch.launch.mesh import make_production_spmd_mesh
+    from repro_torch.launch.specs import input_specs
+    from repro_torch.launch.train import init_opt_state, make_train_step
+    from repro_torch.models import lm
+    from repro_torch.optim import get_optimizer
+    from torch.utils._pytree import tree_leaves
+
+    cfg, r = get_config(LM_ARCH), SPMD_RANK0
+
+    def events():
+        return torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+
+    def timed(fn) -> float:
+        start, stop = events()
+        start.record()
+        fn()
+        stop.record()
+        stop.synchronize()
+        return start.elapsed_time(stop)
+
+    def report(shape: str, ms: list, what: str) -> None:
+        rec = dry[shape]
+        rf = rec["roofline"]
+        med = float(np.median(ms))
+        peak = torch.cuda.max_memory_allocated()
+        arg = rec["memory"]["argument_size_in_bytes"]
+        log(f"  {LM_ARCH} {shape}, rank 0 of (16, 16): {what} {', '.join(f'{t:.1f}' for t in ms)}"
+            f" ms (median {med:.1f}); that rank's counted bound compute "
+            f"{1e3 * rf['compute_s']:.1f} ms ({med / (1e3 * rf['compute_s']):.3f} x), memory "
+            f"{1e3 * rf['memory_s']:.1f} ms ({med / (1e3 * rf['memory_s']):.3f} x); peak device "
+            f"memory {peak / 1e9:.3f} GB against the dry run's {arg / 1e9:.3f} GB of arguments "
+            f"a device  [{gpu}]")
+
+    def meta(specs):
+        return {k: torch.empty(s, dtype=dt, device="meta") for k, (s, dt) in specs.items()}
+
+    with make_production_spmd_mesh() as mesh:
+        rules = spmd.RuleMesh(mesh)
+        log(f"  rank 0 of a fake process group of {mesh.size()}: every collective returns at "
+            "once, so no byte crosses a card and the values (gathered blocks unwritten) are "
+            "not checked here")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        shapes = lm.param_shapes(cfg)
+        params = spmd.local_tree(shapes, shard_params(shapes, rules), mesh, seed=r["seed"],
+                                 device="cuda")
+        inner = get_optimizer(cfg.optimizer)
+        opt_shapes = init_opt_state(inner, shapes)
+        state = spmd.zeros_tree(opt_shapes, shard_opt_state(opt_shapes, shapes, rules), mesh,
+                                device="cuda")
+        bshapes = meta(input_specs(cfg, SHAPES["train_4k"]))
+        batch = spmd.local_tree(bshapes, batch_specs(cfg, bshapes, rules), mesh,
+                                seed=r["seed"] + 1, device="cuda", high=cfg.vocab)
+        torch.cuda.synchronize()
+        held_bytes = sum(t.to_local().numel() * t.element_size()
+                         for t in tree_leaves((params, state, batch)))
+        log(f"  rank 0's shards drawn on the card in {time.perf_counter() - t0:.2f} s: "
+            f"{held_bytes:,} bytes (the dry run: "
+            f"{dry['train_4k']['memory']['argument_size_in_bytes']:,})")
+        step = make_train_step(cfg, inner)
+        ms = []
+        for i in range(1 + r["train_steps"]):
+            t = timed(lambda: step(params, state, batch))
+            if i:
+                ms.append(t)
+        report("train_4k", ms, f"AdamW, remat {cfg.remat_policy!r}, a step (after 1 warm-up)")
+        wall, acts, busy_us, rows = device_profile(lambda: step(params, state, batch))
+        log_profile("one train_4k step of rank 0", wall, acts, busy_us, rows, gpu, 8)
+        if busy_us:
+            log(f"  train_4k step: {acts} device activities, idle share "
+                f"{1 - busy_us / (1e6 * wall):.4f} (profiler on)")
+        del state, batch, step
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        bshapes = meta(input_specs(cfg, SHAPES["prefill_32k"]))
+        batch = spmd.local_tree(bshapes, batch_specs(cfg, bshapes, rules), mesh,
+                                seed=r["seed"] + 2, device="cuda", high=cfg.vocab)
+        seq = SHAPES["prefill_32k"].seq_len
+        ms = [timed(lambda: lm.prefill(cfg, params, batch, max_len=seq))]
+        report("prefill_32k", ms, "one call")
+        del batch
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        shape = SHAPES["decode_32k"]
+        cache = lm.init_cache(cfg, shape.global_batch, shape.seq_len, device="cuda", mesh=mesh)
+        tshape = {"t": torch.empty((shape.global_batch,), dtype=torch.int32, device="meta")}
+        tokens = spmd.local_tree(tshape, batch_specs(cfg, tshape, rules), mesh,
+                                 seed=r["seed"] + 3, device="cuda", high=cfg.vocab)["t"]
+
+        def decode():
+            lm.decode_step(cfg, params, cache, tokens, shape.seq_len - 1)
+
+        decode()
+        ms = [timed(decode) for _ in range(r["decode_steps"])]
+        report("decode_32k", ms, "a step (after 1 warm-up)")
+        wall, acts, busy_us, rows = device_profile(decode)
+        log_profile("one decode_32k step of rank 0", wall, acts, busy_us, rows, gpu, 8)
+        if busy_us:
+            log(f"  decode_32k step: {acts} device activities, idle share "
+                f"{1 - busy_us / (1e6 * wall):.4f} (profiler on)")
+        del cache, tokens, params
+
+
+def spmd_rank_main(rank: int, world: int, directory: str) -> int:
+    """One rank of phase 18 (c), on its own card: ``spmd_vs_plain`` on a
+    (2, world/2) NCCL mesh ((1, 1) for a world of one); rank 0 writes the
+    summary to ``directory``. ``tests/test_torch_cuda.py`` runs it too."""
+    import torch
+
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.distributed import spmd
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    shape = (1, 1) if world == 1 else (2, world // 2)
+    with spmd.spmd_mesh(shape, ("data", "model"), backend="nccl", rank=rank,
+                        init_dir=directory) as mesh:
+        summary = spmd_vs_plain(torch, mesh, f"cuda:{rank}")
+    if rank == 0:
+        Path(directory, "summary.txt").write_text(summary)
+    return 0
+
+
+def spmd_cards(torch, gpu: str) -> None:
+    """Phase 18 (c): with 2 or more cards, (a) on a (2, n/2) NCCL mesh."""
+    import os
+    import tempfile
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        log(f"  (c) not run: {n} card visible, and NCCL puts no two ranks of a mesh on one "
+            "card; the (2, n/2) run needs a machine with 2 or more")
+        return
+    world = 2 * (n // 2)
+    env = dict(os.environ)
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--spmd-rank",
+                                   str(rk), "--spmd-world", str(world), "--spmd-dir", d],
+                                  cwd=ROOT, env=env) for rk in range(world)]
+        try:
+            codes = [p.wait(timeout=SPMD_CARDS_TIMEOUT_S) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        if any(codes):
+            raise AssertionError(f"(c) ranks exited {codes}")
+        log(f"  (c) reduced {LM_ARCH} on a (2, {world // 2}) NCCL mesh of {world} cards against "
+            f"the plain port: {Path(d, 'summary.txt').read_text()}; "
+            f"{time.perf_counter() - t0:.1f} s  [{gpu}]")
+
+
+def spmd_phase(torch, gpu: str, dry: dict) -> None:
+    """Phase 18: the LM as one program over a mesh (DTensor)."""
+    import tempfile
+
+    from repro_torch.distributed import spmd
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d, \
+            spmd.spmd_mesh((1, 1), ("data", "model"), backend="nccl", init_dir=d) as mesh:
+        summary = spmd_vs_plain(torch, mesh, "cuda")
+    log(f"  (a) reduced {LM_ARCH} on a world-1 NCCL mesh of (1, 1) against the plain port on "
+        f"the card: {summary}; {time.perf_counter() - t0:.1f} s  [{gpu}]")
+    torch.cuda.empty_cache()
+    spmd_rank0(torch, gpu, dry)
+    torch.cuda.empty_cache()
+    spmd_cards(torch, gpu)
+
+
 def main() -> int:
     import argparse
 
@@ -2960,10 +3288,15 @@ def main() -> int:
     ap.add_argument("--kernels-only", action="store_true",
                     help="stop after the kernels phase: print the kernel line (without "
                          "path launches) and no ok line; for comparing kernel versions")
+    ap.add_argument("--spmd-rank", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--spmd-world", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--spmd-dir", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
+    if args.spmd_rank is not None:
+        return spmd_rank_main(args.spmd_rank, args.spmd_world, args.spmd_dir)
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import build, ops
     from repro_torch.kernels import mscm_kernel as mk
@@ -3029,12 +3362,14 @@ def main() -> int:
     step_ms = lm_train_phase(torch, gpu)
     torch.cuda.empty_cache()
     log(f"phase dryrun (at {time.perf_counter() - t_all:.1f} s)")
-    dry = dryrun_phase(torch, gpu, step_ms)
+    dry, dry_lm = dryrun_phase(torch, gpu, step_ms)
     log(f"phase enterprise (at {time.perf_counter() - t_all:.1f} s)")
     enterprise_phase(torch, gpu, dry)
     torch.cuda.empty_cache()
     log(f"phase examples (at {time.perf_counter() - t_all:.1f} s)")
     examples_phase(gpu)
+    log(f"phase spmd (at {time.perf_counter() - t_all:.1f} s)")
+    spmd_phase(torch, gpu, dry_lm)
     log(f"done in {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": [grouped, fused, pregather, grouped_q]}))
     print(json.dumps({"ok": True, "device": {

@@ -4,39 +4,53 @@ alone (counterpart of ``repro.launch.dryrun``).
 The reference proves the distribution config coherent without hardware by
 lowering and compiling each cell's step with its real shardings on 512
 placeholder host devices, and reads the roofline inputs from the compiled
-artifact. The port compiles nothing: it runs the cell's step, eagerly, on
-``meta`` tensors (``param_shapes``, ``input_specs``; ``make_train_step``,
-``prefill`` or ``decode_step``) under an :class:`~repro_torch.launch.
-hlo_stats.OpCounter`, which counts each op's FLOPs and bytes as PyTorch
-dispatches it: what eager PyTorch would run and move on one device holding
-the whole step. The sharding rules place the arguments on the ``meta``
-production mesh (:func:`~repro_torch.launch.mesh.make_production_mesh`)
-for the per-device bytes.
+per-device program. The port compiles nothing: it runs the cell's step
+(``make_train_step``, ``prefill`` or ``decode_step``) eagerly on ``meta``
+tensors under an :class:`~repro_torch.launch.hlo_stats.OpCounter`, which
+counts each op's FLOPs and bytes as PyTorch dispatches it.
+
+For the families whose sharded program is ported (dense GQA decoders:
+``spmd_family``), the step is rank 0's program of the production mesh: a
+DTensor program (:mod:`repro_torch.distributed.spmd`) on a fake process
+group of 256 or 512 ranks, its arguments placed by ``shard_params``,
+``shard_opt_state``, ``batch_specs`` and ``cache_specs`` as ``meta``
+blocks. The counter sees that rank's local ops and the collectives DTensor
+issues: per-device counts with no even split. The mesh's device type is
+``"cuda"``, so DTensor issues each collective as it would to NCCL (on a
+``"cpu"`` mesh it would send an all-to-all as all-gather + chunk). Every
+other family keeps one card's eager count of the whole step split evenly
+over the chips, and its record says so (``"spmd": false``).
 
 The record's keys, against the reference's:
 
 =============================  ==========================================
 port                           reference
 =============================  ==========================================
-``counted_flops``              ``hlo_flops`` (XLA's ``flops`` x chips)
-``counted_flops_per_device``   ``hlo_flops_per_device``: here the whole
-                               step's count over the chips, an even split
-``counted_bytes``              ``hlo_bytes`` (``bytes accessed`` x chips)
-``counted_bytes_per_device``   ``hlo_bytes_per_device`` (even split)
+``counted_flops``              ``hlo_flops`` (per device x chips)
+``counted_flops_per_device``   ``hlo_flops_per_device``: rank 0's count
+                               (``spmd``), else the even split
+``counted_bytes``              ``hlo_bytes`` (per device x chips)
+``counted_bytes_per_device``   ``hlo_bytes_per_device``
+``collective_bytes``           the same key: rank 0's collective operand
+                               bytes x chips (null outside ``spmd``)
+``collective_bytes_per_device``  the same key
+``collectives``                the same key: rank 0's collectives under the
+                               reference's op names
 ``memory``                     XLA's memory analysis: the argument bytes
-                               one device holds, from ``shard_params``,
-                               ``shard_opt_state``, ``batch_specs`` and
-                               ``cache_specs`` (each dim over its spec's
-                               mesh axes, rounded up); no temp, output or
-                               code sizes (nothing is compiled)
-``collective_bytes``           the same key, null: the port runs no LM step
-                               across cards, so no collective is issued
+                               one device holds, from the rules (each dim
+                               over its spec's mesh axes, rounded up); no
+                               temp, output or code sizes
 ``model_vs_counted_flops``     ``model_vs_hlo_flops``
 ``meta_run_s``                 ``lower_s`` and ``compile_s``
 ``top_ops``                    no counterpart: the ops moving most bytes
 ``probe``                      ``probe_l1`` / ``probe_l2`` / ``raw_scan_once``:
                                not run, and the record says why
 =============================  ==========================================
+
+``roofline["collective_s"]`` holds the collective bytes against
+``hw.NVLINK_BW``. A (16, 16) mesh spans two 8-card nodes along ``model``,
+so that axis's traffic crosses InfiniBand, slower than NVLink: the record's
+``collective_note`` says so.
 
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch yi-6b --shape train_4k
@@ -53,17 +67,19 @@ import json
 import os
 import time
 import traceback
-from typing import Any, Dict
+from typing import Any, Dict, Tuple
 
 import torch
 
 from repro_torch.configs import ARCH_IDS, SHAPES, get_config, runnable
 from repro_torch.configs.shapes import ShapeSpec
+from repro_torch.distributed import spmd
 from repro_torch.distributed.sharding import (
     batch_specs, cache_specs, shard_opt_state, shard_params)
 from repro_torch.launch import hw
 from repro_torch.launch.hlo_stats import OpCounter
-from repro_torch.launch.mesh import argument_bytes, make_production_mesh
+from repro_torch.launch.mesh import (argument_bytes, make_production_mesh,
+                                     make_production_spmd_mesh)
 from repro_torch.launch.specs import input_specs
 from repro_torch.launch.train import init_opt_state, make_train_step
 from repro_torch.models import lm as lm_lib
@@ -76,9 +92,26 @@ OUT_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..",
 PROBE_NOTE = ("no counterpart: XLA counts a scanned layer loop's body once, so the "
               "reference compiles L = 1 and L = 2 probes and extrapolates; the port's "
               "Python loop runs every layer and the counter sees each")
-COLLECTIVE_NOTE = ("null: the port runs an LM step on one card; it has no cross-card "
-                   "LM program (the reference's jax.jit with shardings), so no "
-                   "collective is issued to count")
+LINK_NOTE = ("collective_s: rank 0's collective operand bytes x chips over NVLink 4 "
+             "(hw.NVLINK_BW, 450 GB/s a card and direction); a (16, 16) mesh spans two "
+             "8-card nodes along 'model', so that axis crosses InfiniBand, slower than "
+             "this term assumes; collectives as DTensor issues them on a 'cuda' mesh")
+#: The ROADMAP 14d item that ports each family's sharded program.
+NEXT_SLICE = {"mla": "MLA (minicpm3)", "moe": "MoE with expert placement and all-to-all",
+              "ssm": "SSM / hybrid / RWKV states", "hybrid": "SSM / hybrid / RWKV states",
+              "encdec": "enc-dec and VLM", "vlm": "enc-dec and VLM"}
+
+
+def spmd_family(cfg: ArchConfig) -> bool:
+    """Whether ``cfg``'s sharded program is ported: the dense GQA decoders."""
+    return cfg.family == "dense" and cfg.attn_type == "gqa" and not cfg.n_experts
+
+
+def _outside_note(cfg: ArchConfig) -> str:
+    key = cfg.attn_type if cfg.attn_type == "mla" else ("moe" if cfg.n_experts else cfg.family)
+    return (f"null: the {cfg.family} family's sharded program is not ported (ROADMAP 14d, "
+            f"{NEXT_SLICE.get(key, key)}); its counts are one card's eager count of the "
+            "whole step split evenly over the chips")
 
 
 def _model_flops(cfg: ArchConfig, shape: ShapeSpec) -> float:
@@ -140,6 +173,19 @@ def count_step(fn, args) -> OpCounter:
     return counter
 
 
+def count_rank0(cfg: ArchConfig, shape: ShapeSpec, mesh) -> Tuple[OpCounter, int, float]:
+    """Rank 0's program of the cell on ``mesh`` (a fake-group
+    :class:`~torch.distributed.device_mesh.DeviceMesh`), its arguments
+    ``meta`` blocks placed by the rules. Returns (its :class:`OpCounter`,
+    the argument bytes a device, seconds)."""
+    fn, args, shardings = _step_and_specs(cfg, shape, spmd.RuleMesh(mesh))
+    arg_bytes = argument_bytes(args, shardings)
+    local = spmd.zeros_tree(args, shardings, mesh, device="meta")
+    t0 = time.time()
+    counter = count_step(fn, local)
+    return counter, arg_bytes, time.time() - t0
+
+
 def _apply_overrides(cfg: ArchConfig, overrides: Dict[str, Any]) -> ArchConfig:
     if not overrides:
         return cfg
@@ -173,34 +219,47 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str,
         )
         return rec
 
-    mesh = make_production_mesh(multi_pod=(mesh_kind == "multi"))
-    chips = mesh.devices.size
-    fn, args, shardings = _step_and_specs(cfg, shape, mesh)
-    arg_bytes = argument_bytes(args, shardings)
-    t0 = time.time()
-    counter = count_step(fn, args)
-    run_s = time.time() - t0
+    if spmd_family(cfg):
+        with make_production_spmd_mesh(multi_pod=mesh_kind == "multi") as mesh:
+            counter, arg_bytes, run_s = count_rank0(cfg, shape, mesh)
+            chips = mesh.size()
+        flops_dev, bytes_dev = float(counter.flops), float(counter.bytes)
+        coll = counter.collectives
+        coll_dev = float(coll["TOTAL"]["operand_bytes"])
+        extra = dict(spmd=True, collective_bytes=coll_dev * chips,
+                     collective_bytes_per_device=coll_dev, collectives=coll,
+                     collective_note=LINK_NOTE)
+    else:
+        mesh = make_production_mesh(multi_pod=(mesh_kind == "multi"))
+        chips = mesh.devices.size
+        fn, args, shardings = _step_and_specs(cfg, shape, mesh)
+        arg_bytes = argument_bytes(args, shardings)
+        t0 = time.time()
+        counter = count_step(fn, args)
+        run_s = time.time() - t0
+        flops_dev, bytes_dev = counter.flops / chips, counter.bytes / chips
+        coll_dev = None
+        extra = dict(spmd=False, collective_bytes=None, collective_bytes_per_device=None,
+                     collectives=None, collective_note=_outside_note(cfg))
     print(f"[{arch} {shape_name} {mesh_kind}] argument bytes per device: {arg_bytes:,}")
-    print(f"[{arch} {shape_name} {mesh_kind}] counted: "
-          f"flops={counter.flops:.3e} bytes={counter.bytes:.3e}")
+    print(f"[{arch} {shape_name} {mesh_kind}] counted per device: "
+          f"flops={flops_dev:.3e} bytes={bytes_dev:.3e} collective bytes={coll_dev}")
 
-    flops, bytes_hbm = float(counter.flops), float(counter.bytes)
+    flops, bytes_hbm = flops_dev * chips, bytes_dev * chips
     model_flops = _model_flops(cfg, shape)
-    roofline = hw.roofline_terms(flops=flops, bytes_hbm=bytes_hbm, bytes_collective=0.0,
-                                 chips=chips)
-    roofline["collective_s"] = None
+    roofline = hw.roofline_terms(flops=flops, bytes_hbm=bytes_hbm,
+                                 bytes_collective=(coll_dev or 0.0) * chips, chips=chips)
+    if coll_dev is None:
+        roofline["collective_s"] = None
     rec.update(
         status="ok",
         chips=chips,
         meta_run_s=round(run_s, 2),
         counted_flops=flops,
-        counted_flops_per_device=flops / chips,
+        counted_flops_per_device=flops_dev,
         counted_bytes=bytes_hbm,
-        counted_bytes_per_device=bytes_hbm / chips,
-        collective_bytes=None,
-        collective_bytes_per_device=None,
-        collectives=None,
-        collective_note=COLLECTIVE_NOTE,
+        counted_bytes_per_device=bytes_dev,
+        **extra,
         probe=PROBE_NOTE,
         memory={"argument_size_in_bytes": arg_bytes,
                 "argument_gb_per_device": arg_bytes / 1e9},
@@ -261,9 +320,11 @@ def main() -> None:
                     json.dump(rec, f, indent=1)
                 if rec.get("status") == "ok":
                     r = rec["roofline"]
+                    coll = ("n/a" if r["collective_s"] is None
+                            else f"{r['collective_s']:.4f}s")
                     print(
                         f"ok in {rec['meta_run_s']:.0f}s  compute {r['compute_s']:.4f}s"
-                        f"  memory {r['memory_s']:.4f}s  collective n/a"
+                        f"  memory {r['memory_s']:.4f}s  collective {coll}"
                         f"  dominant={r['dominant']}", flush=True,
                     )
     if failures:

@@ -21,7 +21,11 @@ does produce instead:
   ``meta`` slots too, where nothing is copied;
 * :class:`OpCounter` counts, op by op as eager PyTorch dispatches them, the
   FLOPs (``torch.utils.flop_counter``'s formulas) and the bytes read and
-  written: the counterpart of XLA's ``flops`` and ``bytes accessed``.
+  written: the counterpart of XLA's ``flops`` and ``bytes accessed``. On a
+  DTensor program it counts one rank's: each rank's local ops and the
+  ``_c10d_functional`` collectives that DTensor issues on local tensors,
+  the latter in :attr:`OpCounter.collectives` under the reference's names
+  (XLA's per-device program and its collectives).
 
 Each returns the reference's record: ``{op: {count, operand_bytes,
 result_bytes}, "TOTAL": {...}}`` for the traffic.
@@ -36,7 +40,9 @@ from collections import defaultdict
 from typing import Any, Dict, Iterable, List, Optional, Tuple
 
 import torch
-from torch.utils._python_dispatch import TorchDispatchMode
+from torch._subclasses.fake_tensor import FakeTensorMode
+from torch.distributed.tensor import DTensor
+from torch.utils._python_dispatch import TorchDispatchMode, _get_current_dispatch_mode_stack
 from torch.utils._pytree import tree_leaves
 
 #: Element bytes of the dtype names a trace records (c10's ScalarType names).
@@ -184,6 +190,10 @@ def op_bytes(func, args, kwargs, out) -> int:
     return sum(_nbytes(t) for t in ins) + sum(_nbytes(t) for t in outs)
 
 
+#: Functional collectives that move nothing themselves.
+_COLLECTIVE_FREE = ("wait_tensor", "_wrap_tensor_autograd")
+
+
 class OpCounter(TorchDispatchMode):
     """Counts every op dispatched under it, on any device (``meta`` too):
     ``flops`` from ``torch.utils.flop_counter``'s formulas (matrix products,
@@ -191,7 +201,14 @@ class OpCounter(TorchDispatchMode):
     ``flops`` they are a rounding error), ``bytes`` from :func:`op_bytes`,
     views and allocations skipped. ``by_op`` holds ``[count, flops, bytes]``
     for each op name. Autograd's backward and remat's recompute run through
-    the same dispatcher and are counted as they run."""
+    the same dispatcher and are counted as they run.
+
+    An op on DTensors is handed on (the mode returns ``NotImplemented``), so
+    the mode sees what DTensor runs for it on this rank: the local op on the
+    local blocks, and each collective, which :attr:`collectives` records
+    with its operand and result bytes and which ``flops`` and ``bytes`` leave
+    out. The shape inference of DTensor's sharding propagation (ops under a
+    ``FakeTensorMode``) is not counted: it runs nothing on the device."""
 
     def __init__(self) -> None:
         super().__init__()
@@ -201,10 +218,31 @@ class OpCounter(TorchDispatchMode):
         self.flops = 0
         self.bytes = 0
         self.by_op: Dict[str, List[int]] = defaultdict(lambda: [0, 0, 0])
+        self._collectives: List[Tuple[str, float, float]] = []
+
+    @property
+    def collectives(self) -> Dict[str, Dict[str, float]]:
+        """The collectives counted, in the reference's record: ``{op:
+        {count, operand_bytes, result_bytes}, "TOTAL": ...}``; a functional
+        collective the reference does not name keeps its own name."""
+        return _table(self._collectives)
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        if any(issubclass(t, DTensor) for t in types):
+            return NotImplemented
         out = func(*args, **kwargs)
+        if any(isinstance(m, FakeTensorMode) for m in _get_current_dispatch_mode_stack()):
+            return out
+        if func.namespace == "_c10d_functional":
+            name = func._opname
+            if name not in _COLLECTIVE_FREE:
+                ins = [t for t in tree_leaves((args, kwargs)) if isinstance(t, torch.Tensor)]
+                outs = [t for t in tree_leaves(out) if isinstance(t, torch.Tensor)]
+                self._collectives.append((_collective_op(name) or name,
+                                          float(sum(_nbytes(t) for t in ins)),
+                                          float(sum(_nbytes(t) for t in outs))))
+            return out
         if func.is_view or func in _FREE:
             return out
         fn = self._flop_registry.get(func._overloadpacket)

@@ -7,27 +7,40 @@ that many JAX devices (512 placeholder host devices in its dry runs); the
 port's production mesh is a :class:`DeviceMesh` whose every slot is the
 ``meta`` device, so the dry runs (:mod:`repro_torch.launch.dryrun`,
 :mod:`repro_torch.launch.serve_dryrun`) run each slot's program on shapes
-alone, with no card.
+alone, with no card. :func:`make_production_spmd_mesh` is the same mesh as a
+``torch.distributed`` :class:`~torch.distributed.device_mesh.DeviceMesh` of
+256 or 512 ranks over a fake process group, on which this process runs rank
+0's DTensor program.
 """
 
 from __future__ import annotations
 
-from typing import Any, Optional, Sequence
+import contextlib
+from typing import Any, Iterator, Optional, Sequence
 
 import numpy as np
 import torch
 from torch.utils._pytree import tree_leaves
 
+from repro_torch.distributed import spmd
 from repro_torch.distributed.sharding import (
     DeviceMesh, NamedSharding, partition_mesh, resolve_devices)
 
 
 def make_production_mesh(*, multi_pod: bool = False) -> DeviceMesh:
-    shape = (2, 16, 16) if multi_pod else (16, 16)
-    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    shape, axes = spmd.PRODUCTION["multi" if multi_pod else "single"]
     devices = np.empty(int(np.prod(shape)), dtype=object)
     devices[:] = [torch.device("meta")] * devices.size
     return DeviceMesh(devices.reshape(shape), axes)
+
+
+@contextlib.contextmanager
+def make_production_spmd_mesh(*, multi_pod: bool = False) -> Iterator[Any]:
+    """The production mesh as a fake-group ``DeviceMesh`` (device type
+    ``"cuda"``; its blocks may be ``meta`` tensors), this process rank 0;
+    the group is destroyed on exit."""
+    with spmd.spmd_mesh("multi" if multi_pod else "single", backend="fake") as mesh:
+        yield mesh
 
 
 def make_host_mesh(n_data: int = 1, n_model: int = 1, *,

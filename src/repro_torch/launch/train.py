@@ -28,6 +28,7 @@ from repro_torch.configs import get_config, reduced_config
 from repro_torch.core.tree import resolve_device
 from repro_torch.data.lm_data import PrefetchingLoader
 from repro_torch.distributed.fault import StepWatchdog, TransientError, run_with_retries
+from repro_torch.distributed.spmd import program, replicated
 from repro_torch.models import lm as lm_lib
 from repro_torch.models.common import ArchConfig
 from repro_torch.optim.optimizers import (
@@ -35,6 +36,7 @@ from repro_torch.optim.optimizers import (
     ef_compress,
     ef_init,
     get_optimizer,
+    match_placements,
     warmup_cosine,
 )
 
@@ -50,9 +52,20 @@ def make_train_step(cfg: ArchConfig, optimizer: Optimizer, *,
     returned. ``compress_grads``: error-feedback bf16 gradient compression
     (the payload an all-reduce between nodes would carry shrinks 2x); the
     residual lives in opt_state['ef'].
+
+    The step runs as one program over a mesh when the parameters, the state
+    and the batch are DTensors (placed by ``shard_params``,
+    ``shard_opt_state`` and ``batch_specs``): under
+    ``implicit_replication()``, with each gradient brought to its
+    parameter's placements before it reaches the optimizer. The metrics come
+    back as plain tensors, the same on every rank.
     """
 
     def train_step(params, opt_state, batch):
+        with program(params):
+            return _step(params, opt_state, batch)
+
+    def _step(params, opt_state, batch):
         step = opt_state["inner"]["step"]
         lr = warmup_cosine(step, peak=peak_lr, warmup=warmup, total=total_steps)
         leaves, spec = tree_flatten(params)
@@ -61,7 +74,7 @@ def make_train_step(cfg: ArchConfig, optimizer: Optimizer, *,
             loss, metrics = lm_lib.loss_fn(cfg, tree_unflatten(live, spec), batch)
             flat = torch.autograd.grad(loss, live, allow_unused=True, materialize_grads=True)
         del live
-        grads = tree_unflatten(list(flat), spec)
+        grads = match_placements(tree_unflatten(list(flat), spec), params)
         del flat
         if compress_grads:
             grads, res = ef_compress(grads, opt_state["ef"])
@@ -70,9 +83,8 @@ def make_train_step(cfg: ArchConfig, optimizer: Optimizer, *,
         new_opt = {"inner": new_inner}
         if compress_grads:
             new_opt["ef"] = res
-        metrics = {k: v.detach() for k, v in metrics.items()}
-        metrics = dict(metrics, loss=loss.detach(), lr=lr)
-        return new_params, new_opt, metrics
+        metrics = dict(metrics, loss=loss, lr=lr)
+        return new_params, new_opt, {k: replicated(v.detach()) for k, v in metrics.items()}
 
     return train_step
 

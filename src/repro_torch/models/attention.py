@@ -16,9 +16,21 @@ folded into the query / output).
 Decode writes the new key/value into the cache at ``pos`` in place and
 returns the cache; the reference returns new arrays. A ``pos`` past the
 cache's end writes the last slot, as the reference's ``dynamic_update_slice``
-clamps it; the mask and the rotary angle use ``pos`` itself. The reference's
-activation-sharding helpers (``_attn_act_specs``, ``_maybe_constrain``) have
-no counterpart on one card.
+clamps it; the mask and the rotary angle use ``pos`` itself.
+
+On DTensors (the LM as one program over a mesh, see
+:mod:`repro_torch.distributed.spmd`) the masks are built as plain tensors
+and made replicated DTensors where they meet one. Full-sequence attention
+runs head-parallel: the key/value heads
+are repeated to the query heads so that the head dim can be sharded over
+``model`` even where ``n_kv_heads`` does not divide it (yi-6b: 4 kv heads,
+16-way ``model``), so each rank holds the scores of its own heads only.
+Decode runs flash-decode style on a cache whose sequence dim is sharded
+over ``model``: the query replicated, each rank's scores over its own
+block, the softmax's max and sum reduced across blocks; the new key and
+value are written on the rank that owns slot ``pos``. The reference's
+``_attn_act_specs`` / ``_maybe_constrain`` (off in every config) have no
+counterpart.
 """
 
 from __future__ import annotations
@@ -27,7 +39,9 @@ from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
+from repro_torch.distributed import spmd
 from repro_torch.models.common import (ArchConfig, apply_rope, dense_init, dot, einsum,
                                        full_init, rms_norm, rope_angles, softmax)
 
@@ -52,6 +66,10 @@ def causal_window_mask(s_q: int, s_k: int, q_offset, window,
 
 def _sdpa(q, k, v, mask, *, scores_bf16: bool = False) -> torch.Tensor:
     """q [B,Sq,H,dh], k [B,Sk,Hkv,dh], v [B,Sk,Hkv,dv]; GQA head grouping."""
+    if isinstance(q, DTensor) and not spmd.sharding_dims(k, 1):
+        return _sdpa_heads(q, k, v, mask, scores_bf16=scores_bf16)
+    if isinstance(q, DTensor):
+        q = q.redistribute(q.device_mesh, spmd.batch_placements(q.shape, q.device_mesh))
     b, sq, h, dh = q.shape
     hkv, dv = k.shape[2], v.shape[3]
     g = h // hkv
@@ -59,11 +77,74 @@ def _sdpa(q, k, v, mask, *, scores_bf16: bool = False) -> torch.Tensor:
     scores = einsum("bqkgd,bskd->bkgqs", q, k)
     if not scores_bf16:
         scores = scores.float()
-    scores = scores / torch.sqrt(torch.tensor(float(dh), dtype=scores.dtype))
-    scores = torch.where(mask.to(scores.device)[None, None, None], scores, NEG)
+    scale = spmd.replicate_like(torch.sqrt(torch.tensor(float(dh), dtype=scores.dtype,
+                                                        device=scores.device)), scores)
+    scores = scores / scale
+    scores = torch.where(spmd.replicate_like(mask.to(scores.device)[None, None, None], scores),
+                         scores, NEG)
     probs = softmax(scores, -1).to(v.dtype)
     out = einsum("bkgqs,bskd->bqkgd", probs, v)
     return out.reshape(b, sq, h, dv)
+
+
+def _by_heads(x: DTensor, g: int) -> DTensor:
+    """``x`` [B,S,Hkv,d] with each kv head repeated for its ``g`` query
+    heads ([B,S,Hkv*g,d], head ``j`` from kv head ``j // g``, the grouping
+    of :func:`_sdpa`), its head dim sharded over the mesh's model axes
+    where it divides, the batch as :func:`spmd.batch_placements` places it.
+    Where only the repeated heads divide those axes, each rank gathers the
+    kv heads and repeats just those its own block of heads reads."""
+    mesh = x.device_mesh
+    rows = spmd.batch_placements(x.shape, mesh)
+    b, s, hkv, d = x.shape
+    heads = spmd.model_mesh_dims(mesh)
+    size = spmd.mesh_size(mesh, heads)
+    by = tuple(spmd.Shard(2) if i in heads else rows[i] for i in range(mesh.ndim))
+    if hkv % size == 0:
+        x = x.redistribute(mesh, by)
+    else:
+        x = x.redistribute(mesh, rows)
+        if hkv * g % size == 0:
+            _, off = spmd.local_shape((b, s, hkv * g, d), mesh, by)
+            own = torch.arange(off[2], off[2] + hkv * g // size, device=x.device) // g
+            grad = tuple(spmd.Partial() if i in heads else p for i, p in enumerate(rows))
+            local = x.to_local(grad_placements=grad).index_select(2, own)
+            return DTensor.from_local(local, mesh, by, run_check=False)
+    if g > 1:
+        x = x[:, :, :, None, :].expand(b, s, hkv, g, d).reshape(b, s, hkv * g, d)
+    return x
+
+
+def _sdpa_heads(q, k, v, mask, *, scores_bf16: bool = False):
+    """:func:`_sdpa` on DTensors, head-parallel: with the kv heads repeated
+    and every operand placed alike (the batch over the data axes, the heads
+    over the others), each (batch row, head) is a rank's own, so the
+    attention runs on the local blocks (:func:`_attend`, the arithmetic of
+    :func:`_sdpa`) with no collective, and its output is placed as ``q``."""
+    g = q.shape[2] // k.shape[2]
+    q, k, v = _by_heads(q, 1), _by_heads(k, g), _by_heads(v, g)
+    out = _attend(q.to_local(), k.to_local(), v.to_local(), mask, scores_bf16=scores_bf16)
+    return DTensor.from_local(out, q.device_mesh, q.placements, run_check=False)
+
+
+def _attend(q, k, v, mask, *, scores_bf16: bool = False) -> torch.Tensor:
+    """Attention of q [B,Sq,H,dh] on k, v [B,Sk,H,d] (heads already matched)
+    with :func:`_sdpa`'s scale, mask, softmax and casts. Where autograd
+    records nothing (prefill) the masking and the softmax run in place on
+    the scores: at prefill_32k a rank's scores are 17 GB."""
+    scores = einsum("bqhd,bshd->bhqs", q, k)
+    if not scores_bf16:
+        scores = scores.float()
+    scale = torch.sqrt(torch.tensor(float(q.shape[-1]), dtype=scores.dtype,
+                                    device=scores.device))
+    keep = mask.to(scores.device)[None, None]
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        probs = softmax(torch.where(keep, scores / scale, NEG), -1).to(v.dtype)
+    else:
+        scores.div_(scale).masked_fill_(~keep, NEG)
+        scores.sub_(scores.amax(-1, keepdim=True)).exp_()
+        probs = scores.div_(scores.sum(-1, keepdim=True)).to(v.dtype)
+    return einsum("bhqs,bshd->bqhd", probs, v)
 
 
 def _chunked_sdpa(q, k, v, *, q_offset, window, kblock: int, qblock: int,
@@ -109,7 +190,7 @@ def _chunked_sdpa(q, k, v, *, q_offset, window, kblock: int, qblock: int,
                     mask = mask & (qpos - kpos < max(win, 1))
             else:
                 mask = (kpos < sk).expand(qbs, kblock)
-            s = torch.where(mask[None, None, None], s, NEG)
+            s = torch.where(spmd.replicate_like(mask[None, None, None], s), s, NEG)
             m2 = torch.maximum(m, s.amax(-1))
             p = torch.exp(s - m2[..., None])
             corr = torch.exp(m - m2)
@@ -128,7 +209,10 @@ def _write_slot(cache: torch.Tensor, val: torch.Tensor, pos: int) -> torch.Tenso
     """Write ``val`` [B,1,...] at sequence slot ``pos`` of ``cache`` [B,S,...]
     in place, clamped into the cache as ``dynamic_update_slice`` clamps."""
     slot = min(max(int(pos), 0), cache.shape[1] - 1)
-    cache[:, slot: slot + 1] = val.to(cache.dtype)
+    if isinstance(cache, DTensor):
+        spmd.write_block(cache, val, dim=1, start=slot)
+    else:
+        cache[:, slot: slot + 1] = val.to(cache.dtype)
     return cache
 
 
@@ -156,12 +240,20 @@ def gqa_init(generator: torch.Generator, cfg: ArchConfig,
     }
 
 
+def _heads(t: torch.Tensor, b: int, s: int, n: int, d: int) -> torch.Tensor:
+    """``t`` [B,S,n*d] as [B,S,n,d] (a DTensor gathered first where its
+    shard of ``n*d`` does not split into whole heads)."""
+    if isinstance(t, DTensor):
+        t = spmd.split_dim(t, -1, n)
+    return t.reshape(b, s, n, d)
+
+
 def gqa_full(p, x: torch.Tensor, cfg: ArchConfig, *, window=0, q_offset=0):
     b, s, d = x.shape
     h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = dot(x, p["wq"]).reshape(b, s, h, dh)
-    k = dot(x, p["wk"]).reshape(b, s, hkv, dh)
-    v = dot(x, p["wv"]).reshape(b, s, hkv, dh)
+    q = _heads(dot(x, p["wq"]), b, s, h, dh)
+    k = _heads(dot(x, p["wk"]), b, s, hkv, dh)
+    v = _heads(dot(x, p["wv"]), b, s, hkv, dh)
     cos, sin = rope_angles(torch.arange(s, device=x.device) + int(q_offset), dh, cfg.rope_theta)
     q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
     if cfg.attn_impl == "chunked":
@@ -182,9 +274,9 @@ def gqa_decode(p, x: torch.Tensor, cache_k, cache_v, pos, cfg: ArchConfig,
     s_max = cache_k.shape[1]
     pos = int(pos)
     h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = dot(x, p["wq"]).reshape(b, 1, h, dh)
-    k = dot(x, p["wk"]).reshape(b, 1, hkv, dh)
-    v = dot(x, p["wv"]).reshape(b, 1, hkv, dh)
+    q = _heads(dot(x, p["wq"]), b, 1, h, dh)
+    k = _heads(dot(x, p["wk"]), b, 1, hkv, dh)
+    v = _heads(dot(x, p["wv"]), b, 1, hkv, dh)
     cos, sin = rope_angles(torch.tensor([pos], device=x.device), dh, cfg.rope_theta)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)

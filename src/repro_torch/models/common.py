@@ -18,8 +18,11 @@ reference's CPU backend computes it. ``torch.matmul`` would refuse the mixed
 pair.
 
 ``get_abstract_mesh`` has no counterpart: the reference uses it to skip
-sharding constraints outside a device mesh, and the port runs a model on one
-card with no sharding constraint.
+sharding constraints outside a device mesh; the port's constraints act on
+DTensors (:mod:`repro_torch.distributed.spmd`) and pass plain tensors
+through. :func:`dot`, :func:`einsum` and :func:`softmax` keep their
+promotions on DTensors (the casts are elementwise, on each rank's block);
+:func:`cross_entropy_loss` takes vocab-sharded logits.
 """
 
 from __future__ import annotations
@@ -29,8 +32,11 @@ import math
 from typing import Any, Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
+from torch.distributed.tensor.experimental import register_sharding
 
 from repro_torch.core.tree import resolve_device
+from repro_torch.distributed import spmd
 
 
 @dataclasses.dataclass(frozen=True)
@@ -175,7 +181,15 @@ def _promoted(*xs: torch.Tensor) -> torch.dtype:
 
 def dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a @ b`` in the promoted dtype of ``a`` and ``b``; a sub-f32 result
-    is summed in f32 and rounded once."""
+    is summed in f32 and rounded once. With a 2-D weight DTensor ``b``, the
+    operands are placed first (``spmd.matmul_operands``: the weight's FSDP
+    gather, a column- or row-parallel product)."""
+    if isinstance(b, DTensor) and b.ndim == 2 and a.ndim > 2:
+        # one mm over the rows: DTensor's stride of a size-1 dim defeats
+        # matmul's folding, which would expand the weight over the batch
+        return dot(a.reshape(-1, a.shape[-1]), b).reshape(*a.shape[:-1], b.shape[-1])
+    if isinstance(b, DTensor) and b.ndim == 2:
+        a, b = spmd.matmul_operands(a, b)
     dt = _promoted(a, b)
     if dt == torch.float32:
         return a.float() @ b.float()
@@ -217,6 +231,16 @@ def _(x: torch.Tensor, name: str) -> torch.Tensor:
 _named.register_autograd(lambda ctx, grad: (grad, None))
 
 
+@register_sharding(torch.ops.repro_torch.checkpoint_name.default)
+def _named_sharding(x, name):
+    """DTensor's rule for the op: an identity, the output placed as ``x``
+    (replicated, sharded on any dim, or a partial sum), one mesh dim at a
+    time."""
+    same = [([spmd.Replicate()], [spmd.Replicate(), None]),
+            ([spmd.Partial()], [spmd.Partial(), None])]
+    return same + [([spmd.Shard(d)], [spmd.Shard(d), None]) for d in range(x.ndim)]
+
+
 def checkpoint_name(x: torch.Tensor, name: str) -> torch.Tensor:
     """``x`` marked ``name`` for a selective remat policy, as
     ``jax.ad_checkpoint.checkpoint_name``: where autograd records ``x``, a
@@ -231,10 +255,17 @@ def checkpoint_name(x: torch.Tensor, name: str) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """``x`` normalized over its last dim, times ``scale``. On DTensors (a
+    norm feeds each block's column-parallel products): a sharded scale (a
+    stacked one is sharded over ``model`` by the rules) is gathered, so the
+    output keeps ``x``'s placements, and the output's partial gradient is
+    reduced once (``spmd.reduce_grad``)."""
+    if isinstance(scale, DTensor):
+        scale = scale.redistribute(scale.device_mesh, [spmd.Replicate()] * scale.device_mesh.ndim)
     dt = x.dtype
     x = x.float()
     x = x * torch.rsqrt((x * x).mean(-1, keepdim=True) + eps)
-    return (x * scale).to(dt)
+    return spmd.reduce_grad((x * scale).to(dt))
 
 
 def rope_angles(positions: torch.Tensor, dim: int, theta: float
@@ -247,10 +278,12 @@ def rope_angles(positions: torch.Tensor, dim: int, theta: float
 
 
 def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
-    """x [..., S, H, dh]; cos/sin [S, dh/2] (broadcast over batch/heads)."""
+    """x [..., S, H, dh]; cos/sin [S, dh/2] (broadcast over batch/heads).
+    On a DTensor ``x`` the tables are made replicated DTensors (autograd
+    saves them for a backward that runs outside ``implicit_replication``)."""
     x1, x2 = x.chunk(2, dim=-1)
-    c = cos[..., None, :]
-    s = sin[..., None, :]
+    c = spmd.replicate_like(cos[..., None, :], x)
+    s = spmd.replicate_like(sin[..., None, :], x)
     return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1).to(x.dtype)
 
 
@@ -289,9 +322,45 @@ def cross_entropy_loss(logits: torch.Tensor, targets: torch.Tensor,
                        mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Mean next-token CE; logits [..., V] f32, targets int [...]."""
     logits = logits.float()
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = logits.gather(-1, targets[..., None].long())[..., 0]
-    nll = logz - gold
+    if isinstance(logits, DTensor):
+        nll = _sharded_nll(logits, targets)
+    else:
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = logits.gather(-1, targets[..., None].long())[..., 0]
+        nll = logz - gold
     if mask is not None:
         return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
     return nll.mean()
+
+
+def _sharded_nll(logits: DTensor, targets: torch.Tensor) -> DTensor:
+    """``logsumexp(logits) - logits[target]`` on logits whose vocab dim is
+    sharded over ``model``, without gathering them (``[B, S, V]`` is 16.8 GB
+    a device at yi-6b ``train_4k``): a local max, sum of exponentials and
+    gold pick (on the rank that owns the target id, zero elsewhere), each
+    reduced over the vocab's mesh dims. The result is placed as the batch."""
+    mesh = logits.device_mesh
+    rows = spmd.batch_placements(logits.shape, mesh)
+    vocab = spmd.model_mesh_dims(mesh)
+    if logits.shape[-1] % spmd.mesh_size(mesh, vocab):
+        vocab = ()
+    last = logits.ndim - 1
+    logits = logits.redistribute(mesh, tuple(spmd.Shard(last) if i in vocab else rows[i]
+                                             for i in range(mesh.ndim)))
+    targets = (targets.redistribute(mesh, rows) if isinstance(targets, DTensor)
+               else spmd.distribute_tensor(targets, mesh, rows, src_data_rank=None))
+    local = logits.to_local()
+    peak = local.detach().amax(-1)
+    if vocab:
+        peak = DTensor.from_local(peak, mesh, tuple(
+            spmd.Partial("max") if i in vocab else rows[i] for i in range(mesh.ndim)),
+            run_check=False).redistribute(mesh, rows).to_local()
+    sum_exp = spmd.reduce_over(torch.exp(local - peak[..., None]).sum(-1), rows, vocab, mesh)
+    _, off = spmd.local_shape(logits.shape, mesh, logits.placements)
+    n = local.shape[-1]
+    ids = targets.to_local().long() - off[-1]
+    own = (ids >= 0) & (ids < n)
+    pick = torch.where(own, local.gather(-1, ids.clamp(0, n - 1)[..., None])[..., 0], 0.0)
+    gold = spmd.reduce_over(pick, rows, vocab, mesh)
+    peak = DTensor.from_local(peak, mesh, rows, run_check=False)
+    return torch.log(sum_exp) + peak - gold

@@ -23,6 +23,19 @@ patch/frame embeddings (see ``launch.specs``). Token ids index the embedding
 table clamped into range, as the reference's gather clamps them.
 ``decode_step`` writes the cache's tensors in place and returns a dict of
 them; the reference returns new arrays.
+
+The same functions run as one program over a device mesh when the
+parameters are DTensors (:mod:`repro_torch.distributed.spmd`, placed by the
+sharding rules): the layer loops pin their activations as the reference's
+``_shard_act`` does, the embedding and the loss work on vocab-sharded
+tables and logits with explicit reductions, and the cache's sequence blocks
+are written on the rank that owns them. Each entry point (``forward_train``,
+``loss_fn``, ``prefill``, ``decode_step``) runs its body under
+``spmd.program``: ``implicit_replication()``, so that the plain scalars and
+tensors it makes act as replicated. The ones autograd saves for the backward,
+which runs outside that context (RoPE's tables, attention's masks and
+scale), are made replicated DTensors where they meet one
+(``spmd.replicate_like``), everywhere the same way.
 """
 
 from __future__ import annotations
@@ -31,11 +44,14 @@ import functools
 from typing import Any, Callable, Dict, List, Optional
 
 import torch
+from torch.distributed.tensor import DTensor
 from torch.utils._pytree import tree_leaves
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                      create_selective_checkpoint_contexts)
 
 from repro_torch.core.tree import resolve_device
+from repro_torch.distributed import spmd
+from repro_torch.distributed.sharding import cache_specs
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
@@ -257,7 +273,7 @@ def _attn_block_full(cfg, lp, x, window, q_offset):
         ssd_out, sstate = ssm_lib.ssd_mix(lp["ssd"], h, sstate, cfg, mode="chunked")
         out = 0.5 * (out + ssd_out)
         kv = kv + (sstate,)
-    return x + out, kv
+    return x + spmd.reduced(out), kv
 
 
 def _zero(x: torch.Tensor) -> torch.Tensor:
@@ -270,7 +286,7 @@ def _ffn_block(cfg, lp, x):
         out, aux = moe_lib.moe_ffn(lp["ffn"], h, cfg)
     else:
         out, aux = _ffn(lp["ffn"], h), _zero(x)
-    return x + out, aux
+    return x + spmd.reduced(out), aux
 
 
 def _rwkv_block_full(cfg, lp, x, mode="chunked"):
@@ -304,6 +320,7 @@ def _decoder_stack(cfg: ArchConfig, params: Params, x: torch.Tensor, *,
              else [None] * cfg.n_layers)
 
     def body(x, lp, cp, w):
+        x = spmd.activation_placements(x)
         lp = _cast_layer(cfg, lp)
         if cfg.family == "ssm":
             x, cache = _rwkv_block_full(cfg, lp, x)
@@ -356,6 +373,7 @@ def _encoder_stack(cfg: ArchConfig, params: Params, src: torch.Tensor) -> torch.
     hh, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
 
     def body(x, lp):
+        x = spmd.activation_placements(x)
         lp = _cast_layer(cfg, lp)
         h = rms_norm(x, lp["ln1"])
         b, s, d = h.shape
@@ -391,11 +409,42 @@ def _embed(emb: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     v = emb.shape[0]
     idx = tokens.long()
     idx = torch.where(idx < 0, idx + v, idx).clamp(0, v - 1)
+    if isinstance(emb, DTensor):
+        return _embed_sharded(emb, idx)
     return emb[idx]
+
+
+def _embed_sharded(emb: DTensor, idx: DTensor) -> DTensor:
+    """The lookup on a vocab-sharded table (a DTensor ``[V, d]``): the
+    table's feature dim gathered (its FSDP shard), each rank's rows looked up
+    for the ids it owns and zeros for the rest, then summed over the vocab
+    axes. Nothing of ``[V, d]`` is gathered over the vocab."""
+    mesh = emb.device_mesh
+    vocab = spmd.sharding_dims(emb, 0)
+    rows = spmd.batch_placements(idx.shape, mesh)
+    idx = idx.redistribute(mesh, rows) if isinstance(idx, DTensor) else spmd.distribute_tensor(
+        idx, mesh, rows, src_data_rank=None)
+    table = emb.redistribute(mesh, tuple(p if i in vocab else spmd.Replicate()
+                                         for i, p in enumerate(emb.placements)))
+    # each data rank's lookups reach the table's rows with its own tokens:
+    # the table's gradient is a partial sum over the batch's axes
+    local = table.to_local(grad_placements=tuple(
+        spmd.Partial() if isinstance(rows[i], spmd.Shard) else p
+        for i, p in enumerate(table.placements)))
+    (n, _), (off, _) = spmd.local_shape(emb.shape, mesh, table.placements)
+    ids = idx.to_local() - off
+    own = (ids >= 0) & (ids < n)
+    out = torch.where(own[..., None], local[ids.clamp(0, n - 1)], 0.0)
+    return spmd.reduce_over(out, rows, vocab, mesh)
 
 
 def forward_train(cfg: ArchConfig, params: Params, batch: Dict[str, torch.Tensor]):
     """Full training forward. Returns (logits [B,S,V], aux_loss)."""
+    with spmd.program(params):
+        return _forward_train(cfg, params, batch)
+
+
+def _forward_train(cfg: ArchConfig, params: Params, batch: Dict[str, torch.Tensor]):
     emb = params["embed"]
     if cfg.family == "encdec":
         enc_out = _encoder_stack(cfg, params,
@@ -416,10 +465,11 @@ def forward_train(cfg: ArchConfig, params: Params, batch: Dict[str, torch.Tensor
 
 
 def loss_fn(cfg: ArchConfig, params: Params, batch: Dict[str, torch.Tensor]):
-    logits, aux = forward_train(cfg, params, batch)
-    mask = batch.get("loss_mask")
-    ce = cross_entropy_loss(logits, batch["targets"], mask)
-    loss = ce + 0.01 * aux
+    with spmd.program(params):
+        logits, aux = forward_train(cfg, params, batch)
+        mask = batch.get("loss_mask")
+        ce = cross_entropy_loss(logits, batch["targets"], mask)
+        loss = ce + 0.01 * aux
     return loss, {"ce": ce, "aux": aux}
 
 
@@ -428,10 +478,16 @@ def loss_fn(cfg: ArchConfig, params: Params, batch: Dict[str, torch.Tensor]):
 # ---------------------------------------------------------------------------
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, src_len: int = 0, *,
-               device: Device = None) -> Dict[str, torch.Tensor]:
+               device: Device = None, mesh=None) -> Dict[str, torch.Tensor]:
     """Allocate an empty cache for ``decode_step`` on ``device`` (CUDA
-    unless named; ``"meta"`` gives shapes and dtypes only)."""
+    unless named; ``"meta"`` gives shapes and dtypes only). With a DTensor
+    ``mesh``, each leaf is a DTensor placed by ``cache_specs``, and each
+    rank allocates its own block only."""
     dev = resolve_device(device)
+    if mesh is not None:
+        shapes = init_cache(cfg, batch, max_len, src_len, device="meta")
+        return spmd.zeros_tree(shapes, cache_specs(cfg, shapes, spmd.RuleMesh(mesh)), mesh,
+                               device=dev)
     L, b = cfg.n_layers, batch
     dt = cfg.activ_dtype
 
@@ -463,7 +519,13 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, src_len: int = 0, *,
 def prefill(cfg: ArchConfig, params: Params, batch: Dict[str, torch.Tensor],
             max_len: int):
     """Process the prompt; returns (last-position logits, filled cache) on
-    the parameters' device."""
+    the parameters' device (over their mesh, for DTensors)."""
+    with spmd.program(params):
+        return _prefill(cfg, params, batch, max_len)
+
+
+def _prefill(cfg: ArchConfig, params: Params, batch: Dict[str, torch.Tensor],
+             max_len: int):
     emb = params["embed"]
     enc_out = None
     if cfg.family == "encdec":
@@ -480,7 +542,8 @@ def prefill(cfg: ArchConfig, params: Params, batch: Dict[str, torch.Tensor],
     x = rms_norm(x, params["final_norm"])
     logits = _logits(cfg, params, x[:, -1:])
     cache = init_cache(cfg, b, max_len, src_len=0 if enc_out is None else enc_out.shape[1],
-                       device=emb.device)
+                       device=emb.device,
+                       mesh=emb.device_mesh if isinstance(emb, DTensor) else None)
     if cfg.family == "ssm":
         tm_x, tm_s, cm_x = caches
         cache.update(tm_x=tm_x.to(cache["tm_x"].dtype), tm_s=tm_s,
@@ -504,8 +567,12 @@ def prefill(cfg: ArchConfig, params: Params, batch: Dict[str, torch.Tensor],
 
 
 def _place(buf: torch.Tensor, val: torch.Tensor) -> None:
-    """Write [L,B,S,...] prefill values into the [L,B,max,...] cache."""
-    buf[:, :, : val.shape[2]] = val.to(buf.dtype)
+    """Write [L,B,S,...] prefill values into the [L,B,max,...] cache (over a
+    mesh: each rank its own sequence blocks)."""
+    if isinstance(buf, DTensor):
+        spmd.write_block(buf, val, dim=2, start=0)
+    else:
+        buf[:, :, : val.shape[2]] = val.to(buf.dtype)
 
 
 def decode_step(cfg: ArchConfig, params: Params, cache: Dict[str, torch.Tensor],
@@ -514,6 +581,12 @@ def decode_step(cfg: ArchConfig, params: Params, cache: Dict[str, torch.Tensor],
     int or a 0-d tensor). Writes the cache in place.
 
     Returns (logits [B, V], the cache)."""
+    with spmd.program(params):
+        return _decode_step(cfg, params, cache, tokens, pos)
+
+
+def _decode_step(cfg: ArchConfig, params: Params, cache: Dict[str, torch.Tensor],
+                 tokens: torch.Tensor, pos):
     emb = params["embed"]
     x = _maybe_bf16(cfg, _embed(emb, tokens)[:, None, :])     # [B,1,d]
     windows = layer_windows(cfg).tolist()
@@ -528,6 +601,7 @@ def decode_step(cfg: ArchConfig, params: Params, cache: Dict[str, torch.Tensor],
     layers = _layers(params["layers"], cfg.n_layers)
     cross = _layers(params["cross_layers"], cfg.n_layers) if use_cross else None
     for i, w in enumerate(windows):
+        x = spmd.activation_placements(x)
         lp = _cast_layer(cfg, layers[i])
         if cfg.family == "ssm":
             h = rms_norm(x, lp["ln1"])

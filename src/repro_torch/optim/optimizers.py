@@ -18,6 +18,14 @@ squared update, and the second recomputes the update and applies it. At
 yi-6b's width that keeps its temporaries to a layer's slice (~180 MB), where
 the reference's per-leaf expressions would hold four copies of a 5.77 GB
 leaf at once.
+
+On DTensors (the LM over a mesh) each update first brings every gradient to
+its parameter's placements (:func:`match_placements`: a reduce-scatter
+where autograd leaves a partial sum), and the state follows
+``shard_opt_state``, so each rank updates its own blocks. The reductions
+that span a leaf (AdamW's global norm, Adafactor's factored means and its
+whole-leaf RMS) are DTensor reductions: partial sums over the sharded dims,
+reduced over every mesh axis they span.
 """
 
 from __future__ import annotations
@@ -26,6 +34,7 @@ import dataclasses
 from typing import Any, Callable, Dict, Iterator, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 Params = Any
 State = Dict[str, Any]
@@ -59,6 +68,19 @@ def _f32(x: float, like: torch.Tensor) -> torch.Tensor:
     return torch.tensor(x, dtype=torch.float32, device=like.device)
 
 
+def _placed(x: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """``x`` in ``like``'s placements when both are DTensors."""
+    if isinstance(x, DTensor) and tuple(x.placements) != tuple(like.placements):
+        return x.redistribute(like.device_mesh, like.placements)
+    return x
+
+
+def match_placements(grads: Params, params: Params) -> Params:
+    """``grads`` with each DTensor redistributed to its parameter's
+    placements (plain tensors as they are)."""
+    return _tree_map(_placed, grads, params)
+
+
 def _sub_into(p: torch.Tensor, delta: torch.Tensor) -> None:
     """``p <- (f32(p) - delta)`` in ``p``'s dtype."""
     if p.dtype == torch.float32:
@@ -90,7 +112,7 @@ def adamw(b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
                 "step": torch.zeros((), dtype=torch.int32, device=_device(params))}
 
     def update(grads, state, params, lr):
-        grads = clip_by_global_norm(grads, clip_norm)
+        grads = clip_by_global_norm(match_placements(grads, params), clip_norm)
         t = state["step"] + 1
         tf = t.float()
         c1 = 1 - _f32(b1, tf) ** tf
@@ -137,6 +159,7 @@ def adafactor(eps: float = 1e-30, clip_threshold: float = 1.0,
                 "step": torch.zeros((), dtype=torch.int32, device=_device(params))}
 
     def update(grads, state, params, lr):
+        grads = match_placements(grads, params)
         t = state["step"] + 1
         beta2 = 1.0 - (t.float() + 1.0) ** -0.8
 
@@ -144,10 +167,10 @@ def adafactor(eps: float = 1e-30, clip_threshold: float = 1.0,
             """Move the second-moment slices ``s`` on by ``g``."""
             g2 = g.float().square().add_(eps)
             if "vr" in s:
-                s["vr"].mul_(beta2).add_((1 - beta2) * g2.mean(dim=-1))
-                s["vc"].mul_(beta2).add_((1 - beta2) * g2.mean(dim=-2))
+                s["vr"].mul_(beta2).add_(_placed((1 - beta2) * g2.mean(dim=-1), s["vr"]))
+                s["vc"].mul_(beta2).add_(_placed((1 - beta2) * g2.mean(dim=-2), s["vc"]))
             else:
-                s["v"].mul_(beta2).add_((1 - beta2) * g2)
+                s["v"].mul_(beta2).add_(_placed((1 - beta2) * g2, s["v"]))
 
         def update_of(g, s):
             """The unclipped update of ``g`` under the moments ``s``."""
@@ -155,18 +178,18 @@ def adafactor(eps: float = 1e-30, clip_threshold: float = 1.0,
                 vr, vc = s["vr"], s["vc"]
                 denom = (vr[..., None] * vc[..., None, :]
                          / torch.clamp(vr.mean(dim=-1, keepdim=True), min=eps)[..., None])
-                return g.float() * denom.clamp_(min=eps).rsqrt_()
-            return g.float() * torch.rsqrt(torch.clamp(s["v"], min=eps))
+                return g.float() * _placed(denom.clamp_(min=eps).rsqrt_(), g)
+            return g.float() * _placed(torch.rsqrt(torch.clamp(s["v"], min=eps)), g)
 
         def per_leaf(p, g, s):
             # a stacked leaf one layer at a time: its factored axes are the
             # last two, so each layer's moments are its own
             parts = range(p.shape[0]) if p.dim() >= 3 else (...,)
-            sq = torch.zeros((), dtype=torch.float32, device=p.device)
+            sq = 0.0
             for i in parts:
                 s_i = {k: v[i] for k, v in s.items()}
                 move_moments(g[i], s_i)
-                sq += update_of(g[i], s_i).square().sum()
+                sq = update_of(g[i], s_i).square().sum() + sq
             # update clipping (RMS over the whole leaf)
             rms = torch.sqrt(sq / p.numel() + eps)
             scale = torch.clamp(rms / clip_threshold, min=1.0)
@@ -174,7 +197,8 @@ def adafactor(eps: float = 1e-30, clip_threshold: float = 1.0,
                 upd = update_of(g[i], {k: v[i] for k, v in s.items()}).div_(scale)
                 if weight_decay:
                     upd.add_(weight_decay * p[i].float())
-                _sub_into(p[i], lr * upd)
+                p_i = p[i]
+                _sub_into(p_i, _placed(lr * upd, p_i))
             return p
 
         new_params = _tree_map(per_leaf, params, grads, state["v"])

@@ -264,16 +264,22 @@ def test_serving_and_index_import_without_jax_or_repro():
 
 
 def test_trainer_needs_a_card_unless_a_device_is_named(monkeypatch):
-    """With no card, naming no device raises; it never trains on the CPU."""
+    """With no card, naming no device raises; it never trains on the CPU
+    and never allocates a sharded cache there."""
     import torch
 
     from repro_torch.configs import get_config, reduced_config
     from repro_torch.core.tree import resolve_device
+    from repro_torch.distributed import spmd
     from repro_torch.launch.train import train_loop
+    from repro_torch.models import lm
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         resolve_device(None)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train_loop(reduced_config(get_config("yi-6b")), steps=1, batch=2, seq=8)
+    with spmd.spmd_mesh((2, 2), ("data", "model"), backend="fake") as mesh:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            lm.init_cache(reduced_config(get_config("yi-6b")), 4, 8, mesh=mesh)
     assert resolve_device("cpu") == torch.device("cpu")

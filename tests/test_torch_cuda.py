@@ -1117,3 +1117,44 @@ def test_lm_tree_head_example_on_card(cuda_device):
     assert card["exact"] == cpu["exact"] == 1.0
     for beam in ex.BEAMS:
         torch.testing.assert_close(card[beam][0].cpu(), cpu[beam][0], rtol=0, atol=0)
+
+
+# -- the LM as one program over a mesh (chip_smoke.py phase 18) ---------------
+
+def _spmd_world(n: int, tmp_path) -> str:
+    """``chip_smoke.py``'s phase 18 check (reduced yi-6b's sharded train
+    step, prefill and decode against the plain port, ``SPMD_TOL``) in ``n``
+    processes, one card each, on a (1, 1) or (2, n/2) NCCL mesh; rank 0's
+    summary."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    procs = [subprocess.Popen([sys.executable, str(root / "chip_smoke.py"), "--spmd-rank",
+                               str(r), "--spmd-world", str(n), "--spmd-dir", str(tmp_path)],
+                              cwd=root, env=env) for r in range(n)]
+    try:
+        codes = [p.wait(timeout=600) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    assert codes == [0] * n, codes
+    summary = (tmp_path / "summary.txt").read_text()
+    print(f"{n} rank(s): {summary}")
+    return summary
+
+
+def test_spmd_world_of_one_matches_plain(cuda_device, tmp_path):
+    assert "no gradient off its parameter's placements" in _spmd_world(1, tmp_path)
+
+
+def test_spmd_two_cards_match_plain(cuda_device, tmp_path):
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs 2 or more cards (NCCL puts no two ranks on one card)")
+    assert "greedy tokens decided" in _spmd_world(2 * (n // 2), tmp_path)

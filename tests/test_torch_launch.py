@@ -40,7 +40,7 @@ from repro.models import lm as JL
 from repro.optim.optimizers import get_optimizer as j_get_optimizer
 from repro_torch import configs as TC
 from repro_torch.distributed.sharding import Slot, record_sends, send
-from repro_torch.launch import dryrun, hlo_stats, mesh
+from repro_torch.launch import dryrun, hlo_stats, hw, mesh
 from repro_torch.launch import serve_dryrun as sd
 from repro_torch.launch.specs import input_specs
 from repro_torch.models import lm as TL
@@ -328,17 +328,38 @@ def test_argument_bytes_match_reference_shard_shape(arch, multi):
 @pytest.mark.parametrize("shape", CELL_SHAPES)
 def test_run_cell_record(shape):
     """``run_cell`` on a 2-layer yi-6b (``--override n_layers=2``): status
-    ok, the record's keys, the notes where the port has no counterpart."""
+    ok, rank 0's own counts of its DTensor program with the collective term
+    (under the reference's op names), the notes where the port has no
+    counterpart."""
     rec = dryrun.run_cell("yi-6b", shape, "single", {"n_layers": "2"})
-    assert rec["status"] == "ok" and rec["chips"] == 256
-    assert rec["collective_bytes"] is None and rec["roofline"]["collective_s"] is None
+    assert rec["status"] == "ok" and rec["chips"] == 256 and rec["spmd"] is True
+    assert rec["collective_bytes_per_device"] > 0
+    assert rec["collective_bytes"] == rec["collective_bytes_per_device"] * 256
+    assert set(rec["collectives"]) <= set(hlo_stats.COLLECTIVES) | {"TOTAL"}
+    assert rec["collectives"]["TOTAL"]["operand_bytes"] == rec["collective_bytes_per_device"]
+    assert rec["roofline"]["collective_s"] == pytest.approx(
+        rec["collective_bytes"] / (256 * hw.NVLINK_BW))
+    assert rec["counted_flops"] == rec["counted_flops_per_device"] * 256
+    assert "InfiniBand" in rec["collective_note"]
     assert "no counterpart" in rec["probe"] and "probe_l1" not in rec
     assert rec["counted_flops"] > 0 and rec["counted_bytes"] > 0
     assert rec["memory"]["argument_gb_per_device"] > 0
     assert rec["roofline"]["bound_s"] == max(rec["roofline"]["compute_s"],
-                                             rec["roofline"]["memory_s"])
+                                             rec["roofline"]["memory_s"],
+                                             rec["roofline"]["collective_s"])
     skipped = dryrun.run_cell("yi-6b", "long_500k", "single")
     assert skipped["status"] == "skipped(full-attention)"
+
+
+def test_run_cell_outside_the_slice_keeps_the_even_split():
+    """A family whose sharded program is not ported (MLA, minicpm3, 2
+    layers) keeps one card's count split evenly, and says so."""
+    rec = dryrun.run_cell("minicpm3-4b", "decode_32k", "single", {"n_layers": "2"})
+    assert rec["status"] == "ok" and rec["spmd"] is False
+    assert rec["collective_bytes"] is None and rec["collectives"] is None
+    assert rec["roofline"]["collective_s"] is None
+    assert "ROADMAP 14d" in rec["collective_note"] and "MLA" in rec["collective_note"]
+    assert rec["counted_flops_per_device"] == rec["counted_flops"] / 256
 
 
 # -- the enterprise serving dry run ------------------------------------------
