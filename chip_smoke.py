@@ -159,9 +159,11 @@ Phases, in order; any failure raises and the script exits non-zero:
             compression) and again on the same directory to 16 steps: it
             resumes at step 12.
 15. dryrun  the dry runs, on ``meta`` tensors (no card memory):
-            ``repro_torch.launch.dryrun.run_cell`` for yi-6b in train_4k,
-            prefill_32k and decode_32k on the (16, 16) production mesh, each
-            rank 0's DTensor program on a fake process group of 256 (each
+            ``repro_torch.launch.dryrun.run_cell`` for yi-6b, minicpm3-4b
+            (MLA) and qwen3-moe-235b-a22b (MoE, global dispatch) in
+            train_4k, prefill_32k and decode_32k on the (16, 16) production
+            mesh, each rank 0's DTensor program on a fake process group of
+            256 (each
             status ok: argument bytes a device, that rank's own counted
             FLOPs, bytes and collectives by kind, the compute, memory and
             collective terms); yi-6b's step at the lm_train phase's shape
@@ -187,23 +189,33 @@ Phases, in order; any failure raises and the script exits non-zero:
             each exits 0, the tree head prints full-beam exactness 1.000.
 18. spmd    the LM as one program over a mesh (DTensor, plain torch ops and
             NCCL, no kernel of the port): (a) on a world-1 NCCL mesh of
-            (1, 1), reduced yi-6b's sharded ``make_train_step`` (AdamW,
-            remat, an f32 cache), ``prefill`` and 4 greedy ``decode_step``s
-            against the plain port on the card from the same parameters
-            (``SPMD_TOL``);
-            (b) rank 0's program of the (16, 16) production mesh at yi-6b's
-            full width and depth, its shards drawn on the card by
-            ``spmd.local_tree`` from seeds and its collectives sent to a
-            fake group (no byte crosses a card, no value is checked):
-            ``train_4k`` (16 x 4,096 tokens a device, AdamW, remat
-            ``full``; 1 warm-up, 2 timed steps, 1 profiled), ``prefill_32k`` (2 x
-            32,768; 1 call), ``decode_32k`` (8 sequences, a cache of 32,768
-            over ``model``; 8 steps), each in ms (CUDA events) against that
-            rank's counted compute and memory bounds from the dry run, peak
-            memory against the dry run's argument bytes, and one profiled
-            decode step's activities and idle share; (c) with 2 or more
-            cards, (a) on a (2, n/2) NCCL mesh, one process a card (with one
-            card it says it did not run, and why).
+            (1, 1), the reduced configs of ``SPMD_CASES`` (yi-6b; minicpm3
+            with the expanded and the absorbed decode; qwen3-moe at
+            capacity_factor 1.0 with global and with grouped dispatch; grok
+            with 3 experts): each one's sharded ``make_train_step`` (its
+            optimizer, remat, an f32 cache), ``prefill`` and 4 greedy
+            ``decode_step``s against the plain port on the card from the
+            same parameters (``SPMD_TOL``);
+            (b) rank 0's program of the (16, 16) production mesh at full
+            width, its shards drawn on the card by ``spmd.local_tree`` from
+            seeds and its collectives sent to a fake group (no byte crosses
+            a card, no value is checked): yi-6b and minicpm3-4b at full
+            depth, ``train_4k`` (16 x 4,096 tokens a device, AdamW, remat
+            ``full``; 1 warm-up, 2 timed steps; yi-6b's one profiled),
+            ``prefill_32k`` (2 x 32,768; 1 call), ``decode_32k`` (8
+            sequences, a cache of 32,768 over ``model``; yi-6b 8 steps,
+            minicpm3 4 in each decode form); qwen3-moe-235b-a22b
+            ``decode_32k`` at 94 layers (global dispatch; 4 steps) and
+            ``train_4k`` with grouped dispatch at the depth that fits
+            ``SPMD_MOE``'s budget (peaks at 1 and 2 layers extrapolated;
+            1 warm-up, 1 timed step); each in ms (CUDA events) against
+            that rank's counted compute and memory bounds (the dry run's,
+            or counted on meta here for the absorbed decode and the cut
+            depth), peak memory against the dry run's argument bytes, and
+            one profiled decode step's activities and idle share a model;
+            (c) with 2 or more cards, (a)'s yi-6b, minicpm3 and qwen3-moe
+            global cases on a (2, n/2) NCCL mesh, one process a card (with
+            one card it says it did not run, and why).
 
 The line before last is a JSON object with one entry per kernel, whose
 ``launches`` count that kernel's path (grouped: path; grouped_q: the int8
@@ -348,6 +360,9 @@ LM_LOOP = dict(batch=4, seq=16, steps=12, resume_steps=16, save_every=4,
                inject_failure_at=6)
 # The dryrun phase: the LM cells run on meta tensors on the single-pod mesh.
 DRYRUN_CELLS = ("train_4k", "prefill_32k", "decode_32k")
+# The LMs whose cells the dryrun phase counts as rank 0's sharded program, and
+# whose rank 0 the spmd phase's (b) runs on the card.
+SPMD_DRYRUN_ARCHS = ("yi-6b", "minicpm3-4b", "qwen3-moe-235b-a22b")
 # The enterprise phase (src/repro/launch/serve_dryrun.py's model, paper §6):
 # data row 0's 64 queries (a batch of 1,024 over 16 data rows), beam 10,
 # top-10, shards drawn from seed 0. Card against CPU: the scores of one
@@ -375,8 +390,30 @@ SPMD_SMALL = dict(batch=4, seq=32, max_len=40, steps=4, lr=1e-2)
 # within 1e-5 x (1 + max |logit|), the greedy tokens equal wherever the
 # top-2 gap exceeds that.
 SPMD_TOL = dict(loss=1e-5, leaf=1e-5, logits=1e-5)
+# (a): the reduced configs held against the plain port on a world-1 mesh:
+# the dense GQA decoder, MLA (the config's expanded decode and the absorbed
+# one), qwen3-moe at capacity_factor 1.0 (pairs drop) with global and with
+# grouped dispatch, grok with 3 experts (they do not divide a model axis, so
+# the expert weights are sharded over d and ff). (c) runs SPMD_CARD_CASES.
+SPMD_CASES = (
+    ("yi-6b", {}),
+    ("minicpm3-4b", {}),
+    ("minicpm3-4b", {"mla_absorb": True}),
+    ("qwen3-moe-235b-a22b", {"capacity_factor": 1.0}),
+    ("qwen3-moe-235b-a22b", {"capacity_factor": 1.0, "moe_dispatch": "grouped",
+                             "moe_shard_constraints": True}),
+    ("grok-1-314b", {"n_experts": 3, "moe_shard_constraints": True}),
+)
+SPMD_CARD_CASES = (SPMD_CASES[0], SPMD_CASES[1], SPMD_CASES[3])
 # (b): rank 0 of the (16, 16) production mesh, the dry run's cells.
 SPMD_RANK0 = dict(train_steps=2, decode_steps=8, seed=0)
+# (b) for qwen3-moe: decode steps at full depth; train_4k's probe depths,
+# the peak memory its cut depth may reach (of 80 GB: room for the caching
+# allocator's fragments) and its timed steps.
+SPMD_MOE = dict(decode_steps=4, probe_depths=(1, 2), budget_gb=72, train_steps=1)
+# (b) for minicpm3: decode steps in each form (cut from 8 to keep phase 18
+# short; ~1.1 s a step).
+SPMD_MLA_DECODE_STEPS = 4
 SPMD_CARDS_TIMEOUT_S = 300
 
 
@@ -2778,12 +2815,36 @@ def lm_train_phase(torch, gpu: str, device: str = "cuda") -> float:
     return med
 
 
+def log_spmd_cell(rec: dict) -> dict:
+    """Print a dry run's record of rank 0's program; raise unless it ran
+    as a sharded program. Returns the record."""
+    what = f"{rec['arch']} {rec['shape']}"
+    if rec.get("status") != "ok" or not rec.get("spmd"):
+        raise AssertionError(f"dry run {what}: {rec.get('status')}, spmd {rec.get('spmd')}")
+    rf, coll = rec["roofline"], rec["collectives"]
+    kinds = ", ".join(f"{k} {v['count']} x {v['operand_bytes']:.4e} B"
+                      for k, v in coll.items() if k != "TOTAL")
+    dispatch = f"; {rec['moe_dispatch']} dispatch" if "moe_dispatch" in rec else ""
+    log(f"  {what}, rank 0's program of the (16, 16) mesh on meta (fake group "
+        f"of {rec['chips']}{dispatch}): status ok in {rec['meta_run_s']} s; "
+        f"{rec['memory']['argument_size_in_bytes']:,} argument bytes a device; counted a "
+        f"device {rec['counted_flops_per_device']:.4e} FLOP, "
+        f"{rec['counted_bytes_per_device']:.4e} bytes, collectives {kinds} (operand "
+        f"{rec['collective_bytes_per_device']:.4e} B); model/counted FLOPs "
+        f"{rec['model_vs_counted_flops']:.4f}; bound a step compute "
+        f"{1e3 * rf['compute_s']:.3f} ms, memory {1e3 * rf['memory_s']:.3f} ms, collective "
+        f"{1e3 * rf['collective_s']:.3f} ms ({rf['dominant']}; H100 SXM data sheet rates, "
+        f"NVLink 4 for the collectives)")
+    return rec
+
+
 def dryrun_phase(torch, gpu: str, step_ms: float) -> dict:
-    """Phase 15: the dry runs on ``meta`` tensors (no card memory): yi-6b's
-    cells on the single-pod mesh (rank 0's DTensor program), yi-6b's step at
-    the lm_train phase's shape counted and its bound held against the
-    measured step, and the enterprise serving step on both production
-    meshes. Returns the single-pod enterprise record and yi-6b's cells."""
+    """Phase 15: the dry runs on ``meta`` tensors (no card memory): the
+    cells of yi-6b, minicpm3-4b and qwen3-moe-235b-a22b on the single-pod
+    mesh (rank 0's DTensor program), yi-6b's step at the lm_train phase's
+    shape counted and its bound held against the measured step, and the
+    enterprise serving step on both production meshes. Returns the
+    single-pod enterprise record and the LM cells by (arch, shape)."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -2793,24 +2854,9 @@ def dryrun_phase(torch, gpu: str, step_ms: float) -> dict:
     from repro_torch.launch.mesh import make_production_mesh
 
     lm_cells = {}
-    for shape in DRYRUN_CELLS:
-        rec = dryrun.run_cell(LM_ARCH, shape, "single")
-        if rec.get("status") != "ok" or not rec.get("spmd"):
-            raise AssertionError(f"dry run {LM_ARCH} {shape}: {rec.get('status')}")
-        lm_cells[shape] = rec
-        rf, coll = rec["roofline"], rec["collectives"]
-        kinds = ", ".join(f"{k} {v['count']} x {v['operand_bytes']:.4e} B"
-                          for k, v in coll.items() if k != "TOTAL")
-        log(f"  {LM_ARCH} {shape}, rank 0's program of the (16, 16) mesh on meta (fake group "
-            f"of {rec['chips']}): status ok in {rec['meta_run_s']} s; "
-            f"{rec['memory']['argument_size_in_bytes']:,} argument bytes a device; counted a "
-            f"device {rec['counted_flops_per_device']:.4e} FLOP, "
-            f"{rec['counted_bytes_per_device']:.4e} bytes, collectives {kinds} (operand "
-            f"{rec['collective_bytes_per_device']:.4e} B); model/counted FLOPs "
-            f"{rec['model_vs_counted_flops']:.4f}; bound a step compute "
-            f"{1e3 * rf['compute_s']:.3f} ms, memory {1e3 * rf['memory_s']:.3f} ms, collective "
-            f"{1e3 * rf['collective_s']:.3f} ms ({rf['dominant']}; H100 SXM data sheet rates, "
-            f"NVLink 4 for the collectives)")
+    for arch in SPMD_DRYRUN_ARCHS:
+        for shape in DRYRUN_CELLS:
+            lm_cells[arch, shape] = log_spmd_cell(dryrun.run_cell(arch, shape, "single"))
     cfg = dataclasses.replace(get_config(LM_ARCH), optimizer="adafactor")
     shape = ShapeSpec("lm_train", LM_TRAIN["seq"], LM_TRAIN["batch"], "train")
     fn, args, _ = dryrun._step_and_specs(cfg, shape, make_production_mesh())
@@ -3004,17 +3050,27 @@ def _leaf_err(torch, got, want) -> float:
         float(want.float().abs().max()), 1e-30)
 
 
-def spmd_vs_plain(torch, mesh, device) -> str:
-    """Reduced yi-6b on ``mesh`` (DTensor) against the plain port on
-    ``device``, from the same parameters: prefill and greedy decode (the
-    sharded run fed the plain run's tokens), then one ``make_train_step``
-    step (AdamW): the loss, every gradient (none reaching the optimizer
-    with placements other than its parameter's), and every leaf the sharded
-    update makes from the plain step's gradients. Raises past ``SPMD_TOL``;
-    returns a summary."""
+def spmd_config(arch: str, overrides: dict):
+    """The reduced config of phase 18's (a) and (c): remat on, an f32 cache
+    (``SPMD_SMALL``'s note), ``overrides`` applied."""
     import dataclasses
 
+    import torch
+
     from repro_torch.configs import get_config, reduced_config
+
+    return dataclasses.replace(reduced_config(get_config(arch)), remat=True,
+                               activ_dtype=torch.float32, **overrides)
+
+
+def spmd_vs_plain(torch, mesh, device, arch: str = LM_ARCH, overrides=None) -> str:
+    """A reduced config (``spmd_config``) on ``mesh`` (DTensor) against the
+    plain port on ``device``, from the same parameters: prefill and greedy
+    decode (the sharded run fed the plain run's tokens), then one
+    ``make_train_step`` step (the config's optimizer): the loss, every
+    gradient (none reaching the optimizer with placements other than its
+    parameter's), and every leaf the sharded update makes from the plain
+    step's gradients. Raises past ``SPMD_TOL``; returns a summary."""
     from repro_torch.distributed import spmd
     from repro_torch.distributed.sharding import batch_specs, shard_opt_state, shard_params
     from repro_torch.launch.train import init_opt_state, make_train_step
@@ -3023,8 +3079,7 @@ def spmd_vs_plain(torch, mesh, device) -> str:
     from torch.utils._pytree import tree_flatten
 
     r, tol = SPMD_SMALL, SPMD_TOL
-    cfg = dataclasses.replace(reduced_config(get_config(LM_ARCH)), remat=True,
-                              activ_dtype=torch.float32)
+    cfg = spmd_config(arch, overrides or {})
     rules = spmd.RuleMesh(mesh)
     params = lm.init_params(cfg, torch.Generator(device).manual_seed(0), device=device)
     rng = np.random.default_rng(0)
@@ -3062,7 +3117,7 @@ def spmd_vs_plain(torch, mesh, device) -> str:
         dec_err, decided = max(dec_err, err), decided + int(sure.sum())
         tok = lg.argmax(-1).int()
 
-    inner, seen = get_optimizer("adamw"), {}
+    inner, seen = get_optimizer(cfg.optimizer), {}
 
     def update(grads, state, prm, lr):
         if "plain" not in seen:
@@ -3075,7 +3130,7 @@ def spmd_vs_plain(torch, mesh, device) -> str:
         seen["sharded"] = spmd.full_tree(grads)
         return inner.update(place(seen["plain"], p_sh), state, prm, lr)
 
-    step = make_train_step(cfg, Optimizer(inner.init, update, "adamw"), peak_lr=r["lr"],
+    step = make_train_step(cfg, Optimizer(inner.init, update, inner.name), peak_lr=r["lr"],
                            warmup=0)
     p1, _, m = step(copy(params), init_opt_state(inner, params), batch)
     dstate = place(init_opt_state(inner, params), shard_opt_state(
@@ -3092,129 +3147,262 @@ def spmd_vs_plain(torch, mesh, device) -> str:
     if not (g_err <= tol["leaf"] and p_err <= tol["leaf"]):
         raise AssertionError(f"sharded gradients off by {g_err:.3e}, updated leaves by "
                              f"{p_err:.3e} of their leaf's max")
-    return (f"loss {dloss:.6f} / {loss:.6f}; gradients within {g_err:.3e} and updated leaves "
-            f"within {p_err:.3e} of each leaf's max; no gradient off its parameter's "
-            f"placements; prefill logits within {pre_err:.3e} x (1 + max); {r['steps']} decode "
-            f"steps' logits within {dec_err:.3e} x (1 + max), {decided} greedy tokens decided "
-            f"and equal")
+    return (f"loss {dloss:.6f} / {loss:.6f} ({inner.name}); gradients within {g_err:.3e} and "
+            f"updated leaves within {p_err:.3e} of each leaf's max; no gradient off its "
+            f"parameter's placements; prefill logits within {pre_err:.3e} x (1 + max); "
+            f"{r['steps']} decode steps' logits within {dec_err:.3e} x (1 + max), {decided} "
+            f"greedy tokens decided and equal")
 
 
-def spmd_rank0(torch, gpu: str, dry: dict) -> None:
-    """Phase 18 (b): rank 0's program of the (16, 16) production mesh at
-    yi-6b's full width, its collectives sent to a fake group: train_4k,
-    prefill_32k and decode_32k timed against that rank's counted bounds."""
-    from repro_torch.configs import SHAPES, get_config
-    from repro_torch.distributed import spmd
-    from repro_torch.distributed.sharding import (batch_specs, shard_opt_state,
-                                                  shard_params)
-    from repro_torch.launch.mesh import make_production_spmd_mesh
-    from repro_torch.launch.specs import input_specs
-    from repro_torch.launch.train import init_opt_state, make_train_step
-    from repro_torch.models import lm
-    from repro_torch.optim import get_optimizer
-    from torch.utils._pytree import tree_leaves
+def case_name(arch: str, overrides: dict) -> str:
+    return arch + "".join(f", {k}={v}" for k, v in overrides.items())
 
-    cfg, r = get_config(LM_ARCH), SPMD_RANK0
 
-    def events():
-        return torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+class Rank0:
+    """Phase 18 (b)'s runs of rank 0's program on the card: each model's
+    shards drawn by ``spmd.local_tree`` from seeds, timed with CUDA events
+    against that rank's counted bounds (a dry-run record)."""
 
-    def timed(fn) -> float:
-        start, stop = events()
+    def __init__(self, torch, gpu: str, mesh) -> None:
+        from repro_torch.distributed import spmd
+
+        self.torch, self.gpu, self.mesh = torch, gpu, mesh
+        self.rules = spmd.RuleMesh(mesh)
+
+    def timed(self, fn) -> float:
+        torch = self.torch
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         fn()
         stop.record()
         stop.synchronize()
         return start.elapsed_time(stop)
 
-    def report(shape: str, ms: list, what: str) -> None:
-        rec = dry[shape]
+    def fresh(self) -> None:
+        self.torch.cuda.empty_cache()
+        self.torch.cuda.reset_peak_memory_stats()
+
+    def report(self, what: str, ms: list, rec: dict, how: str) -> None:
         rf = rec["roofline"]
         med = float(np.median(ms))
-        peak = torch.cuda.max_memory_allocated()
+        peak = self.torch.cuda.max_memory_allocated()
         arg = rec["memory"]["argument_size_in_bytes"]
-        log(f"  {LM_ARCH} {shape}, rank 0 of (16, 16): {what} {', '.join(f'{t:.1f}' for t in ms)}"
-            f" ms (median {med:.1f}); that rank's counted bound compute "
+        log(f"  {what}, rank 0 of (16, 16): {how} {', '.join(f'{t:.1f}' for t in ms)} ms "
+            f"(median {med:.1f}); that rank's counted bound compute "
             f"{1e3 * rf['compute_s']:.1f} ms ({med / (1e3 * rf['compute_s']):.3f} x), memory "
             f"{1e3 * rf['memory_s']:.1f} ms ({med / (1e3 * rf['memory_s']):.3f} x); peak device "
             f"memory {peak / 1e9:.3f} GB against the dry run's {arg / 1e9:.3f} GB of arguments "
-            f"a device  [{gpu}]")
+            f"a device  [{self.gpu}]")
 
-    def meta(specs):
-        return {k: torch.empty(s, dtype=dt, device="meta") for k, (s, dt) in specs.items()}
+    def profiled(self, what: str, fn) -> None:
+        wall, acts, busy_us, rows = device_profile(fn)
+        log_profile(f"one {what} of rank 0", wall, acts, busy_us, rows, self.gpu, 8)
+        if busy_us:
+            log(f"  {what}: {acts} device activities, idle share "
+                f"{1 - busy_us / (1e6 * wall):.4f} (profiler on)")
+
+    def draw(self, tree, shardings, seed: int, **kw):
+        from repro_torch.distributed import spmd
+
+        return spmd.local_tree(tree, shardings, self.mesh, seed=seed, device="cuda", **kw)
+
+    def params(self, cfg):
+        from repro_torch.distributed.sharding import shard_params
+        from repro_torch.models import lm
+
+        shapes = lm.param_shapes(cfg)
+        return self.draw(shapes, shard_params(shapes, self.rules), SPMD_RANK0["seed"])
+
+    def batch(self, cfg, shape: str, seed: int):
+        from repro_torch.configs import SHAPES
+        from repro_torch.distributed.sharding import batch_specs
+        from repro_torch.launch.specs import input_specs
+
+        shapes = {k: self.torch.empty(sh, dtype=dt, device="meta")
+                  for k, (sh, dt) in input_specs(cfg, SHAPES[shape]).items()}
+        return self.draw(shapes, batch_specs(cfg, shapes, self.rules), seed, high=cfg.vocab)
+
+    def train(self, cfg, params, steps: int):
+        """(one step, the ms of ``steps`` steps after one warm-up, the bytes
+        of rank 0's parameters, optimizer state and batch)."""
+        from torch.utils._pytree import tree_leaves
+
+        from repro_torch.distributed import spmd
+        from repro_torch.distributed.sharding import shard_opt_state
+        from repro_torch.launch.train import init_opt_state, make_train_step
+        from repro_torch.models import lm
+        from repro_torch.optim import get_optimizer
+
+        inner = get_optimizer(cfg.optimizer)
+        shapes = lm.param_shapes(cfg)
+        opt_shapes = init_opt_state(inner, shapes)
+        state = spmd.zeros_tree(opt_shapes, shard_opt_state(opt_shapes, shapes, self.rules),
+                                self.mesh, device="cuda")
+        batch = self.batch(cfg, "train_4k", SPMD_RANK0["seed"] + 1)
+        held = sum(t.to_local().numel() * t.element_size()
+                   for t in tree_leaves((params, state, batch)))
+        step = make_train_step(cfg, inner)
+        ms = [self.timed(lambda: step(params, state, batch)) for _ in range(1 + steps)][1:]
+        return (lambda: step(params, state, batch)), ms, held
+
+    def prefill(self, cfg, params) -> list:
+        from repro_torch.configs import SHAPES
+        from repro_torch.models import lm
+
+        batch = self.batch(cfg, "prefill_32k", SPMD_RANK0["seed"] + 2)
+        seq = SHAPES["prefill_32k"].seq_len
+        return [self.timed(lambda: lm.prefill(cfg, params, batch, max_len=seq))]
+
+    def decode(self, cfg, params, steps: int):
+        """(one step, the ms of ``steps`` steps after one warm-up)."""
+        from repro_torch.configs import SHAPES
+        from repro_torch.distributed.sharding import batch_specs
+        from repro_torch.models import lm
+
+        shape = SHAPES["decode_32k"]
+        cache = lm.init_cache(cfg, shape.global_batch, shape.seq_len, device="cuda",
+                              mesh=self.mesh)
+        tshape = {"t": self.torch.empty((shape.global_batch,), dtype=self.torch.int32,
+                                        device="meta")}
+        tokens = self.draw(tshape, batch_specs(cfg, tshape, self.rules), SPMD_RANK0["seed"] + 3,
+                           high=cfg.vocab)["t"]
+
+        def one():
+            lm.decode_step(cfg, params, cache, tokens, shape.seq_len - 1)
+
+        one()
+        return one, [self.timed(one) for _ in range(steps)]
+
+
+def spmd_rank0(torch, gpu: str, dry: dict) -> None:
+    """Phase 18 (b): rank 0's program of the (16, 16) production mesh at
+    full width, its collectives sent to a fake group: yi-6b, minicpm3-4b
+    (MLA) and qwen3-moe-235b-a22b (MoE), each cell timed against that rank's
+    counted bounds."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_production_spmd_mesh
 
     with make_production_spmd_mesh() as mesh:
-        rules = spmd.RuleMesh(mesh)
+        run = Rank0(torch, gpu, mesh)
         log(f"  rank 0 of a fake process group of {mesh.size()}: every collective returns at "
             "once, so no byte crosses a card and the values (gathered blocks unwritten) are "
             "not checked here")
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        shapes = lm.param_shapes(cfg)
-        params = spmd.local_tree(shapes, shard_params(shapes, rules), mesh, seed=r["seed"],
-                                 device="cuda")
-        inner = get_optimizer(cfg.optimizer)
-        opt_shapes = init_opt_state(inner, shapes)
-        state = spmd.zeros_tree(opt_shapes, shard_opt_state(opt_shapes, shapes, rules), mesh,
-                                device="cuda")
-        bshapes = meta(input_specs(cfg, SHAPES["train_4k"]))
-        batch = spmd.local_tree(bshapes, batch_specs(cfg, bshapes, rules), mesh,
-                                seed=r["seed"] + 1, device="cuda", high=cfg.vocab)
-        torch.cuda.synchronize()
-        held_bytes = sum(t.to_local().numel() * t.element_size()
-                         for t in tree_leaves((params, state, batch)))
-        log(f"  rank 0's shards drawn on the card in {time.perf_counter() - t0:.2f} s: "
-            f"{held_bytes:,} bytes (the dry run: "
-            f"{dry['train_4k']['memory']['argument_size_in_bytes']:,})")
-        step = make_train_step(cfg, inner)
-        ms = []
-        for i in range(1 + r["train_steps"]):
-            t = timed(lambda: step(params, state, batch))
-            if i:
-                ms.append(t)
-        report("train_4k", ms, f"AdamW, remat {cfg.remat_policy!r}, a step (after 1 warm-up)")
-        wall, acts, busy_us, rows = device_profile(lambda: step(params, state, batch))
-        log_profile("one train_4k step of rank 0", wall, acts, busy_us, rows, gpu, 8)
-        if busy_us:
-            log(f"  train_4k step: {acts} device activities, idle share "
-                f"{1 - busy_us / (1e6 * wall):.4f} (profiler on)")
-        del state, batch, step
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        bshapes = meta(input_specs(cfg, SHAPES["prefill_32k"]))
-        batch = spmd.local_tree(bshapes, batch_specs(cfg, bshapes, rules), mesh,
-                                seed=r["seed"] + 2, device="cuda", high=cfg.vocab)
-        seq = SHAPES["prefill_32k"].seq_len
-        ms = [timed(lambda: lm.prefill(cfg, params, batch, max_len=seq))]
-        report("prefill_32k", ms, "one call")
-        del batch
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        shape = SHAPES["decode_32k"]
-        cache = lm.init_cache(cfg, shape.global_batch, shape.seq_len, device="cuda", mesh=mesh)
-        tshape = {"t": torch.empty((shape.global_batch,), dtype=torch.int32, device="meta")}
-        tokens = spmd.local_tree(tshape, batch_specs(cfg, tshape, rules), mesh,
-                                 seed=r["seed"] + 3, device="cuda", high=cfg.vocab)["t"]
-
-        def decode():
-            lm.decode_step(cfg, params, cache, tokens, shape.seq_len - 1)
-
-        decode()
-        ms = [timed(decode) for _ in range(r["decode_steps"])]
-        report("decode_32k", ms, "a step (after 1 warm-up)")
-        wall, acts, busy_us, rows = device_profile(decode)
-        log_profile("one decode_32k step of rank 0", wall, acts, busy_us, rows, gpu, 8)
-        if busy_us:
-            log(f"  decode_32k step: {acts} device activities, idle share "
-                f"{1 - busy_us / (1e6 * wall):.4f} (profiler on)")
-        del cache, tokens, params
+        for arch in ("yi-6b", "minicpm3-4b"):
+            rank0_dense(run, get_config(arch), dry)
+        rank0_moe(run, get_config("qwen3-moe-235b-a22b"), dry)
 
 
-def spmd_rank_main(rank: int, world: int, directory: str) -> int:
+def rank0_dense(run: Rank0, cfg, dry: dict) -> None:
+    """(b) for a decoder with a dense FFN at full depth: ``train_4k``
+    (the config's optimizer and remat), ``prefill_32k`` and ``decode_32k``
+    (MLA: with the config's ``mla_absorb``, then the other form)."""
+    import dataclasses
+
+    torch, r, arch = run.torch, SPMD_RANK0, cfg.name
+    run.fresh()
+    t0 = time.perf_counter()
+    params = run.params(cfg)
+    torch.cuda.synchronize()
+    log(f"  {arch}: rank 0's parameter shards drawn on the card in "
+        f"{time.perf_counter() - t0:.2f} s")
+    step, ms, held = run.train(cfg, params, r["train_steps"])
+    log(f"  {arch}: rank 0's parameters, optimizer state and train_4k batch hold {held:,} "
+        f"bytes on the card (the dry run: "
+        f"{dry[arch, 'train_4k']['memory']['argument_size_in_bytes']:,})")
+    run.report(f"{arch} train_4k", ms, dry[arch, "train_4k"],
+               f"{cfg.optimizer}, remat {cfg.remat_policy!r}, a step (after 1 warm-up)")
+    if arch == LM_ARCH:
+        run.profiled("train_4k step", step)
+    del step
+    run.fresh()
+    run.report(f"{arch} prefill_32k", run.prefill(cfg, params), dry[arch, "prefill_32k"],
+               "one call")
+    forms = [cfg] if cfg.attn_type != "mla" else [
+        cfg, dataclasses.replace(cfg, mla_absorb=not cfg.mla_absorb)]
+    steps = r["decode_steps"] if len(forms) == 1 else SPMD_MLA_DECODE_STEPS
+    for i, c in enumerate(forms):
+        run.fresh()
+        one, ms = run.decode(c, params, steps)
+        form = f" (mla_absorb={c.mla_absorb})" if c.attn_type == "mla" else ""
+        rec = dry[arch, "decode_32k"] if i == 0 else counted(run.mesh, c, "decode_32k")
+        run.report(f"{arch} decode_32k{form}", ms, rec, "a step (after 1 warm-up)")
+        if i == 0:
+            run.profiled(f"{arch} decode_32k step{form}", one)
+        del one
+    del params
+    run.fresh()
+
+
+def counted(mesh, cfg, shape: str) -> dict:
+    """The parts of a dry-run record ``Rank0.report`` reads, for rank 0's
+    program of ``cfg``'s cell counted on ``meta`` on ``mesh``."""
+    from repro_torch.configs import SHAPES
+    from repro_torch.launch import dryrun, hw
+
+    counter, arg_bytes, _ = dryrun.count_rank0(cfg, SHAPES[shape], mesh)
+    rf = hw.roofline_terms(flops=counter.flops, bytes_hbm=counter.bytes, bytes_collective=0.0,
+                           chips=1)
+    return {"roofline": rf, "memory": {"argument_size_in_bytes": arg_bytes}}
+
+
+def rank0_moe(run: Rank0, cfg, dry: dict) -> None:
+    """(b) for qwen3-moe: ``decode_32k`` at full depth with the config's
+    global dispatch; ``train_4k`` with grouped dispatch and
+    ``moe_shard_constraints`` at the largest depth whose step fits
+    ``SPMD_MOE['budget_gb']`` (two probe depths' peaks, extrapolated), its
+    bound counted on meta at probe depths 1 and 2 and extrapolated (every
+    layer runs the same ops)."""
+    import dataclasses
+
+    torch, m, arch = run.torch, SPMD_MOE, cfg.name
+    run.fresh()
+    params = run.params(cfg)
+    one, ms = run.decode(cfg, params, m["decode_steps"])
+    run.report(f"{arch} decode_32k ({cfg.moe_dispatch} dispatch)", ms,
+               dry[arch, "decode_32k"], f"a step of {cfg.n_layers} layers (after 1 warm-up)")
+    run.profiled(f"{arch} decode_32k step", one)
+    del one, params
+    grouped = dataclasses.replace(cfg, moe_dispatch="grouped", moe_shard_constraints=True)
+    peaks, counts = [], []
+    for n in m["probe_depths"]:
+        c = dataclasses.replace(grouped, n_layers=n)
+        run.fresh()
+        params = run.params(c)
+        run.train(c, params, 1)
+        peaks.append(torch.cuda.max_memory_allocated())
+        counts.append(counted(run.mesh, c, "train_4k"))
+        del params
+    (n1, n2), (p1, p2) = m["probe_depths"], peaks
+    per_layer = (p2 - p1) / (n2 - n1)
+    depth = min(cfg.n_layers, int((m["budget_gb"] * 1e9 - p1) // per_layer) + n1)
+    log(f"  {arch} train_4k (grouped dispatch, moe_shard_constraints): peak "
+        f"{p1 / 1e9:.3f} / {p2 / 1e9:.3f} GB at {n1} / {n2} layers, {per_layer / 1e9:.3f} GB a "
+        f"layer: cut to {depth} of {cfg.n_layers} layers (a budget of {m['budget_gb']} GB)")
+
+    def at_depth(key):
+        a, b = (c["roofline"][key] if key in c["roofline"] else c["memory"][key]
+                for c in counts)
+        return a + (depth - n1) * (b - a) / (n2 - n1)
+
+    rec = {"roofline": {k: at_depth(k) for k in ("compute_s", "memory_s")},
+           "memory": {"argument_size_in_bytes": at_depth("argument_size_in_bytes")}}
+    c = dataclasses.replace(grouped, n_layers=depth)
+    run.fresh()
+    params = run.params(c)
+    _, ms, _ = run.train(c, params, m["train_steps"])
+    run.report(f"{arch} train_4k at {depth} layers (grouped dispatch)", ms, rec,
+               f"{c.optimizer}, remat {c.remat_policy!r}, a step (after 1 warm-up; "
+               f"{m['train_steps']} timed: cut from 2 to keep phase 18 short)")
+    del params
+    run.fresh()
+
+
+def spmd_rank_main(rank: int, world: int, directory: str, cases: str) -> int:
     """One rank of phase 18 (c), on its own card: ``spmd_vs_plain`` on a
-    (2, world/2) NCCL mesh ((1, 1) for a world of one); rank 0 writes the
-    summary to ``directory``. ``tests/test_torch_cuda.py`` runs it too."""
+    (2, world/2) NCCL mesh ((1, 1) for a world of one) for the
+    ``SPMD_CASES`` named by the comma-separated indices ``cases``; rank 0
+    writes the summaries to ``directory``. ``tests/test_torch_cuda.py``
+    runs it too."""
     import torch
 
     sys.path.insert(0, str(ROOT / "src"))
@@ -3222,16 +3410,21 @@ def spmd_rank_main(rank: int, world: int, directory: str) -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     shape = (1, 1) if world == 1 else (2, world // 2)
+    lines = []
     with spmd.spmd_mesh(shape, ("data", "model"), backend="nccl", rank=rank,
                         init_dir=directory) as mesh:
-        summary = spmd_vs_plain(torch, mesh, f"cuda:{rank}")
+        for i in (int(c) for c in cases.split(",")):
+            arch, overrides = SPMD_CASES[i]
+            lines.append(f"{case_name(arch, overrides)}: "
+                         f"{spmd_vs_plain(torch, mesh, f'cuda:{rank}', arch, overrides)}")
     if rank == 0:
-        Path(directory, "summary.txt").write_text(summary)
+        Path(directory, "summary.txt").write_text("\n".join(lines))
     return 0
 
 
 def spmd_cards(torch, gpu: str) -> None:
-    """Phase 18 (c): with 2 or more cards, (a) on a (2, n/2) NCCL mesh."""
+    """Phase 18 (c): with 2 or more cards, (a)'s ``SPMD_CARD_CASES`` on a
+    (2, n/2) NCCL mesh."""
     import os
     import tempfile
 
@@ -3242,11 +3435,13 @@ def spmd_cards(torch, gpu: str) -> None:
         return
     world = 2 * (n // 2)
     env = dict(os.environ)
+    cases = ",".join(str(SPMD_CASES.index(c)) for c in SPMD_CARD_CASES)
     with tempfile.TemporaryDirectory() as d:
         t0 = time.perf_counter()
         procs = [subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--spmd-rank",
-                                   str(rk), "--spmd-world", str(world), "--spmd-dir", d],
-                                  cwd=ROOT, env=env) for rk in range(world)]
+                                   str(rk), "--spmd-world", str(world), "--spmd-dir", d,
+                                   "--spmd-cases", cases], cwd=ROOT, env=env)
+                 for rk in range(world)]
         try:
             codes = [p.wait(timeout=SPMD_CARDS_TIMEOUT_S) for p in procs]
         finally:
@@ -3256,9 +3451,10 @@ def spmd_cards(torch, gpu: str) -> None:
                     p.wait()
         if any(codes):
             raise AssertionError(f"(c) ranks exited {codes}")
-        log(f"  (c) reduced {LM_ARCH} on a (2, {world // 2}) NCCL mesh of {world} cards against "
-            f"the plain port: {Path(d, 'summary.txt').read_text()}; "
-            f"{time.perf_counter() - t0:.1f} s  [{gpu}]")
+        for line in Path(d, "summary.txt").read_text().splitlines():
+            log(f"  (c) reduced {line.split(':')[0]} on a (2, {world // 2}) NCCL mesh of {world} "
+                f"cards against the plain port:{line.split(':', 1)[1]}  [{gpu}]")
+        log(f"  (c) {time.perf_counter() - t0:.1f} s")
 
 
 def spmd_phase(torch, gpu: str, dry: dict) -> None:
@@ -3267,12 +3463,14 @@ def spmd_phase(torch, gpu: str, dry: dict) -> None:
 
     from repro_torch.distributed import spmd
 
-    t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as d, \
             spmd.spmd_mesh((1, 1), ("data", "model"), backend="nccl", init_dir=d) as mesh:
-        summary = spmd_vs_plain(torch, mesh, "cuda")
-    log(f"  (a) reduced {LM_ARCH} on a world-1 NCCL mesh of (1, 1) against the plain port on "
-        f"the card: {summary}; {time.perf_counter() - t0:.1f} s  [{gpu}]")
+        for arch, overrides in SPMD_CASES:
+            t0 = time.perf_counter()
+            summary = spmd_vs_plain(torch, mesh, "cuda", arch, overrides)
+            log(f"  (a) reduced {case_name(arch, overrides)} on a world-1 NCCL mesh of (1, 1) "
+                f"against the plain port on the card: {summary}; "
+                f"{time.perf_counter() - t0:.1f} s  [{gpu}]")
     torch.cuda.empty_cache()
     spmd_rank0(torch, gpu, dry)
     torch.cuda.empty_cache()
@@ -3291,12 +3489,15 @@ def main() -> int:
     ap.add_argument("--spmd-rank", type=int, help=argparse.SUPPRESS)
     ap.add_argument("--spmd-world", type=int, help=argparse.SUPPRESS)
     ap.add_argument("--spmd-dir", help=argparse.SUPPRESS)
+    ap.add_argument("--spmd-cases", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
     if args.spmd_rank is not None:
-        return spmd_rank_main(args.spmd_rank, args.spmd_world, args.spmd_dir)
+        return spmd_rank_main(args.spmd_rank, args.spmd_world, args.spmd_dir,
+                              args.spmd_cases or ",".join(
+                                  str(SPMD_CASES.index(c)) for c in SPMD_CARD_CASES))
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import build, ops
     from repro_torch.kernels import mscm_kernel as mk

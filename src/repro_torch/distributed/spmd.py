@@ -359,19 +359,83 @@ def split_dim(x: DTensor, dim: int, outer: int) -> DTensor:
                                                for i, p in enumerate(x.placements)))
 
 
-def sharding_dims(x: DTensor, dim: int) -> Tuple[int, ...]:
-    """The mesh dims that shard tensor dim ``dim`` of ``x``."""
-    return tuple(i for i, p in enumerate(x.placements) if isinstance(p, Shard) and p.dim == dim)
+def sharding_dims(x: DTensor | Sequence[Placement], dim: int) -> Tuple[int, ...]:
+    """The mesh dims that shard tensor dim ``dim`` of ``x`` (a DTensor, or
+    its placements; ``dim`` counted from the front)."""
+    places = x.placements if isinstance(x, DTensor) else x
+    return tuple(i for i, p in enumerate(places) if isinstance(p, Shard) and p.dim == dim)
 
 
 def reduce_over(local: torch.Tensor, rows: Sequence[Placement], dims: Sequence[int],
-                mesh: DeviceMesh) -> DTensor:
-    """``local``, this rank's part of a sum over the mesh dims ``dims``,
-    summed over them (an all-reduce; differentiable): a DTensor placed as
-    ``rows`` elsewhere. The explicit reduction after a local pick."""
-    places = tuple(Partial() if i in dims else rows[i] for i in range(mesh.ndim))
+                mesh: DeviceMesh, op: str = "sum") -> DTensor:
+    """``local``, this rank's part of a reduction (``op``: ``"sum"`` or
+    ``"max"``) over the mesh dims ``dims``, reduced over them (an
+    all-reduce; differentiable): a DTensor placed as ``rows`` elsewhere. The
+    explicit reduction after a local pick."""
+    places = tuple(Partial(op) if i in dims else rows[i] for i in range(mesh.ndim))
     return DTensor.from_local(local, mesh, places, run_check=False).redistribute(
         mesh, tuple(rows))
+
+
+def split_rows(rows: Sequence[Placement]) -> Tuple[int, ...]:
+    """The mesh dims along which ``rows`` (a tensor's placements) shard the
+    rows: where ranks hold different rows, so a weight they all apply has a
+    gradient that is a partial sum over these dims."""
+    return tuple(i for i, p in enumerate(rows) if isinstance(p, Shard))
+
+
+def sequence_placements(shape: Sequence[int], mesh: DeviceMesh) -> Tuple[Placement, ...]:
+    """A ``[B, S, ...]`` activation's batch over the data-parallel axes
+    (:func:`batch_placements`) and its sequence (dim 1) over the model axes,
+    when ``S`` divides them (the reference's sequence-parallel attention);
+    the batch placements alone when it does not."""
+    rows = batch_placements(shape, mesh)
+    model = model_mesh_dims(mesh)
+    size = mesh_size(mesh, model)
+    if len(shape) < 2 or not model or shape[1] % size or shape[1] < size:
+        return rows
+    return tuple(Shard(1) if i in model else p for i, p in enumerate(rows))
+
+
+def local_block(t: DTensor, places: Sequence[Placement], *,
+                grad_partial: Sequence[int] = ()) -> torch.Tensor:
+    """This rank's block of ``t`` redistributed to ``places``, as a plain
+    tensor whose gradient comes back a partial sum over the mesh dims
+    ``grad_partial`` (ranks along them apply the block to rows of their
+    own) and placed as ``places`` elsewhere. A weight gathered for a product
+    on local rows (``places`` replicated) takes the rows'
+    :func:`split_rows` there."""
+    mesh = t.device_mesh
+    places = tuple(places)
+    if tuple(t.placements) != places:
+        t = t.redistribute(mesh, places)
+    return t.to_local(grad_placements=tuple(Partial() if i in grad_partial else p
+                                            for i, p in enumerate(places)))
+
+
+def from_block(local: torch.Tensor, mesh: DeviceMesh, places: Sequence[Placement],
+               shape: Sequence[int]) -> DTensor:
+    """A DTensor of global ``shape`` placed as ``places`` whose block on
+    this rank is ``local`` (differentiable; nothing is sent)."""
+    stride = torch.empty(tuple(shape), device="meta").stride()
+    return DTensor.from_local(local, mesh, tuple(places), run_check=False,
+                              shape=torch.Size(shape), stride=stride)
+
+
+def exclusive_scan(counts: torch.Tensor, dims: Sequence[int], mesh: DeviceMesh
+                   ) -> torch.Tensor:
+    """The sum of ``counts`` (a plain tensor each rank holds) over the ranks
+    that come before this one along the mesh dims ``dims``, in the order
+    their blocks take in a tensor sharded over them (zeros for the first;
+    ``counts`` itself is left out). One all-gather of ``counts``."""
+    if not dims:
+        return torch.zeros_like(counts)
+    places = tuple(Shard(0) if i in dims else Replicate() for i in range(mesh.ndim))
+    every = DTensor.from_local(counts[None], mesh, places, run_check=False).full_tensor()
+    coord, idx = mesh.get_coordinate(), 0
+    for i in dims:
+        idx = idx * mesh.size(i) + coord[i]
+    return every[:idx].sum(0)
 
 
 def write_block(buf: DTensor, val: torch.Tensor, *, dim: int, start: int) -> None:
@@ -381,9 +445,14 @@ def write_block(buf: DTensor, val: torch.Tensor, *, dim: int, start: int) -> Non
     rank writes the part that falls in its own block, in place, in ``buf``'s
     dtype. Nothing of ``buf`` is gathered."""
     mesh = buf.device_mesh
+    val = replicate_like(val, buf)
+    if start == 0 and tuple(val.shape) == tuple(buf.shape):
+        # the whole of ``buf``: each rank takes its own block of ``val``
+        buf.to_local().copy_(val.redistribute(mesh, buf.placements).to_local())
+        return
     whole = tuple(Replicate() if isinstance(p, Shard) and p.dim == dim else p
                   for p in buf.placements)
-    val = replicate_like(val, buf).redistribute(mesh, whole).to_local()
+    val = val.redistribute(mesh, whole).to_local()
     shape, off = local_shape(buf.shape, mesh, buf.placements)
     n = val.shape[dim]
     lo, hi = max(start, off[dim]), min(start + n, off[dim] + shape[dim])

@@ -9,17 +9,23 @@ per-device program. The port compiles nothing: it runs the cell's step
 tensors under an :class:`~repro_torch.launch.hlo_stats.OpCounter`, which
 counts each op's FLOPs and bytes as PyTorch dispatches it.
 
-For the families whose sharded program is ported (dense GQA decoders:
-``spmd_family``), the step is rank 0's program of the production mesh: a
-DTensor program (:mod:`repro_torch.distributed.spmd`) on a fake process
-group of 256 or 512 ranks, its arguments placed by ``shard_params``,
+For the families whose sharded program is ported (the decoder-only GQA and
+MLA families, dense or MoE: ``spmd_family``), the step is rank 0's program
+of the production mesh: a DTensor program
+(:mod:`repro_torch.distributed.spmd`) on a fake process group of 256 or
+512 ranks, its arguments placed by ``shard_params``,
 ``shard_opt_state``, ``batch_specs`` and ``cache_specs`` as ``meta``
 blocks. The counter sees that rank's local ops and the collectives DTensor
 issues: per-device counts with no even split. The mesh's device type is
 ``"cuda"``, so DTensor issues each collective as it would to NCCL (on a
 ``"cpu"`` mesh it would send an all-to-all as all-gather + chunk). Every
 other family keeps one card's eager count of the whole step split evenly
-over the chips, and its record says so (``"spmd": false``).
+over the chips, and its record says so (``"spmd": false``). An MoE cell's
+record names its dispatch (``moe_dispatch``, ``dispatch_note``).
+
+An MoE cell's ``expert_flops_vs_single_device`` is what its dispatch
+gives its expert FLOPs summed over the ranks, against one device's: the
+data axes' size for global dispatch, 1 for grouped.
 
 The record's keys, against the reference's:
 
@@ -97,20 +103,30 @@ LINK_NOTE = ("collective_s: rank 0's collective operand bytes x chips over NVLin
              "8-card nodes along 'model', so that axis crosses InfiniBand, slower than "
              "this term assumes; collectives as DTensor issues them on a 'cuda' mesh")
 #: The ROADMAP 14d item that ports each family's sharded program.
-NEXT_SLICE = {"mla": "MLA (minicpm3)", "moe": "MoE with expert placement and all-to-all",
-              "ssm": "SSM / hybrid / RWKV states", "hybrid": "SSM / hybrid / RWKV states",
-              "encdec": "enc-dec and VLM", "vlm": "enc-dec and VLM"}
+NEXT_SLICE = {"ssm": "item 1, SSM / hybrid / RWKV states",
+              "hybrid": "item 1, SSM / hybrid / RWKV states",
+              "encdec": "item 2, enc-dec and VLM", "vlm": "item 2, enc-dec and VLM"}
+DISPATCH_NOTE = {
+    "global": ("global dispatch: slots over the whole token stream (each data rank's "
+               "offsets from an exclusive scan of its per-expert counts over the data "
+               "axes), each rank's own experts over the whole capacity holding its own "
+               "pairs: the expert FLOPs are the data axes' size x the single-device "
+               "count, as the reference's _moe_spec keeps cap whole"),
+    "grouped": ("grouped dispatch: per-batch-row queues on each data rank's rows, the "
+                "buffer [B, E, capg, d] with B over data and E over model "
+                "(_moe_spec_grouped)"),
+}
 
 
 def spmd_family(cfg: ArchConfig) -> bool:
-    """Whether ``cfg``'s sharded program is ported: the dense GQA decoders."""
-    return cfg.family == "dense" and cfg.attn_type == "gqa" and not cfg.n_experts
+    """Whether ``cfg``'s sharded program is ported: the decoder-only
+    families with GQA or MLA attention and a dense or MoE FFN."""
+    return cfg.family in ("dense", "moe") and cfg.attn_type in ("gqa", "mla")
 
 
 def _outside_note(cfg: ArchConfig) -> str:
-    key = cfg.attn_type if cfg.attn_type == "mla" else ("moe" if cfg.n_experts else cfg.family)
-    return (f"null: the {cfg.family} family's sharded program is not ported (ROADMAP 14d, "
-            f"{NEXT_SLICE.get(key, key)}); its counts are one card's eager count of the "
+    return (f"null: the {cfg.family} family's sharded program is not ported (ROADMAP 14d "
+            f"{NEXT_SLICE[cfg.family]}); its counts are one card's eager count of the "
             "whole step split evenly over the chips")
 
 
@@ -223,12 +239,19 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str,
         with make_production_spmd_mesh(multi_pod=mesh_kind == "multi") as mesh:
             counter, arg_bytes, run_s = count_rank0(cfg, shape, mesh)
             chips = mesh.size()
+            data = spmd.mesh_size(mesh, spmd.data_mesh_dims(mesh))
         flops_dev, bytes_dev = float(counter.flops), float(counter.bytes)
         coll = counter.collectives
         coll_dev = float(coll["TOTAL"]["operand_bytes"])
         extra = dict(spmd=True, collective_bytes=coll_dev * chips,
                      collective_bytes_per_device=coll_dev, collectives=coll,
                      collective_note=LINK_NOTE)
+        if cfg.n_experts:
+            # global dispatch: each rank's experts over the whole capacity
+            extra.update(moe_dispatch=cfg.moe_dispatch,
+                         dispatch_note=DISPATCH_NOTE[cfg.moe_dispatch],
+                         expert_flops_vs_single_device=(
+                             data if cfg.moe_dispatch == "global" else 1))
     else:
         mesh = make_production_mesh(multi_pod=(mesh_kind == "multi"))
         chips = mesh.devices.size

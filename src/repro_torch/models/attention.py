@@ -20,17 +20,20 @@ clamps it; the mask and the rotary angle use ``pos`` itself.
 
 On DTensors (the LM as one program over a mesh, see
 :mod:`repro_torch.distributed.spmd`) the masks are built as plain tensors
-and made replicated DTensors where they meet one. Full-sequence attention
-runs head-parallel: the key/value heads
+and made replicated DTensors where they meet one. GQA's full-sequence
+attention runs head-parallel: the key/value heads
 are repeated to the query heads so that the head dim can be sharded over
 ``model`` even where ``n_kv_heads`` does not divide it (yi-6b: 4 kv heads,
 16-way ``model``), so each rank holds the scores of its own heads only.
+MLA's runs on local blocks by the reference's ``_attn_act_specs``: by
+heads where they divide ``model``, else by the query sequence with keys
+and values whole on each rank (minicpm3: 40 heads, 16-way ``model``).
 Decode runs flash-decode style on a cache whose sequence dim is sharded
 over ``model``: the query replicated, each rank's scores over its own
 block, the softmax's max and sum reduced across blocks; the new key and
-value are written on the rank that owns slot ``pos``. The reference's
-``_attn_act_specs`` / ``_maybe_constrain`` (off in every config) have no
-counterpart.
+value (MLA: ``c_kv`` and the rotary key) are written on the rank that owns
+slot ``pos``. The reference's ``_maybe_constrain`` calls have no
+counterpart: the layouts are built directly.
 """
 
 from __future__ import annotations
@@ -42,8 +45,9 @@ import torch.nn.functional as F
 from torch.distributed.tensor import DTensor
 
 from repro_torch.distributed import spmd
-from repro_torch.models.common import (ArchConfig, apply_rope, dense_init, dot, einsum,
-                                       full_init, rms_norm, rope_angles, softmax)
+from repro_torch.models.common import (ArchConfig, apply_rope, dense_init, dot,
+                                       dot_by_sequence, einsum, full_init, rms_norm,
+                                       rope_angles, softmax)
 
 NEG = -1e30  # the reference's mask value
 
@@ -325,6 +329,8 @@ def _mla_q(p, x, cfg):
 
 
 def mla_full(p, x: torch.Tensor, cfg: ArchConfig, *, q_offset=0):
+    if isinstance(x, DTensor):
+        return _mla_full_sharded(p, x, cfg, q_offset)
     b, s, _ = x.shape
     h = cfg.n_heads
     nope, rope_d, vd = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
@@ -349,9 +355,79 @@ def mla_full(p, x: torch.Tensor, cfg: ArchConfig, *, q_offset=0):
     return dot(out.reshape(b, s, h * vd), p["wo"]), (ckv, kr[:, :, 0, :])
 
 
+def _mla_full_sharded(p, x: DTensor, cfg: ArchConfig, q_offset):
+    """:func:`mla_full` on DTensors, on each rank's local blocks. The
+    low-rank projections are column-parallel (``c_q``, ``c_kv`` sharded over
+    ``model``; their norms reduce the sum of squares over it), the rotary key
+    is gathered (``[B, S, rope]``) and broadcast to the rank's own heads.
+    The attention follows the reference's ``_attn_act_specs``:
+
+    * the heads divide the model axes: head-parallel, the up-projections
+      column-parallel, each rank attends with its own heads, the output
+      projection row-parallel (a partial sum);
+    * else the sequence divides them: sequence-parallel, the query
+      up-projection on the rank's own sequence block against the whole
+      ``wuq`` (gathered: the ``[B, S, H*(nope+rope)]`` product is never
+      gathered), keys and values whole on each rank (the ``wukv`` product
+      column-parallel, then gathered), each rank's query rows against every
+      key, the output projection on its rows against the whole ``wo``, then
+      gathered; at minicpm3 ``train_4k`` a rank's scores are [16, 40, 256,
+      4096] f32, 2.7 GB, against 43 GB with every head's rows;
+    * else every model rank computes the whole attention of its batch.
+
+    Returns the output placed as the batch (or a partial sum over
+    ``model``) and, for the cache, ``c_kv`` and the rotary key as
+    DTensors."""
+    mesh = x.device_mesh
+    b, s, _ = x.shape
+    h, nope, rope_d, vd = cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    model = spmd.model_mesh_dims(mesh)
+    rows = spmd.batch_placements(x.shape, mesh)
+    cq = rms_norm(dot(x, p["wdq"]), p["q_norm"])
+    ckv = rms_norm(dot(x, p["wdkv"]), p["kv_norm"])
+    pos = torch.arange(s, device=x.device) + int(q_offset)
+    cos, sin = rope_angles(pos, rope_d, cfg.rope_theta)
+    kr = apply_rope(dot(x, p["wkr"]).redistribute(mesh, rows)[:, :, None, :], cos, sin)
+    by_heads = h % spmd.mesh_size(mesh, model) == 0
+    if by_heads:
+        places = tuple(spmd.Shard(2) if i in model else p_ for i, p_ in enumerate(rows))
+        split = model
+    else:
+        places = spmd.sequence_placements(x.shape, mesh)
+        split = spmd.sharding_dims(places, 1)
+    (b_l, s_l, h_l), off = spmd.local_shape((b, s, h), mesh, places)
+    # every rank along ``split`` (other heads, or other query rows) applies
+    # the shared rotary key: its gradient is a partial sum there
+    kr_l = spmd.local_block(kr, rows, grad_partial=split)
+    if by_heads:
+        q_l = dot(cq, p["wuq"]).redistribute(mesh, places).to_local()
+        kv_l = dot(ckv, p["wukv"]).redistribute(mesh, places).to_local()
+    else:
+        q_l = dot_by_sequence(cq, p["wuq"]).to_local()
+        kv_l = spmd.local_block(dot(ckv, p["wukv"]), rows, grad_partial=split)
+    q_l = q_l.reshape(b_l, s_l, h_l, nope + rope_d)
+    kv_l = kv_l.reshape(b_l, s, h_l, nope + vd)
+    q_rope = apply_rope(q_l[..., nope:], cos[off[1]: off[1] + s_l], sin[off[1]: off[1] + s_l])
+    q_l = torch.cat([q_l[..., :nope], q_rope], dim=-1)
+    k_l = torch.cat([kv_l[..., :nope], kr_l.expand(b_l, s, h_l, rope_d)], dim=-1)
+    v_l = kv_l[..., nope:]
+    if cfg.attn_impl == "chunked":
+        out = _chunked_sdpa(q_l, k_l, v_l, q_offset=int(q_offset) + off[1], window=0,
+                            kblock=cfg.attn_kblock, qblock=cfg.attn_qblock,
+                            full_unroll=cfg.unroll_layers)
+    else:
+        mask = causal_window_mask(s, s, q_offset, 0, x.device)[off[1]: off[1] + s_l]
+        out = _attend(q_l, k_l, v_l, mask, scores_bf16=cfg.attn_scores_bf16)
+    out = spmd.from_block(out.reshape(b_l, s_l, h_l * vd), mesh, places, (b, s, h * vd))
+    y = dot(out, p["wo"]) if by_heads else dot_by_sequence(out, p["wo"]).redistribute(mesh, rows)
+    return y, (ckv, kr[:, :, 0, :])
+
+
 def mla_decode(p, x, cache_ckv, cache_kr, pos, cfg: ArchConfig, *, absorb: bool = True):
     """Compressed-cache decode (caches written in place). absorb=True folds
     W_ukv into q/out; absorb=False expands keys/values per step."""
+    if isinstance(cache_ckv, DTensor):
+        return _mla_decode_sharded(p, x, cache_ckv, cache_kr, pos, cfg, absorb=absorb)
     b, _, _ = x.shape
     h = cfg.n_heads
     nope, rope_d, vd = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
@@ -391,3 +467,67 @@ def mla_decode(p, x, cache_ckv, cache_kr, pos, cfg: ArchConfig, *, absorb: bool 
         probs = softmax(scores, -1).to(v.dtype)
         out = einsum("bhqs,bshv->bqhv", probs, v)
     return dot(out.reshape(b, 1, h * vd), p["wo"]), cache_ckv, cache_kr
+
+
+def _mla_decode_sharded(p, x: DTensor, cache_ckv: DTensor, cache_kr: DTensor, pos,
+                        cfg: ArchConfig, *, absorb: bool):
+    """:func:`mla_decode` on DTensors, flash-decode style on the compressed
+    cache (its sequence sharded over ``model`` by ``cache_specs``): the new
+    ``c_kv`` and rotary key written on the rank that owns slot ``pos``; the
+    query's heads gathered (``[B, 1, H*(nope+rope)]``, tiny) and ``wukv``
+    whole; each rank scores its own block of the cache, and the softmax's max
+    and sum, then the context (absorbed) or the output (expanded), are
+    reduced across the blocks. The cache is never gathered. No autograd
+    runs here (serving)."""
+    mesh = cache_ckv.device_mesh
+    b = x.shape[0]
+    h, nope, rope_d, vd = cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    kvr = cfg.kv_lora_rank
+    s_max = cache_ckv.shape[1]
+    pos = int(pos)
+    rows = spmd.batch_placements(x.shape, mesh)
+    cos, sin = rope_angles(torch.tensor([pos], device=x.device), rope_d, cfg.rope_theta)
+    cq = rms_norm(dot(x, p["wdq"]), p["q_norm"])
+    q = dot(cq, p["wuq"]).redistribute(mesh, rows).to_local()
+    q = q.reshape(q.shape[0], 1, h, nope + rope_d)
+    q_nope, q_rope = q[..., :nope], apply_rope(q[..., nope:], cos, sin)
+    ckv_t = rms_norm(dot(x, p["wdkv"]), p["kv_norm"])
+    kr_t = apply_rope(dot(x, p["wkr"])[:, :, None, :], cos, sin)[:, :, 0, :]
+    cache_ckv = _write_slot(cache_ckv, ckv_t, pos)
+    cache_kr = _write_slot(cache_kr, kr_t, pos)
+    seq = spmd.sharding_dims(cache_ckv, 1)
+    c_l, r_l = cache_ckv.to_local(), cache_kr.to_local()
+    (_, s_l, _), off = spmd.local_shape(cache_ckv.shape, mesh, cache_ckv.placements)
+    mask = _decode_mask(s_max, pos, 0, x.device)[off[1]: off[1] + s_l]
+    wukv = p["wukv"].redistribute(mesh, [spmd.Replicate()] * mesh.ndim).to_local()
+    wukv = wukv.reshape(kvr, h, nope + vd)
+    wk, wv = wukv[..., :nope], wukv[..., nope:]
+    scale = torch.sqrt(torch.tensor(float(nope + rope_d), dtype=torch.float32))
+    if absorb:
+        q_eff = einsum("bqhn,chn->bqhc", q_nope, wk)
+        scores = (einsum("bqhc,bsc->bhqs", q_eff, c_l)
+                  + einsum("bqhr,bsr->bhqs", q_rope, r_l)).float() / scale
+        value = c_l
+    else:
+        kv = einsum("bsc,chn->bshn", c_l, wukv)
+        k = torch.cat([kv[..., :nope], r_l[:, :, None, :].expand(*kv.shape[:3], rope_d)],
+                      dim=-1)
+        scores = einsum("bqhd,bshd->bhqs", torch.cat([q_nope, q_rope], dim=-1),
+                        k).float() / scale
+        value = kv[..., nope:]
+    scores = torch.where(mask[None, None, None, :], scores, NEG)
+    # the softmax of ``jax.nn.softmax`` over the whole cache: the max and the
+    # sum of exponentials reduced over the ranks' blocks
+    peak = spmd.reduce_over(scores.amax(-1, keepdim=True), rows, seq, mesh, "max").to_local()
+    e = torch.exp(scores - peak)
+    total = spmd.reduce_over(e.sum(-1, keepdim=True), rows, seq, mesh).to_local()
+    probs = (e / total).to(value.dtype)
+    if absorb:
+        ctx = einsum("bhqs,bsc->bqhc", probs, c_l)
+        ctx = spmd.reduce_over(ctx, rows, seq, mesh).to_local()
+        out = einsum("bqhc,chv->bqhv", ctx, wv)
+    else:
+        out = spmd.reduce_over(einsum("bhqs,bshv->bqhv", probs, value), rows, seq,
+                               mesh).to_local()
+    out = spmd.from_block(out.reshape(out.shape[0], 1, h * vd), mesh, rows, (b, 1, h * vd))
+    return dot(out, p["wo"]), cache_ckv, cache_kr

@@ -92,8 +92,15 @@ class ArchConfig:
     attn_qblock: int = 2048
     # mixed precision: bf16 activations + bf16 weight use (f32 master params)
     activations_bf16: bool = False
-    # Sharding knobs of the reference, kept so configs compare equal; they
-    # have no effect on one card.
+    # Sharding knobs of the reference (its with_sharding_constraint calls
+    # that steer XLA's partitioner), kept so configs compare equal. Neither
+    # changes a value, on one card or on a mesh. On a mesh the port lays
+    # out by the layouts those constraints ask for whatever the knobs say:
+    # MLA's attention by heads over "model" where they divide it, else by
+    # the query sequence (_attn_act_specs); the MoE dispatch buffers with
+    # the experts over "model" where they divide it and, for grouped
+    # dispatch, the batch rows over "data" (_moe_spec_grouped) (see
+    # attention._mla_full_sharded, moe._moe_sharded).
     moe_shard_constraints: bool = False
     attn_act_shard: str = "none"
     # keep attention scores in bf16 end-to-end
@@ -196,6 +203,23 @@ def dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return (a.float() @ b.float()).to(dt)
 
 
+def dot_by_sequence(a: DTensor, w: DTensor) -> DTensor:
+    """``a @ w`` for an activation DTensor ``a`` ``[B, S, k]`` on its
+    sequence blocks (``spmd.sequence_placements``: ``S`` over the model
+    axes) against the whole of a 2-D weight DTensor ``w``, gathered, whose
+    gradient comes back a partial sum over the axes that split ``a``'s
+    rows. For an output dim that does not split into whole blocks over the
+    model axes (MLA's 40 heads on 16; minicpm3's vocab of 73,448): no rank
+    computes or holds all of ``a @ w``. The result is placed as ``a``'s
+    blocks (the batch's placements where ``S`` does not divide)."""
+    mesh = a.device_mesh
+    places = spmd.sequence_placements(a.shape, mesh)
+    a_l = a.redistribute(mesh, places).to_local()
+    w_l = spmd.local_block(w, [spmd.Replicate()] * mesh.ndim,
+                           grad_partial=spmd.split_rows(places))
+    return spmd.from_block(dot(a_l, w_l), mesh, places, (*a.shape[:-1], w.shape[-1]))
+
+
 def einsum(eq: str, *xs: torch.Tensor) -> torch.Tensor:
     """``torch.einsum`` in the promoted dtype of the operands, as :func:`dot`."""
     dt = _promoted(*xs)
@@ -259,13 +283,44 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.T
     norm feeds each block's column-parallel products): a sharded scale (a
     stacked one is sharded over ``model`` by the rules) is gathered, so the
     output keeps ``x``'s placements, and the output's partial gradient is
-    reduced once (``spmd.reduce_grad``)."""
+    reduced once (``spmd.reduce_grad``). Where ``x``'s last dim is itself
+    sharded (MLA's low-rank ``c_q`` and ``c_kv``), see
+    :func:`_rms_norm_sharded`."""
+    if isinstance(x, DTensor) and spmd.sharding_dims(x, x.ndim - 1):
+        return _rms_norm_sharded(x, scale, eps)
     if isinstance(scale, DTensor):
         scale = scale.redistribute(scale.device_mesh, [spmd.Replicate()] * scale.device_mesh.ndim)
     dt = x.dtype
     x = x.float()
     x = x * torch.rsqrt((x * x).mean(-1, keepdim=True) + eps)
     return spmd.reduce_grad((x * scale).to(dt))
+
+
+def _rms_norm_sharded(x: DTensor, scale: DTensor, eps: float) -> DTensor:
+    """:func:`rms_norm` of ``x`` whose last dim is sharded, on each rank's
+    block: its sum of squares reduced over the mesh dims that shard that dim
+    (an all-reduce of ``[..., 1]``), the block normalized and times the
+    matching block of ``scale``; placed as ``x``. Left to DTensor's
+    propagation, the backward came back with the rows sharded over ``model``
+    and, on a (pod, data, model) mesh, the weight gradient upstream
+    computed whole on every model rank."""
+    mesh = x.device_mesh
+    last = x.ndim - 1
+    over = spmd.sharding_dims(x, last)
+    lead = tuple(spmd.Replicate() if i in over else p for i, p in enumerate(x.placements))
+    x_l = x.to_local()
+    dt = x_l.dtype
+    xf = x_l.float()
+    # every block's share of the loss reads the whole sum: its gradient is a
+    # partial sum over ``over``, reduced in the backward of the all-reduce
+    ss = spmd.reduce_over((xf * xf).sum(-1, keepdim=True), lead, over, mesh).to_local(
+        grad_placements=tuple(spmd.Partial() if i in over else p for i, p in enumerate(lead)))
+    rows = tuple(i for i, p in enumerate(x.placements) if isinstance(p, spmd.Shard)
+                 and p.dim != last)
+    s_l = spmd.local_block(scale, tuple(spmd.Shard(0) if i in over else spmd.Replicate()
+                                        for i in range(mesh.ndim)), grad_partial=rows)
+    out = (xf * torch.rsqrt(ss / x.shape[-1] + eps) * s_l).to(dt)
+    return spmd.from_block(out, mesh, x.placements, x.shape)
 
 
 def rope_angles(positions: torch.Tensor, dim: int, theta: float
@@ -338,13 +393,17 @@ def _sharded_nll(logits: DTensor, targets: torch.Tensor) -> DTensor:
     sharded over ``model``, without gathering them (``[B, S, V]`` is 16.8 GB
     a device at yi-6b ``train_4k``): a local max, sum of exponentials and
     gold pick (on the rank that owns the target id, zero elsewhere), each
-    reduced over the vocab's mesh dims. The result is placed as the batch."""
+    reduced over the vocab's mesh dims. Where the vocab does not divide
+    ``model`` the logits keep the sequence blocks they come in
+    (``dot_by_sequence``). The result is placed as the batch (or those
+    blocks)."""
     mesh = logits.device_mesh
-    rows = spmd.batch_placements(logits.shape, mesh)
+    last = logits.ndim - 1
+    rows = tuple(p if isinstance(p, spmd.Shard) and p.dim < last else b
+                 for p, b in zip(logits.placements, spmd.batch_placements(logits.shape, mesh)))
     vocab = spmd.model_mesh_dims(mesh)
     if logits.shape[-1] % spmd.mesh_size(mesh, vocab):
         vocab = ()
-    last = logits.ndim - 1
     logits = logits.redistribute(mesh, tuple(spmd.Shard(last) if i in vocab else rows[i]
                                              for i in range(mesh.ndim)))
     targets = (targets.redistribute(mesh, rows) if isinstance(targets, DTensor)

@@ -29,7 +29,11 @@ parameters are DTensors (:mod:`repro_torch.distributed.spmd`, placed by the
 sharding rules): the layer loops pin their activations as the reference's
 ``_shard_act`` does, the embedding and the loss work on vocab-sharded
 tables and logits with explicit reductions, and the cache's sequence blocks
-are written on the rank that owns them. Each entry point (``forward_train``,
+are written on the rank that owns them. MLA attention and the MoE FFN
+have DTensor paths of their own (``attention._mla_full_sharded`` /
+``_mla_decode_sharded``, ``moe._moe_sharded``); the MoE layer's aux loss
+(a DTensor over the global token set) is summed over the layers as the
+plain path sums it. Each entry point (``forward_train``,
 ``loss_fn``, ``prefill``, ``decode_step``) runs its body under
 ``spmd.program``: ``implicit_replication()``, so that the plain scalars and
 tensors it makes act as replicated. The ones autograd saves for the backward,
@@ -56,8 +60,8 @@ from repro_torch.models import attention as attn_lib
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.common import (ArchConfig, apply_rope, checkpoint_name,
-                                       cross_entropy_loss, dense_init, dot, full_init,
-                                       rms_norm, rope_angles, silu)
+                                       cross_entropy_loss, dense_init, dot, dot_by_sequence,
+                                       full_init, rms_norm, rope_angles, silu)
 
 Params = Dict[str, Any]
 Device = Optional[str | torch.device]
@@ -395,7 +399,13 @@ def _encoder_stack(cfg: ArchConfig, params: Params, src: torch.Tensor) -> torch.
 
 
 def _logits(cfg: ArchConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
+    """The head's logits; on DTensors whose vocab does not divide the
+    model axes (minicpm3's 73,448 on 16), on each rank's sequence block
+    (``dot_by_sequence``) rather than the whole ``[B, S, V]`` on every rank
+    (19 GB at minicpm3 ``train_4k``)."""
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    if isinstance(head, DTensor) and not spmd.sharding_dims(head, 1):
+        return dot_by_sequence(x, head).float()
     return dot(x, head).float()
 
 

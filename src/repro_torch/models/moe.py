@@ -15,6 +15,10 @@ order among ties.
 
 ``moe_dense_ref`` (all experts, dense) is the smoke-test oracle: with ample
 capacity the two agree.
+
+On DTensors (the LM over a mesh) :func:`moe_ffn` runs each rank's own
+experts on its own rows' pairs, with the plain path's slots, so the same
+pairs drop (:func:`_moe_sharded`).
 """
 
 from __future__ import annotations
@@ -24,8 +28,10 @@ from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from repro_torch.core.beam import topk_canonical
+from repro_torch.distributed import spmd
 from repro_torch.models.common import (ArchConfig, checkpoint_name, dense_init, dot, einsum,
                                        silu, softmax)
 
@@ -119,6 +125,8 @@ def moe_ffn_grouped(p, x: torch.Tensor, cfg: ArchConfig) -> Tuple[torch.Tensor, 
 
 def moe_ffn(p, x: torch.Tensor, cfg: ArchConfig) -> Tuple[torch.Tensor, torch.Tensor]:
     """x [B, S, d] -> (y [B, S, d], aux_loss scalar)."""
+    if isinstance(x, DTensor):
+        return _moe_sharded(p, x, cfg)
     if cfg.moe_dispatch == "grouped":
         return moe_ffn_grouped(p, x, cfg)
     b, s, d = x.shape
@@ -147,6 +155,147 @@ def moe_ffn(p, x: torch.Tensor, cfg: ArchConfig) -> Tuple[torch.Tensor, torch.Te
     y_tok = flat_out[dest] * (w.reshape(-1)[:, None] * keep[:, None]).to(x.dtype)
     y = _sum_over_k(y_tok, k)
     return y.reshape(b, s, d), _aux_loss(idx, probs, e, k)
+
+
+def _dispatch_slots(flat_e: torch.Tensor, e: int, cap: int, scan, mesh):
+    """(slot, keep) of each local (token, expert) pair of ``flat_e``
+    ``[G, N]``: its place in its expert's queue along its row, plus (a
+    global queue, G = 1) the pairs of that expert on the ranks before this
+    one along the mesh dims ``scan`` (``spmd.exclusive_scan`` of the
+    per-expert counts); kept while under ``cap``."""
+    slot = _queue_slots(flat_e, e, dim=1)
+    if scan:
+        before = spmd.exclusive_scan(F.one_hot(flat_e[0], e).sum(0), scan, mesh)
+        slot = slot + before[flat_e]
+    return slot, slot < cap
+
+
+def _expert_blocks(p, mesh, rows):
+    """Each rank's blocks of the expert weights for a product on its own
+    rows: gathered over the data axes (their FSDP shard; the gradient comes
+    back a partial sum over the axes that split the rows), and over the
+    model axes either the rank's own experts (``E`` divides them: the rules
+    place the experts there) or, for every expert, its slice of ``ff``
+    (``w1`` / ``w3`` column-, ``w2`` row-parallel; grok's 8 experts on 16).
+    Returns (w1, w3, w2, the first own expert, experts the rank holds)."""
+    model = spmd.model_mesh_dims(mesh)
+    e = p["w1"].shape[0]
+    by_expert = bool(model) and all(isinstance(p["w1"].placements[i], spmd.Shard)
+                                    and p["w1"].placements[i].dim == 0 for i in model)
+    split = spmd.split_rows(rows)
+
+    def block(w, dim):
+        places = tuple(spmd.Shard(0 if by_expert else dim) if i in model else spmd.Replicate()
+                       for i in range(mesh.ndim))
+        return spmd.local_block(w, places, grad_partial=split)
+
+    w1, w3, w2 = block(p["w1"], 2), block(p["w3"], 2), block(p["w2"], 1)
+    if not by_expert:
+        return w1, w3, w2, 0, e
+    (n, _, _), (first, _, _) = spmd.local_shape(p["w1"].shape, mesh, tuple(
+        spmd.Shard(0) if i in model else spmd.Replicate() for i in range(mesh.ndim)))
+    return w1, w3, w2, first, n
+
+
+def _moe_sharded(p, x: DTensor, cfg: ArchConfig) -> Tuple[DTensor, DTensor]:
+    """:func:`moe_ffn` on DTensors, on each rank's local blocks.
+
+    The router's logits (sharded over ``E`` with the router) are gathered,
+    and every rank of a data group routes its tokens, with the plain path's
+    top-k. Each rank then runs its own experts (or its ``ff`` slice of
+    every expert, see :func:`_expert_blocks`) on the (token, expert) pairs
+    of its own rows; a pair routed to an expert of another model rank goes
+    to the scratch row. The outputs are a partial sum over the model axes,
+    reduced by the caller with the rest of the layer's.
+
+    Queue slots are the plain path's. ``grouped``: per batch row, so local
+    to a data rank. ``global``: over the whole token stream, whose blocks
+    the data ranks hold in order: each rank counts its pairs per expert, an
+    exclusive scan of those counts over the data ranks gives its offsets,
+    and its slots are its local slots plus them, the global cumsum; the
+    same pairs drop. Each rank's dispatch buffer is the reference's
+    ``[E, cap, d]`` (its own experts) holding its own pairs at their global
+    slots, zeros elsewhere, so the buffers of a model rank's data group sum
+    to the reference's (a partial sum over data: the reference's
+    ``_moe_spec`` keeps ``cap`` whole too). Its expert FLOPs are those of
+    the whole capacity, the data axes' size x the single-device count;
+    grouped dispatch's buffer is ``[B, E, capg, d]`` with the batch over
+    data and the experts over model (``_moe_spec_grouped``), no more than
+    the single-device count. The buffers ``moe_xin`` / ``moe_out`` are
+    DTensors in those placements, where a remat policy sees them.
+
+    The aux loss's means run over the global token set (reduced over data).
+    """
+    mesh = x.device_mesh
+    b, s, d = x.shape
+    e, k = cfg.n_experts, cfg.experts_per_token
+    model = spmd.model_mesh_dims(mesh)
+    x = spmd.activation_placements(x)
+    rows = spmd.batch_placements(x.shape, mesh)
+    split = spmd.split_rows(rows)
+    logits = dot(x.reshape(b * s, d), p["router"]).float().redistribute(mesh, rows)
+    probs = softmax(logits, -1)                                 # [T, E], a DTensor
+    # the routing weights feed each rank's own experts' outputs (a partial
+    # sum over the model axes); the aux loss reads ``probs`` as it is
+    probs_l = spmd.local_block(probs, rows, grad_partial=model)
+    x_l = spmd.local_block(x, rows, grad_partial=model)         # [B_l, S, d]
+    b_l = x_l.shape[0]
+    t_l = b_l * s
+    experts = torch.arange(e, device=x_l.device).expand_as(probs_l)
+    idx, w = topk_canonical(probs_l, experts, k)                # [T_l, K]
+    w = w / torch.clamp(w.sum(-1, keepdim=True), min=1e-9)
+    w1, w3, w2, first, n_own = _expert_blocks(p, mesh, rows)
+    grouped = cfg.moe_dispatch == "grouped"
+    if grouped:
+        cap = max(1, math.ceil(s * k * cfg.capacity_factor / e))
+        flat_e = idx.reshape(b_l, s * k)
+    else:
+        cap = moe_capacity(b * s, cfg)
+        flat_e = idx.reshape(1, t_l * k)
+    slot, keep = _dispatch_slots(flat_e, e, cap, () if grouped else split, mesh)
+    own = (flat_e >= first) & (flat_e < first + n_own)
+    scratch = n_own * cap
+    dest = torch.where(keep & own, (flat_e - first) * cap + slot,
+                       torch.full_like(flat_e, scratch))            # [G, N]
+    g = dest.shape[0]
+    dest = dest.reshape(g, -1, k)                                   # [G, tokens, K]
+    at = torch.arange(g, device=x_l.device)[:, None, None]
+    buf = torch.zeros((g, scratch + 1, d), dtype=x_l.dtype, device=x_l.device)
+    # each token broadcast to its K pairs (not copied K times)
+    buf[at, dest] = x_l.reshape(g, -1, 1, d)
+    xin = buf[:, :scratch].reshape(g, n_own, cap, d)
+    # the buffers as DTensors of the reference's [B, E, capg, d] / [E, cap, d]
+    if grouped:
+        lead, shape = rows, (b, e, cap, d)
+    else:
+        lead = tuple(spmd.Partial() if i in split else spmd.Replicate()
+                     for i in range(mesh.ndim))
+        shape = (1, e, cap, d)
+    places = tuple(spmd.Shard(1) if i in model and n_own < e else lead[i]
+                   for i in range(mesh.ndim))
+    xin = checkpoint_name(spmd.from_block(xin, mesh, places, shape), "moe_xin").to_local()
+    h = silu(einsum("becd,edf->becf", xin, w1)) * einsum("becd,edf->becf", xin, w3)
+    out_e = einsum("becf,efd->becd", h, w2)
+    out_places = tuple(spmd.Partial() if i in model and n_own == e else p_
+                       for i, p_ in enumerate(places))
+    out_e = checkpoint_name(spmd.from_block(out_e, mesh, out_places, shape),
+                            "moe_out").to_local()
+    flat_out = torch.cat([out_e.reshape(g, scratch, d),
+                          torch.zeros((g, 1, d), dtype=out_e.dtype, device=x_l.device)], dim=1)
+    # the plain path's weighted sum over k, one pair's [G, tokens, d] at a time
+    scale = (w.reshape(g, -1, k) * keep.reshape(g, -1, k)).to(x_l.dtype)
+    y = torch.zeros((g, dest.shape[1], d), dtype=out_e.dtype, device=x_l.device)
+    for j in range(k):
+        y = y + flat_out[at[..., 0], dest[..., j]] * scale[..., j, None]
+    y = y.reshape(b_l, s, d)
+    partial = tuple(spmd.Partial() if i in model else p_ for i, p_ in enumerate(rows))
+    y = spmd.from_block(y, mesh, partial, (b, s, d))
+    # Switch-style aux loss over the global token set
+    counts = F.one_hot(idx, e).float().sum(1).sum(0)               # [E]
+    frac_tokens = spmd.reduce_over(counts, [spmd.Replicate()] * mesh.ndim, split,
+                                   mesh) / (b * s * k)
+    aux = e * torch.sum(frac_tokens * probs.mean(0))
+    return y, aux
 
 
 def moe_dense_ref(p, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:

@@ -25,7 +25,9 @@ where autograd leaves a partial sum), and the state follows
 ``shard_opt_state``, so each rank updates its own blocks. The reductions
 that span a leaf (AdamW's global norm, Adafactor's factored means and its
 whole-leaf RMS) are DTensor reductions: partial sums over the sharded dims,
-reduced over every mesh axis they span.
+reduced over every mesh axis they span: an MoE expert leaf ``[L, E, d, ff]``
+is sharded on two of its dims (experts and ``d``, or ``d`` and ``ff``), and
+its factored row and column means and whole-leaf RMS reduce over both.
 """
 
 from __future__ import annotations

@@ -1121,11 +1121,12 @@ def test_lm_tree_head_example_on_card(cuda_device):
 
 # -- the LM as one program over a mesh (chip_smoke.py phase 18) ---------------
 
-def _spmd_world(n: int, tmp_path) -> str:
-    """``chip_smoke.py``'s phase 18 check (reduced yi-6b's sharded train
+def _spmd_world(n: int, tmp_path, cases: str | None = None) -> str:
+    """``chip_smoke.py``'s phase 18 check (reduced configs' sharded train
     step, prefill and decode against the plain port, ``SPMD_TOL``) in ``n``
-    processes, one card each, on a (1, 1) or (2, n/2) NCCL mesh; rank 0's
-    summary."""
+    processes, one card each, on a (1, 1) or (2, n/2) NCCL mesh, for the
+    ``SPMD_CASES`` indices ``cases`` (default: ``SPMD_CARD_CASES``); rank
+    0's summary, a line a case."""
     import os
     import subprocess
     import sys
@@ -1133,9 +1134,10 @@ def _spmd_world(n: int, tmp_path) -> str:
 
     root = Path(__file__).resolve().parents[1]
     env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    extra = [] if cases is None else ["--spmd-cases", cases]
     procs = [subprocess.Popen([sys.executable, str(root / "chip_smoke.py"), "--spmd-rank",
-                               str(r), "--spmd-world", str(n), "--spmd-dir", str(tmp_path)],
-                              cwd=root, env=env) for r in range(n)]
+                               str(r), "--spmd-world", str(n), "--spmd-dir", str(tmp_path)]
+                              + extra, cwd=root, env=env) for r in range(n)]
     try:
         codes = [p.wait(timeout=600) for p in procs]
     finally:
@@ -1149,12 +1151,35 @@ def _spmd_world(n: int, tmp_path) -> str:
     return summary
 
 
+@pytest.mark.cuda
 def test_spmd_world_of_one_matches_plain(cuda_device, tmp_path):
     assert "no gradient off its parameter's placements" in _spmd_world(1, tmp_path)
 
 
+#: ``chip_smoke.SPMD_CASES`` past the first (yi-6b): MLA with the expanded and
+#: the absorbed decode, qwen3-moe at capacity_factor 1.0 with global and with
+#: grouped dispatch, grok with 3 experts.
+SPMD_FAMILY_CASES = {"minicpm3": 1, "minicpm3-absorb": 2, "qwen3-moe-global": 3,
+                     "qwen3-moe-grouped": 4, "grok-e3": 5}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SPMD_FAMILY_CASES)
+def test_spmd_world_of_one_matches_plain_families(cuda_device, tmp_path, case):
+    """Phase 18 (a) for the MLA and MoE families on a world-1 NCCL mesh:
+    each reduced config's sharded step, prefill and decode against the
+    plain port on the card (``SPMD_TOL``)."""
+    summary = _spmd_world(1, tmp_path, str(SPMD_FAMILY_CASES[case]))
+    assert "no gradient off its parameter's placements" in summary
+
+
+@pytest.mark.cuda
 def test_spmd_two_cards_match_plain(cuda_device, tmp_path):
+    """(c): reduced yi-6b, minicpm3 and qwen3-moe on a (2, n/2) NCCL mesh."""
     n = torch.cuda.device_count()
     if n < 2:
         pytest.skip("needs 2 or more cards (NCCL puts no two ranks on one card)")
-    assert "greedy tokens decided" in _spmd_world(2 * (n // 2), tmp_path)
+    lines = _spmd_world(2 * (n // 2), tmp_path).splitlines()
+    assert [ln.split(":")[0].split(",")[0] for ln in lines] == [
+        "yi-6b", "minicpm3-4b", "qwen3-moe-235b-a22b"]
+    assert all("greedy tokens decided" in ln for ln in lines)

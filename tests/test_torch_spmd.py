@@ -286,16 +286,16 @@ def _env():
     return env
 
 
-def _wait(procs, what):
-    """Join every process within ``WORLD_TIMEOUT_S``; kill the rest and fail."""
-    deadline = time.monotonic() + WORLD_TIMEOUT_S
+def _wait(procs, what, timeout: float = WORLD_TIMEOUT_S):
+    """Join every process within ``timeout`` seconds; kill the rest and fail."""
+    deadline = time.monotonic() + timeout
     failed = []
     try:
         for name, p in procs:
             try:
                 p.wait(timeout=max(deadline - time.monotonic(), 1))
             except subprocess.TimeoutExpired:
-                failed.append(f"{name}: timed out after {WORLD_TIMEOUT_S} s")
+                failed.append(f"{name}: timed out after {timeout} s")
                 continue
             if p.returncode:
                 failed.append(f"{name}: exit {p.returncode}\n{p.stderr.read()[-4000:]}")
