@@ -10,7 +10,8 @@ tensors under an :class:`~repro_torch.launch.hlo_stats.OpCounter`, which
 counts each op's FLOPs and bytes as PyTorch dispatches it.
 
 For the families whose sharded program is ported (the decoder-only GQA and
-MLA families, dense or MoE: ``spmd_family``), the step is rank 0's program
+MLA families, dense or MoE, the SSM family (RWKV6) and the hybrid one
+(hymba): ``spmd_family``), the step is rank 0's program
 of the production mesh: a DTensor program
 (:mod:`repro_torch.distributed.spmd`) on a fake process group of 256 or
 512 ranks, its arguments placed by ``shard_params``,
@@ -21,7 +22,11 @@ issues: per-device counts with no even split. The mesh's device type is
 ``"cpu"`` mesh it would send an all-to-all as all-gather + chunk). Every
 other family keeps one card's eager count of the whole step split evenly
 over the chips, and its record says so (``"spmd": false``). An MoE cell's
-record names its dispatch (``moe_dispatch``, ``dispatch_note``).
+record names its dispatch (``moe_dispatch``, ``dispatch_note``); an SSM or
+hybrid cell's names where its scan runs (``ssm_scan``, ``scan_note``: by
+heads over ``model``, or replicated over it where the heads do not divide
+it), and a cell whose GQA attention cannot split by heads names its
+sequence-parallel layout (``attention``).
 
 An MoE cell's ``expert_flops_vs_single_device`` is what its dispatch
 gives its expert FLOPs summed over the ranks, against one device's: the
@@ -103,9 +108,7 @@ LINK_NOTE = ("collective_s: rank 0's collective operand bytes x chips over NVLin
              "8-card nodes along 'model', so that axis crosses InfiniBand, slower than "
              "this term assumes; collectives as DTensor issues them on a 'cuda' mesh")
 #: The ROADMAP 14d item that ports each family's sharded program.
-NEXT_SLICE = {"ssm": "item 1, SSM / hybrid / RWKV states",
-              "hybrid": "item 1, SSM / hybrid / RWKV states",
-              "encdec": "item 2, enc-dec and VLM", "vlm": "item 2, enc-dec and VLM"}
+NEXT_SLICE = {"encdec": "item 2, enc-dec and VLM", "vlm": "item 2, enc-dec and VLM"}
 DISPATCH_NOTE = {
     "global": ("global dispatch: slots over the whole token stream (each data rank's "
                "offsets from an exclusive scan of its per-expert counts over the data "
@@ -120,8 +123,32 @@ DISPATCH_NOTE = {
 
 def spmd_family(cfg: ArchConfig) -> bool:
     """Whether ``cfg``'s sharded program is ported: the decoder-only
-    families with GQA or MLA attention and a dense or MoE FFN."""
-    return cfg.family in ("dense", "moe") and cfg.attn_type in ("gqa", "mla")
+    families with GQA or MLA attention and a dense or MoE FFN, RWKV6 and
+    hymba."""
+    return cfg.family in ("ssm", "hybrid") or (
+        cfg.family in ("dense", "moe") and cfg.attn_type in ("gqa", "mla"))
+
+
+def _layout_notes(cfg: ArchConfig, shape: ShapeSpec, model: int) -> Dict[str, Any]:
+    """The record's notes on where an SSM / hybrid cell's scan runs and how
+    a GQA cell's full attention splits over the ``model`` axis of size
+    ``model``."""
+    notes: Dict[str, Any] = {}
+    if cfg.family in ("ssm", "hybrid"):
+        h = cfg.ssm_heads
+        split = h % model == 0 and h >= model
+        notes["ssm_scan"] = "by_heads" if split else "replicated_over_model"
+        notes["scan_note"] = (
+            f"{h} {'RWKV' if cfg.family == 'ssm' else 'SSD'} heads on a {model}-way model "
+            + (f"axis: each rank scans its {h // model} heads of its own batch rows"
+               if split else "axis do not divide it: each model rank scans every head of "
+               "its own batch rows, the scan replicated over the model axis"))
+    if cfg.attn_type == "gqa" and shape.kind != "decode" and cfg.n_heads % model:
+        notes["attention"] = (
+            f"sequence-parallel: {cfg.n_heads} query heads do not divide the {model}-way model "
+            f"axis; each rank attends with its {shape.seq_len // model} query rows against "
+            "every key (_attn_act_specs)")
+    return notes
 
 
 def _outside_note(cfg: ArchConfig) -> str:
@@ -240,6 +267,7 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str,
             counter, arg_bytes, run_s = count_rank0(cfg, shape, mesh)
             chips = mesh.size()
             data = spmd.mesh_size(mesh, spmd.data_mesh_dims(mesh))
+            model = spmd.mesh_size(mesh, spmd.model_mesh_dims(mesh))
         flops_dev, bytes_dev = float(counter.flops), float(counter.bytes)
         coll = counter.collectives
         coll_dev = float(coll["TOTAL"]["operand_bytes"])
@@ -252,6 +280,7 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str,
                          dispatch_note=DISPATCH_NOTE[cfg.moe_dispatch],
                          expert_flops_vs_single_device=(
                              data if cfg.moe_dispatch == "global" else 1))
+        extra.update(_layout_notes(cfg, shape, model))
     else:
         mesh = make_production_mesh(multi_pod=(mesh_kind == "multi"))
         chips = mesh.devices.size

@@ -20,14 +20,14 @@ clamps it; the mask and the rotary angle use ``pos`` itself.
 
 On DTensors (the LM as one program over a mesh, see
 :mod:`repro_torch.distributed.spmd`) the masks are built as plain tensors
-and made replicated DTensors where they meet one. GQA's full-sequence
-attention runs head-parallel: the key/value heads
-are repeated to the query heads so that the head dim can be sharded over
-``model`` even where ``n_kv_heads`` does not divide it (yi-6b: 4 kv heads,
-16-way ``model``), so each rank holds the scores of its own heads only.
-MLA's runs on local blocks by the reference's ``_attn_act_specs``: by
-heads where they divide ``model``, else by the query sequence with keys
-and values whole on each rank (minicpm3: 40 heads, 16-way ``model``).
+and made replicated DTensors where they meet one. GQA's and MLA's
+full-sequence attention follow the reference's ``_attn_act_specs``: by
+heads where the query heads divide ``model``, else by the query sequence
+with keys and values whole on each rank (hymba: 25 heads, minicpm3: 40, on
+a 16-way ``model``). By heads, GQA's key/value heads are repeated to the
+query heads so that the head dim can be sharded over ``model`` even where
+``n_kv_heads`` does not divide it (yi-6b: 4 kv heads), so each rank holds
+the scores of its own heads only; MLA runs on local blocks.
 Decode runs flash-decode style on a cache whose sequence dim is sharded
 over ``model``: the query replicated, each rank's scores over its own
 block, the softmax's max and sum reduced across blocks; the new key and
@@ -88,6 +88,11 @@ def _sdpa(q, k, v, mask, *, scores_bf16: bool = False) -> torch.Tensor:
                          scores, NEG)
     probs = softmax(scores, -1).to(v.dtype)
     out = einsum("bkgqs,bskd->bqkgd", probs, v)
+    if isinstance(out, DTensor):
+        # reduced over the cache's blocks and placed as the batch: DTensor's
+        # einsum may leave the heads sharded where nothing splits the batch
+        out = out.redistribute(out.device_mesh, spmd.batch_placements(out.shape,
+                                                                      out.device_mesh))
     return out.reshape(b, sq, h, dv)
 
 
@@ -252,7 +257,19 @@ def _heads(t: torch.Tensor, b: int, s: int, n: int, d: int) -> torch.Tensor:
     return t.reshape(b, s, n, d)
 
 
+def _by_sequence(x: DTensor, heads: int) -> bool:
+    """The reference's ``_attn_act_specs`` on ``x`` ``[B, S, d]``: True
+    where the attention goes sequence-parallel, the query heads not
+    dividing the model axes and the sequence dividing them."""
+    mesh = x.device_mesh
+    size = spmd.mesh_size(mesh, spmd.model_mesh_dims(mesh))
+    s = x.shape[1]
+    return not (heads % size == 0 and heads >= size) and s % size == 0 and s >= size and s > 1
+
+
 def gqa_full(p, x: torch.Tensor, cfg: ArchConfig, *, window=0, q_offset=0):
+    if isinstance(x, DTensor) and _by_sequence(x, cfg.n_heads):
+        return _gqa_full_by_sequence(p, x, cfg, window, q_offset)
     b, s, d = x.shape
     h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = _heads(dot(x, p["wq"]), b, s, h, dh)
@@ -268,6 +285,47 @@ def gqa_full(p, x: torch.Tensor, cfg: ArchConfig, *, window=0, q_offset=0):
         mask = causal_window_mask(s, s, q_offset, window, x.device)
         out = _sdpa(q, k, v, mask, scores_bf16=cfg.attn_scores_bf16)
     return dot(out.reshape(b, s, h * dh), p["wo"]), (k, v)
+
+
+def _gqa_full_by_sequence(p, x: DTensor, cfg: ArchConfig, window, q_offset):
+    """:func:`gqa_full` on DTensors where the query heads do not divide the
+    model axes (hymba: 25 heads, 5 kv heads on 16), sequence-parallel as the
+    reference's ``_attn_act_specs`` lays it out: each rank projects its own
+    block of query rows against the whole ``wq`` (``dot_by_sequence``),
+    keys and values are column-parallel and gathered whole on each rank (a
+    model rank's gradient of them is a partial sum), each rank's query rows
+    attend to every key under the causal and window masks sliced at its
+    rows' offset, and the output projection runs on the rank's rows against
+    the whole ``wo``, then is gathered. A rank's scores are ``[B_l, H,
+    S / model, S]``, not ``[B_l, H, S, S]``. Returns the output placed as
+    the batch and the rotated keys and values as DTensors placed as the
+    batch."""
+    mesh = x.device_mesh
+    b, s, _ = x.shape
+    h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    rows = spmd.batch_placements(x.shape, mesh)
+    places = spmd.sequence_placements(x.shape, mesh)
+    split = spmd.sharding_dims(places, 1)
+    (b_l, s_l, _), off = spmd.local_shape((b, s, h * dh), mesh, places)
+    cos, sin = rope_angles(torch.arange(s, device=x.device) + int(q_offset), dh, cfg.rope_theta)
+    q = dot_by_sequence(x, p["wq"]).to_local().reshape(b_l, s_l, h, dh)
+    q = apply_rope(q, cos[off[1]: off[1] + s_l], sin[off[1]: off[1] + s_l])
+    k = spmd.local_block(dot(x, p["wk"]), rows, grad_partial=split).reshape(b_l, s, hkv, dh)
+    v = spmd.local_block(dot(x, p["wv"]), rows, grad_partial=split).reshape(b_l, s, hkv, dh)
+    k = apply_rope(k, cos, sin)
+    if cfg.attn_impl == "chunked":
+        out = _chunked_sdpa(q, k, v, q_offset=int(q_offset) + off[1], window=window,
+                            kblock=cfg.attn_kblock, qblock=cfg.attn_qblock,
+                            full_unroll=cfg.unroll_layers)
+    else:
+        g = h // hkv
+        mask = causal_window_mask(s, s, q_offset, window, x.device)[off[1]: off[1] + s_l]
+        out = _attend(q, *(t[:, :, :, None, :].expand(b_l, s, hkv, g, dh).reshape(b_l, s, h, dh)
+                           for t in (k, v)), mask, scores_bf16=cfg.attn_scores_bf16)
+    out = spmd.from_block(out.reshape(b_l, s_l, h * dh), mesh, places, (b, s, h * dh))
+    y = dot_by_sequence(out, p["wo"]).redistribute(mesh, rows)
+    kv = tuple(spmd.from_block(t, mesh, rows, (b, s, hkv, dh)) for t in (k, v))
+    return y, kv
 
 
 def gqa_decode(p, x: torch.Tensor, cache_k, cache_v, pos, cfg: ArchConfig,

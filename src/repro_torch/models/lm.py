@@ -29,9 +29,15 @@ parameters are DTensors (:mod:`repro_torch.distributed.spmd`, placed by the
 sharding rules): the layer loops pin their activations as the reference's
 ``_shard_act`` does, the embedding and the loss work on vocab-sharded
 tables and logits with explicit reductions, and the cache's sequence blocks
-are written on the rank that owns them. MLA attention and the MoE FFN
-have DTensor paths of their own (``attention._mla_full_sharded`` /
-``_mla_decode_sharded``, ``moe._moe_sharded``); the MoE layer's aux loss
+are written on the rank that owns them. MLA attention, GQA attention whose
+heads do not divide ``model`` (by the query sequence), the MoE FFN and the
+SSM mixers have DTensor paths of their own (``attention._mla_full_sharded``
+/ ``_mla_decode_sharded`` / ``_gqa_full_by_sequence``,
+``moe._moe_sharded``, ``ssm._rwkv_time_mix_sharded`` /
+``_rwkv_channel_mix_sharded`` / ``_ssd_mix_sharded``); the recurrent states
+(RWKV's ``tm_s``, ``tm_x``, ``cm_x``, hymba's ``ssd_s``) are written into
+the cache in ``cache_specs``' placements, each rank its own block
+(``_put``). The MoE layer's aux loss
 (a DTensor over the global token set) is summed over the layers as the
 plain path sums it. Each entry point (``forward_train``,
 ``loss_fn``, ``prefill``, ``decode_step``) runs its body under
@@ -275,9 +281,18 @@ def _attn_block_full(cfg, lp, x, window, q_offset):
         sstate = torch.zeros((x.shape[0], cfg.ssm_heads, cfg.ssm_state, cfg.ssm_head_dim),
                              dtype=torch.float32, device=x.device)
         ssd_out, sstate = ssm_lib.ssd_mix(lp["ssd"], h, sstate, cfg, mode="chunked")
-        out = 0.5 * (out + ssd_out)
+        out = 0.5 * (_alike(out, ssd_out) + _alike(ssd_out, out))
         kv = kv + (sstate,)
     return x + spmd.reduced(out), kv
+
+
+def _alike(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a`` ready to be added to ``b`` (hybrid's two mixers): where both
+    are partial sums placed alike, ``a`` itself, so that their sum is
+    reduced once; otherwise ``a`` reduced."""
+    if isinstance(a, DTensor) and tuple(a.placements) != tuple(b.placements):
+        return spmd.reduced(a)
+    return a
 
 
 def _zero(x: torch.Tensor) -> torch.Tensor:
@@ -300,7 +315,7 @@ def _rwkv_block_full(cfg, lp, x, mode="chunked"):
     tm_s0 = torch.zeros((b, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_head_dim),
                         dtype=torch.float32, device=x.device)
     out, tm_x, tm_s = ssm_lib.rwkv_time_mix(lp["tm"], h, tm_x0, tm_s0, cfg, mode=mode)
-    x = x + out
+    x = x + spmd.reduced(out)
     h2 = rms_norm(x, lp["ln2"])
     cm_x0 = torch.zeros((b, cfg.d_model), dtype=x.dtype, device=x.device)
     out2, cm_x = ssm_lib.rwkv_channel_mix(lp["cm"], h2, cm_x0)
@@ -555,9 +570,8 @@ def _prefill(cfg: ArchConfig, params: Params, batch: Dict[str, torch.Tensor],
                        device=emb.device,
                        mesh=emb.device_mesh if isinstance(emb, DTensor) else None)
     if cfg.family == "ssm":
-        tm_x, tm_s, cm_x = caches
-        cache.update(tm_x=tm_x.to(cache["tm_x"].dtype), tm_s=tm_s,
-                     cm_x=cm_x.to(cache["cm_x"].dtype))
+        for key, val in zip(("tm_x", "tm_s", "cm_x"), caches):
+            _put(cache, key, val)
     else:
         k, v = caches[0], caches[1]
         if cfg.attn_type == "mla":
@@ -568,12 +582,27 @@ def _prefill(cfg: ArchConfig, params: Params, batch: Dict[str, torch.Tensor],
             _place(cache["v"], v)
         extra = 2
         if cfg.family == "hybrid":
-            cache["ssd_s"] = caches[extra]
+            _put(cache, "ssd_s", caches[extra])
             extra += 1
         if cfg.family == "encdec":
             cache["cross_k"] = caches[extra].to(cache["cross_k"].dtype)
             cache["cross_v"] = caches[extra + 1].to(cache["cross_v"].dtype)
     return logits, cache
+
+
+def _put(cache: Dict[str, torch.Tensor], key: str, val: torch.Tensor, layer=None) -> None:
+    """``cache[key]`` (or its layer ``layer``) set to ``val`` in the cache's
+    dtype. Over a mesh the DTensor cache is written in place, each rank its
+    own block in ``cache_specs``' placements (the reference's jitted decode
+    takes the cache ``in_shardings`` them), whatever placements ``val``
+    came in."""
+    buf = cache[key] if layer is None else cache[key][layer]
+    if isinstance(buf, DTensor):
+        spmd.write_block(buf, val, dim=0, start=0)
+    elif layer is None:
+        cache[key] = val.to(buf.dtype)
+    else:
+        cache[key][layer] = val
 
 
 def _place(buf: torch.Tensor, val: torch.Tensor) -> None:
@@ -618,13 +647,12 @@ def _decode_step(cfg: ArchConfig, params: Params, cache: Dict[str, torch.Tensor]
             out, tm_x, tm_s = ssm_lib.rwkv_time_mix(
                 lp["tm"], h, cache["tm_x"][i].to(h.dtype), cache["tm_s"][i], cfg,
                 mode="recurrent")
-            x = x + out
+            x = x + spmd.reduced(out)
             h2 = rms_norm(x, lp["ln2"])
             out2, cm_x = ssm_lib.rwkv_channel_mix(lp["cm"], h2, cache["cm_x"][i].to(h2.dtype))
             x = x + out2
-            cache["tm_x"][i] = tm_x
-            cache["tm_s"][i] = tm_s
-            cache["cm_x"][i] = cm_x
+            for key, val in (("tm_x", tm_x), ("tm_s", tm_s), ("cm_x", cm_x)):
+                _put(cache, key, val, i)
             continue
         h = rms_norm(x, lp["ln1"])
         if cfg.attn_type == "mla":
@@ -635,9 +663,9 @@ def _decode_step(cfg: ArchConfig, params: Params, cache: Dict[str, torch.Tensor]
                                             pos, cfg, window=w)
         if cfg.family == "hybrid":
             sout, ss = ssm_lib.ssd_mix(lp["ssd"], h, cache["ssd_s"][i], cfg, mode="recurrent")
-            cache["ssd_s"][i] = ss
-            out = 0.5 * (out + sout)
-        x = x + out
+            _put(cache, "ssd_s", ss, i)
+            out = 0.5 * (_alike(out, sout) + _alike(sout, out))
+        x = x + spmd.reduced(out)
         if use_cross:
             cp = _cast_layer(cfg, cross[i])
             x, _, _ = _cross_attn(cfg, cp, x, None,

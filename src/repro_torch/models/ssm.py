@@ -10,6 +10,10 @@ equivalent forms:
 RWKV6: data-dependent per-channel decay w_t = exp(-exp(·)), data-dependent
 token-shift (ddlerp), per-head bonus u, grouped rms-norm on the output. The
 chunked form rescales k by the within-chunk inverse decay product (chunk 16).
+The token-shift state a block returns (its input's last token) is a copy:
+a view would keep the whole ``[B, T, d]`` input of every layer alive in
+prefill's collected cache (2 x 32 x 1.07 GB at rwkv6-7b's ``prefill_32k``
+on one rank of the (16, 16) mesh).
 
 Mamba2/SSD (hymba's mamba heads): scalar per-head decay, shared B/C
 projections of state size N; the chunked form's decay ratios are <= 1.
@@ -17,15 +21,26 @@ projections of state size N; the chunked form's decay ratios are <= 1.
 Decays and their cumulative products can reach denormal floats, which torch
 keeps and XLA's CPU backend flushes to zero; the two differ there by less
 than 1.2e-38.
+
+On DTensors (the LM as one program over a mesh, placed by the sharding
+rules) the projections run through :func:`dot` (column- or row-parallel as
+the rules place each weight), and the scans run unchanged on each rank's
+local blocks, with no collective inside them: by heads over ``model``
+where ``ssm_heads`` divides it, so the state block ``[B_l, H_l, ...]`` is
+the cache's block (``cache_specs``), else every head on every model rank,
+the scan replicated over ``model`` on the rank's own batch rows
+(:func:`_rwkv_time_mix_sharded`, :func:`_ssd_mix_sharded`).
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
+from repro_torch.distributed import spmd
 from repro_torch.models.common import (ArchConfig, dense_init, dot, einsum, full_init,
                                        normal_init, rms_norm, silu)
 
@@ -87,7 +102,7 @@ def _rwkv_projections(p, x: torch.Tensor, x_prev: torch.Tensor, cfg: ArchConfig)
     z = p["w0"] + dot(torch.tanh(dot(mw, p["ww1"])), p["ww2"])
     logw = -torch.exp(torch.clamp(z.float(), -8.0, 2.0))            # log w <= 0
     logw = logw.reshape(b, t, h, dh)
-    return r, k, v, g, logw, x[:, -1, :]
+    return r, k, v, g, logw, x[:, -1, :].clone()
 
 
 def _rwkv_out(p, o: torch.Tensor, g: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
@@ -155,6 +170,8 @@ def wkv6_chunked(r, k, v, logw, u, state, chunk: int = 16):
 
 def rwkv_time_mix(p, x, x_prev, state, cfg: ArchConfig, *, mode: str = "chunked"):
     """Full time-mix block. Returns (y [B,T,d], new_x_prev, new_state)."""
+    if isinstance(x, DTensor):
+        return _rwkv_time_mix_sharded(p, x, x_prev, state, cfg, mode)
     r, k, v, g, logw, last = _rwkv_projections(p, x, x_prev, cfg)
     fn = wkv6_chunked if mode == "chunked" else wkv6_recurrent
     o, state = fn(r, k, v, logw, p["u"].float(), state)
@@ -177,11 +194,13 @@ def rwkv_channel_mix_init(generator: torch.Generator, cfg: ArchConfig,
 
 def rwkv_channel_mix(p, x, x_prev):
     """y = σ(r) ∘ ((relu(k)²) Wv). Returns (y, new_x_prev)."""
+    if isinstance(x, DTensor):
+        return _rwkv_channel_mix_sharded(p, x, x_prev)
     xs = torch.cat([x_prev[:, None, :], x[:, :-1, :]], dim=1)
     mk = x + (xs - x) * p["mu_k"]
     mr = x + (xs - x) * p["mu_r"]
     k = torch.square(torch.relu(dot(mk, p["wk"])))
-    return torch.sigmoid(dot(mr, p["wr"])) * dot(k, p["wv"]), x[:, -1, :]
+    return torch.sigmoid(dot(mr, p["wr"])) * dot(k, p["wv"]), x[:, -1, :].clone()
 
 
 # ===========================================================================
@@ -270,6 +289,8 @@ def ssd_chunked(xv, B, C, dt, logdecay, D, state, chunk: int = 32):
 
 def ssd_mix(p, x, state, cfg: ArchConfig, *, mode: str = "chunked"):
     """Full SSD head block. Returns (y [B,T,d], new_state)."""
+    if isinstance(x, DTensor):
+        return _ssd_mix_sharded(p, x, state, cfg, mode)
     b, t, d = x.shape
     xv, B, C, dt, logdecay = _ssd_projections(p, x, cfg)
     fn = ssd_chunked if mode == "chunked" else ssd_recurrent
@@ -277,3 +298,170 @@ def ssd_mix(p, x, state, cfg: ArchConfig, *, mode: str = "chunked"):
                   p["D"].float(), state)
     h, dh = cfg.ssm_heads, cfg.ssm_head_dim
     return dot(o.to(x.dtype).reshape(b, t, h * dh), p["wo"]), state
+
+
+# ===========================================================================
+# the mixers on DTensors (the LM as one program over a mesh)
+# ===========================================================================
+
+def _layout(x: DTensor, heads: int):
+    """(mesh, the batch's placements, the model mesh dims, whether ``heads``
+    divide the model axes) for an activation ``x`` ``[B, T, d]``."""
+    mesh = x.device_mesh
+    model = spmd.model_mesh_dims(mesh)
+    size = spmd.mesh_size(mesh, model)
+    return (mesh, spmd.batch_placements(x.shape, mesh), model,
+            bool(model) and heads % size == 0 and heads >= size)
+
+
+def _over(rows: Sequence[spmd.Placement], model: Sequence[int], dim: int,
+          split: bool = True) -> Tuple[spmd.Placement, ...]:
+    """``rows`` with tensor dim ``dim`` over the model mesh dims (when
+    ``split``)."""
+    return tuple(spmd.Shard(dim) if split and i in model else p for i, p in enumerate(rows))
+
+
+def _whole(mesh) -> Tuple[spmd.Placement, ...]:
+    return (spmd.Replicate(),) * mesh.ndim
+
+
+def _placed(t: torch.Tensor, mesh, places) -> DTensor:
+    """``t`` (a DTensor, or a plain tensor every rank holds whole, such as
+    a zero state) as a DTensor placed as ``places``."""
+    if isinstance(t, DTensor):
+        return t if tuple(t.placements) == tuple(places) else t.redistribute(mesh, places)
+    shape, off = spmd.local_shape(t.shape, mesh, places)
+    local = t[tuple(slice(o, o + n) for o, n in zip(off, shape))]
+    return spmd.from_block(local, mesh, places, t.shape)
+
+
+def _heads_block(t: DTensor, places, dh: int) -> torch.Tensor:
+    """This rank's block ``[B_l, T, H_l, dh]`` of a ``[B, T, H*dh]``
+    DTensor (a partial sum of a row-parallel product is reduced onto it)
+    placed as ``places``: the heads over ``model``, or all of them."""
+    local = spmd.local_block(t, places)
+    return local.reshape(*local.shape[:-1], local.shape[-1] // dh, dh)
+
+
+def _rwkv_time_mix_sharded(p, x: DTensor, x_prev, state, cfg: ArchConfig, mode: str):
+    """:func:`rwkv_time_mix` on DTensors placed by the sharding rules.
+
+    The token shift and ``base`` are the batch's rows, replicated over
+    ``model``. The ddlerp's low-rank ``ddw1`` product is column-parallel and
+    gathered over ``model`` before its ``[.., 5, 16]`` split (80 floats a
+    token); ``delta`` and the five mixes are computed on each rank's slice
+    of ``d`` over ``model``, which the row-parallel ``wr`` / ``wg`` read as
+    they are and the column-parallel ``wk`` / ``wv`` / ``ww1`` gather. ``r``,
+    ``g`` and the decay's ``ww2`` product come out as partial sums over
+    ``model`` and are reduce-scattered onto the heads once each; ``k``, ``v``
+    come out on them. The scan (``wkv6_chunked`` / ``wkv6_recurrent``) runs
+    unchanged on the local blocks ``[B_l, T, H_l, dh]``, its state block
+    ``[B_l, H_l, dh, dh]`` being ``tm_s``'s cache block; no collective runs
+    inside it. The grouped norm, ``ln_x`` and ``g`` act on the local heads,
+    and ``wo`` is row-parallel on them: the output is a partial sum over
+    ``model``.
+
+    Where ``ssm_heads`` does not divide the model axes (the rules then give
+    ``tm_s`` no ``model`` placement), ``r``, ``k``, ``v``, ``g`` and the
+    decay are gathered instead and the scan runs on every head of the
+    rank's rows, replicated over ``model``; ``wo`` takes its own slice of
+    that replicated output.
+
+    Returns (y, the last token ``[B, d]`` placed as the rows, the state
+    placed as ``cache_specs`` places ``tm_s``)."""
+    b, t, d = x.shape
+    h, dh = cfg.ssm_heads, cfg.ssm_head_dim
+    mesh, rows, model, by_heads = _layout(x, h)
+    split = spmd.split_rows(rows)
+    heads = _over(rows, model, 2, by_heads)
+    x = _placed(x, mesh, rows)
+    xs = torch.cat([_placed(x_prev, mesh, rows)[:, None, :], x[:, :-1, :]], dim=1)
+    sx = xs - x
+    base = x + sx * p["mu_base"].redistribute(mesh, _whole(mesh))
+    # each model rank applies the whole low-rank output to its own d slice
+    lora = spmd.local_block(torch.tanh(dot(base, p["ddw1"])), rows, grad_partial=model)
+    lora = lora.reshape(*lora.shape[:2], 5, DDLERP_RANK)
+    ddw2 = spmd.local_block(p["ddw2"], _over(_whole(mesh), model, 2), grad_partial=split)
+    mu = spmd.local_block(p["mu"], _over(_whole(mesh), model, 1), grad_partial=split)
+    by_d = _over(rows, model, 2)
+    delta = einsum("btfa,fad->btfd", lora, ddw2)                      # [B_l,T,5,d_l]
+    mix = (spmd.local_block(x, by_d)[:, :, None, :]
+           + spmd.local_block(sx, by_d)[:, :, None, :] * (mu[None, None] + delta))
+    mr, mk, mv, mw, mg = [spmd.from_block(mix[:, :, i, :], mesh, by_d, (b, t, d))
+                          for i in range(5)]
+    r = _heads_block(dot(mr, p["wr"]), heads, dh)
+    k = _heads_block(dot(mk, p["wk"]), heads, dh)
+    v = _heads_block(dot(mv, p["wv"]), heads, dh)
+    g = silu(spmd.local_block(dot(mg, p["wg"]), heads))
+    vec = _over(_whole(mesh), model, 0, by_heads)
+    z = spmd.local_block(p["w0"], vec, grad_partial=split) + spmd.local_block(
+        dot(torch.tanh(dot(mw, p["ww1"])), p["ww2"]), heads)
+    logw = -torch.exp(torch.clamp(z.float(), -8.0, 2.0))
+    logw = logw.reshape(*logw.shape[:2], -1, dh)
+    u = spmd.local_block(p["u"], vec, grad_partial=split).float()
+    s_places = _over(rows, model, 1, by_heads)
+    fn = wkv6_chunked if mode == "chunked" else wkv6_recurrent
+    o, s = fn(r, k, v, logw, u, _placed(state, mesh, s_places).to_local())
+    o = o.to(x.dtype)
+    b_l, _, h_l, _ = o.shape
+    ones = torch.ones((dh,), dtype=o.dtype, device=o.device)
+    on = rms_norm(o, ones).reshape(b_l, t, h_l * dh)
+    on = on * spmd.local_block(p["ln_x"], vec, grad_partial=split)
+    y = dot(spmd.from_block(on * g, mesh, heads, (b, t, h * dh)), p["wo"])
+    return y, x[:, -1, :].clone(), spmd.from_block(s, mesh, s_places, (b, h, dh, dh))
+
+
+def _rwkv_channel_mix_sharded(p, x: DTensor, x_prev):
+    """:func:`rwkv_channel_mix` on DTensors, in the rules' layouts: ``wk``
+    column-parallel (``ff`` over ``model``), ``wv`` ``[ff, d]`` with its
+    ``d`` over ``model`` wanting ``ff`` whole (gathered), ``wr``
+    row-parallel (its partial sum reduce-scattered onto ``wv``'s ``d``
+    blocks). Returns (y placed as the rows, the last token ``[B, d]``)."""
+    mesh = x.device_mesh
+    rows = spmd.batch_placements(x.shape, mesh)
+    whole = _whole(mesh)
+    x = _placed(x, mesh, rows)
+    xs = torch.cat([_placed(x_prev, mesh, rows)[:, None, :], x[:, :-1, :]], dim=1)
+    mk = x + (xs - x) * p["mu_k"].redistribute(mesh, whole)
+    mr = x + (xs - x) * p["mu_r"].redistribute(mesh, whole)
+    k = torch.square(torch.relu(dot(mk, p["wk"])))
+    kv = spmd.reduced(dot(k, p["wv"]))
+    y = torch.sigmoid(dot(mr, p["wr"]).redistribute(mesh, kv.placements)) * kv
+    return y.redistribute(mesh, rows), x[:, -1, :].clone()
+
+
+def _ssd_mix_sharded(p, x: DTensor, state, cfg: ArchConfig, mode: str):
+    """:func:`ssd_mix` on DTensors placed by the sharding rules. ``xv``
+    (``wx`` column-parallel) and ``dt`` are taken by heads over ``model``
+    where ``ssm_heads`` divides it, else gathered: the scan then runs on
+    every head of the rank's rows, replicated over ``model`` (hymba: 25
+    heads on 16). ``B`` and ``C`` (``N`` wide, over ``model``) and ``D``
+    (``dh`` over ``model``) are gathered. ``ssd_chunked`` /
+    ``ssd_recurrent`` run unchanged on the local blocks, the state block
+    being ``ssd_s``'s cache block. ``wo`` is row-parallel: the heads' block
+    of its input is the rank's own, or its slice of the replicated output
+    (no collective). Returns (y, a partial sum over ``model``; the state)."""
+    b, t, d = x.shape
+    h, dh, n = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+    mesh, rows, model, by_heads = _layout(x, h)
+    split = spmd.split_rows(rows)
+    heads = _over(rows, model, 2, by_heads)
+    vec = _over(_whole(mesh), model, 0, by_heads)
+    # B and C feed every head: with the heads over ``model``, each model
+    # rank's share of their gradient is a partial sum
+    shared = model if by_heads else ()
+    xv = _heads_block(dot(x, p["wx"]), heads, dh)
+    B = spmd.local_block(dot(x, p["wB"]), rows, grad_partial=shared)
+    C = spmd.local_block(dot(x, p["wC"]), rows, grad_partial=shared)
+    dt = _softplus(spmd.local_block(dot(x, p["wdt"]), heads)
+                   + spmd.local_block(p["dt_bias"], vec, grad_partial=split))
+    loga = -_softplus(spmd.local_block(p["a_log"], vec, grad_partial=split).float())
+    logdecay = dt.float() * loga[None, None]
+    D = spmd.local_block(p["D"], vec, grad_partial=split)
+    s_places = _over(rows, model, 1, by_heads)
+    fn = ssd_chunked if mode == "chunked" else ssd_recurrent
+    o, s = fn(xv.float(), B.float(), C.float(), dt.float(), logdecay, D.float(),
+              _placed(state, mesh, s_places).to_local())
+    b_l, _, h_l, _ = o.shape
+    o = spmd.from_block(o.to(x.dtype).reshape(b_l, t, h_l * dh), mesh, heads, (b, t, h * dh))
+    return dot(o, p["wo"]), spmd.from_block(s, mesh, s_places, (b, h, n, dh))

@@ -352,13 +352,15 @@ def test_run_cell_record(shape):
 
 
 def test_run_cell_outside_the_slice_keeps_the_even_split():
-    """A family whose sharded program is not ported (RWKV, rwkv6-7b, 2
-    layers) keeps one card's count split evenly, and says so."""
-    rec = dryrun.run_cell("rwkv6-7b", "decode_32k", "single", {"n_layers": "2"})
+    """A family whose sharded program is not ported (enc-dec,
+    seamless-m4t-large-v2, 2 + 2 layers) keeps one card's count split
+    evenly, and says so."""
+    rec = dryrun.run_cell("seamless-m4t-large-v2", "decode_32k", "single",
+                          {"n_layers": "2", "n_enc_layers": "2"})
     assert rec["status"] == "ok" and rec["spmd"] is False
     assert rec["collective_bytes"] is None and rec["collectives"] is None
     assert rec["roofline"]["collective_s"] is None
-    assert "ROADMAP 14d" in rec["collective_note"] and "SSM" in rec["collective_note"]
+    assert "ROADMAP 14d" in rec["collective_note"] and "enc-dec" in rec["collective_note"]
     assert rec["counted_flops_per_device"] == rec["counted_flops"] / 256
 
 
