@@ -161,13 +161,15 @@ Phases, in order; any failure raises and the script exits non-zero:
 15. dryrun  the dry runs, on ``meta`` tensors (no card memory):
             ``repro_torch.launch.dryrun.run_cell`` for yi-6b, minicpm3-4b
             (MLA), qwen3-moe-235b-a22b (MoE, global dispatch), rwkv6-7b
-            (SSM) and hymba-1.5b (hybrid) in train_4k, prefill_32k and
-            decode_32k, and the last two in long_500k, on the (16, 16)
+            (SSM), hymba-1.5b (hybrid), seamless-m4t-large-v2 (enc-dec)
+            and llava-next-mistral-7b (VLM) in train_4k, prefill_32k and
+            decode_32k, and rwkv6 and hymba in long_500k, on the (16, 16)
             production mesh, each rank 0's DTensor program on a fake process
             group of 256, counted in ``DRYRUN_WORKERS`` worker processes
             that start with phase 14 (each status ok: argument bytes a device, that rank's own counted
             FLOPs, bytes and collectives by kind, the compute, memory and
-            collective terms, where the scans run); yi-6b's step at the lm_train phase's shape
+            collective terms, where the scans, the encoder and the cross
+            cache run, the patch tokens); yi-6b's step at the lm_train phase's shape
             counted, its compute and memory bounds printed beside the step
             that phase measured; the enterprise serving dry run
             (``launch/serve_dryrun.py``: 100,663,296 labels, d = 4M, tree
@@ -194,7 +196,9 @@ Phases, in order; any failure raises and the script exits non-zero:
             with the expanded and the absorbed decode; qwen3-moe at
             capacity_factor 1.0 with global and with grouped dispatch; grok
             with 3 experts; rwkv6-7b with 4 and 3 heads; hymba at 4 layers
-            with 4 and 3 heads): each one's sharded ``make_train_step`` (its
+            with 4 and 3 heads; seamless at 2 + 2 layers with a vocab of 256
+            and of 255; llava with 8 patch tokens, with 2 and 1 kv heads):
+            each one's sharded ``make_train_step`` (its
             optimizer, remat, an f32 cache), ``prefill`` and 4 greedy
             ``decode_step``s against the plain port on the card from the
             same parameters (``SPMD_TOL``);
@@ -213,13 +217,17 @@ Phases, in order; any failure raises and the script exits non-zero:
             1 warm-up, 1 timed step); rwkv6-7b and hymba-1.5b at full
             depth (``SPMD_SSM``): ``train_4k``, ``prefill_32k``,
             ``decode_32k`` and ``long_500k`` (one sequence, a cache of
-            524,288; 4 steps each); each in ms (CUDA events) against
+            524,288; 4 steps each); seamless-m4t-large-v2 and
+            llava-next-mistral-7b as yi-6b (8 decode steps; seamless's
+            cross cache of 32,768 source positions over ``model``, llava's
+            2,048 / 2,880 patch tokens ahead of the text); each in ms (CUDA events) against
             that rank's counted compute and memory bounds (the dry run's,
             or counted on meta here for the absorbed decode and the cut
             depth), peak memory against the dry run's argument bytes, and
             one profiled decode step's activities and idle share a model;
             (c) with 2 or more cards, (a)'s yi-6b, minicpm3, qwen3-moe
-            global, rwkv6-7b and hymba cases on a (2, n/2) NCCL mesh, one
+            global, rwkv6-7b, hymba, seamless (vocab 256) and llava (1 kv
+            head) cases on a (2, n/2) NCCL mesh, one
             process a card (with one card it says it did not run, and
             why).
 
@@ -370,7 +378,10 @@ DRYRUN_CELLS = ("train_4k", "prefill_32k", "decode_32k")
 LONG_CELLS = ("long_500k",)
 # The LMs whose cells the dryrun phase counts as rank 0's sharded program, and
 # whose rank 0 the spmd phase's (b) runs on the card.
-SPMD_DRYRUN_ARCHS = ("yi-6b", "minicpm3-4b", "qwen3-moe-235b-a22b", "rwkv6-7b", "hymba-1.5b")
+SPMD_DRYRUN_ARCHS = ("yi-6b", "minicpm3-4b", "qwen3-moe-235b-a22b", "rwkv6-7b", "hymba-1.5b",
+                     "seamless-m4t-large-v2", "llava-next-mistral-7b")
+# The enc-dec and VLM archs among them, which (b) runs as it runs yi-6b.
+SPMD_ENCDEC_VLM_ARCHS = ("seamless-m4t-large-v2", "llava-next-mistral-7b")
 SPMD_LONG_ARCHS = ("rwkv6-7b", "hymba-1.5b")
 # The dryrun phase counts its LM cells in worker processes (their Python
 # loops over the scans' chunks take 1-2 minutes a cell for RWKV and hymba).
@@ -413,9 +424,12 @@ SPMD_TOL = dict(loss=1e-5, leaf=1e-5, logits=1e-5, ssm_grad=1e-3, hybrid_grad=5e
 # grouped dispatch, grok with 3 experts (they do not divide a model axis, so
 # the expert weights are sharded over d and ff), rwkv6-7b with 4 and with 3
 # heads, hymba at 4 layers (one windowed, decode past its window of 8) with
-# 4 heads and with 3 query, 1 kv and 3 SSD heads. On a model axis of 2 the
-# 3-head cases run their scans replicated over it and hymba's attention by
-# the query sequence. (c) runs SPMD_CARD_CASES.
+# 4 heads and with 3 query, 1 kv and 3 SSD heads, seamless at 2 + 2 layers
+# (encoder, cross attention and the cross cache) with a vocab of 256 and of
+# 255 (its logits on sequence blocks, as 256,206 on 16), llava with 8 patch
+# tokens and with 1 kv head (kv heads below the model axis, as 8 below 16).
+# On a model axis of 2 the 3-head cases run their scans replicated over it and
+# hymba's attention by the query sequence. (c) runs SPMD_CARD_CASES.
 SPMD_CASES = (
     ("yi-6b", {}),
     ("minicpm3-4b", {}),
@@ -428,8 +442,13 @@ SPMD_CASES = (
     ("rwkv6-7b", {"ssm_heads": 3}),
     ("hymba-1.5b", {"n_layers": 4}),
     ("hymba-1.5b", {"n_layers": 4, "ssm_heads": 3, "n_heads": 3, "n_kv_heads": 1}),
+    ("seamless-m4t-large-v2", {}),
+    ("seamless-m4t-large-v2", {"vocab": 255}),
+    ("llava-next-mistral-7b", {}),
+    ("llava-next-mistral-7b", {"n_kv_heads": 1}),
 )
-SPMD_CARD_CASES = SPMD_CASES[:2] + SPMD_CASES[3:4] + SPMD_CASES[6:]
+SPMD_CARD_CASES = (SPMD_CASES[:2] + SPMD_CASES[3:4] + SPMD_CASES[6:11]
+                   + SPMD_CASES[13:14])
 # (b): rank 0 of the (16, 16) production mesh, the dry run's cells: one timed
 # train_4k step after a warm-up (two until PR 24: cut to keep the script well
 # inside its time limit as phase 18 grew), 8 decode steps.
@@ -2855,7 +2874,8 @@ def log_spmd_cell(rec: dict) -> dict:
     kinds = ", ".join(f"{k} {v['count']} x {v['operand_bytes']:.4e} B"
                       for k, v in coll.items() if k != "TOTAL")
     dispatch = f"; {rec['moe_dispatch']} dispatch" if "moe_dispatch" in rec else ""
-    dispatch += "".join(f"; {rec[k]}" for k in ("scan_note", "attention") if k in rec)
+    dispatch += "".join(f"; {rec[k]}" for k in ("scan_note", "attention", "encoder",
+                                                "cross_cache", "patch_tokens") if k in rec)
     log(f"  {what}, rank 0's program of the (16, 16) mesh on meta (fake group "
         f"of {rec['chips']}{dispatch}): status ok in {rec['meta_run_s']} s; "
         f"{rec['memory']['argument_size_in_bytes']:,} argument bytes a device; counted a "
@@ -2919,9 +2939,9 @@ class DryCells:
 
 def dryrun_phase(torch, gpu: str, step_ms: float, cells: DryCells) -> dict:
     """Phase 15: the dry runs on ``meta`` tensors (no card memory): the
-    cells of yi-6b, minicpm3-4b, qwen3-moe-235b-a22b, rwkv6-7b and
-    hymba-1.5b on the single-pod mesh (rank 0's DTensor program; long_500k
-    too for the last two), whose counting ``cells`` started in worker
+    cells of ``SPMD_DRYRUN_ARCHS`` on the single-pod mesh (rank 0's DTensor
+    program; long_500k too for rwkv6-7b and hymba-1.5b), whose counting
+    ``cells`` started in worker
     processes with the lm_train phase, yi-6b's step at the lm_train phase's
     shape counted and its bound held against the measured step, and the
     enterprise serving step on both production meshes. Returns the
@@ -3147,14 +3167,18 @@ def spmd_config(arch: str, overrides: dict):
 
 def spmd_vs_plain(torch, mesh, device, arch: str = LM_ARCH, overrides=None) -> str:
     """A reduced config (``spmd_config``) on ``mesh`` (DTensor) against the
-    plain port on ``device``, from the same parameters: prefill and greedy
-    decode (the sharded run fed the plain run's tokens), then one
+    plain port on ``device``, from the same parameters and the same batch
+    (``make_demo_batch``: tokens and targets, and an enc-dec config's
+    source frames or a VLM's patch embeddings, ``SPMD_SMALL['seq']``
+    positions in all): prefill and greedy decode from the position after the
+    prompt (the sharded run fed the plain run's tokens), then one
     ``make_train_step`` step (the config's optimizer): the loss, every
     gradient (none reaching the optimizer with placements other than its
     parameter's), and every leaf the sharded update makes from the plain
     step's gradients. Raises past ``SPMD_TOL``; returns a summary."""
     from repro_torch.distributed import spmd
     from repro_torch.distributed.sharding import batch_specs, shard_opt_state, shard_params
+    from repro_torch.launch.specs import make_demo_batch
     from repro_torch.launch.train import init_opt_state, make_train_step
     from repro_torch.models import lm
     from repro_torch.optim import Optimizer, get_optimizer
@@ -3164,9 +3188,7 @@ def spmd_vs_plain(torch, mesh, device, arch: str = LM_ARCH, overrides=None) -> s
     cfg = spmd_config(arch, overrides or {})
     rules = spmd.RuleMesh(mesh)
     params = lm.init_params(cfg, torch.Generator(device).manual_seed(0), device=device)
-    rng = np.random.default_rng(0)
-    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab, (r["batch"], r["seq"]))
-                                 .astype(np.int32)).to(device) for k in ("tokens", "targets")}
+    batch = make_demo_batch(cfg, np.random.default_rng(0), r["batch"], r["seq"], device=device)
     p_sh = shard_params(params, rules)
 
     def copy(tree):
@@ -3269,13 +3291,14 @@ class Rank0:
         rf = rec["roofline"]
         med = float(np.median(ms))
         peak = self.torch.cuda.max_memory_allocated()
+        card = self.torch.cuda.get_device_properties(0).total_memory
         arg = rec["memory"]["argument_size_in_bytes"]
         log(f"  {what}, rank 0 of (16, 16): {how} {', '.join(f'{t:.1f}' for t in ms)} ms "
             f"(median {med:.1f}); that rank's counted bound compute "
             f"{1e3 * rf['compute_s']:.1f} ms ({med / (1e3 * rf['compute_s']):.3f} x), memory "
             f"{1e3 * rf['memory_s']:.1f} ms ({med / (1e3 * rf['memory_s']):.3f} x); peak device "
-            f"memory {peak / 1e9:.3f} GB against the dry run's {arg / 1e9:.3f} GB of arguments "
-            f"a device  [{self.gpu}]")
+            f"memory {peak / 1e9:.3f} GB of the card's {card / 1e9:.3f} GB, against the dry "
+            f"run's {arg / 1e9:.3f} GB of arguments a device  [{self.gpu}]")
 
     def profiled(self, what: str, fn) -> None:
         wall, acts, busy_us, rows = device_profile(fn)
@@ -3344,8 +3367,10 @@ class Rank0:
         from repro_torch.models import lm
 
         shape = SHAPES[shape]
-        cache = lm.init_cache(cfg, shape.global_batch, shape.seq_len, device="cuda",
-                              mesh=self.mesh)
+        # an enc-dec cache holds the source of the dry run's cell: seq_len frames
+        cache = lm.init_cache(cfg, shape.global_batch, shape.seq_len,
+                              src_len=shape.seq_len if cfg.family == "encdec" else 0,
+                              device="cuda", mesh=self.mesh)
         tshape = {"t": self.torch.empty((shape.global_batch,), dtype=self.torch.int32,
                                         device="meta")}
         tokens = self.draw(tshape, batch_specs(cfg, tshape, self.rules), SPMD_RANK0["seed"] + 3,
@@ -3361,8 +3386,9 @@ class Rank0:
 def spmd_rank0(torch, gpu: str, dry: dict) -> None:
     """Phase 18 (b): rank 0's program of the (16, 16) production mesh at
     full width, its collectives sent to a fake group: yi-6b, minicpm3-4b
-    (MLA), qwen3-moe-235b-a22b (MoE), rwkv6-7b (SSM) and hymba-1.5b
-    (hybrid), each cell timed against that rank's counted bounds."""
+    (MLA), qwen3-moe-235b-a22b (MoE), rwkv6-7b (SSM), hymba-1.5b (hybrid),
+    seamless-m4t-large-v2 (enc-dec) and llava-next-mistral-7b (VLM), each
+    cell timed against that rank's counted bounds."""
     from repro_torch.configs import get_config
     from repro_torch.launch.mesh import make_production_spmd_mesh
 
@@ -3376,12 +3402,16 @@ def spmd_rank0(torch, gpu: str, dry: dict) -> None:
         rank0_moe(run, get_config("qwen3-moe-235b-a22b"), dry)
         for arch in SPMD_LONG_ARCHS:
             rank0_ssm(run, get_config(arch), dry)
+        for arch in SPMD_ENCDEC_VLM_ARCHS:
+            rank0_dense(run, get_config(arch), dry)
 
 
 def rank0_dense(run: Rank0, cfg, dry: dict) -> None:
-    """(b) for a decoder with a dense FFN at full depth: ``train_4k``
-    (the config's optimizer and remat), ``prefill_32k`` and ``decode_32k``
-    (MLA: with the config's ``mla_absorb``, then the other form)."""
+    """(b) for a model with a dense FFN at full depth (a decoder, the
+    enc-dec model, the VLM): ``train_4k`` (the config's optimizer and
+    remat), ``prefill_32k`` and ``decode_32k`` (MLA: with the config's
+    ``mla_absorb``, then the other form; enc-dec: a cross cache of the
+    cell's 32,768 source positions)."""
     import dataclasses
 
     torch, r, arch = run.torch, SPMD_RANK0, cfg.name

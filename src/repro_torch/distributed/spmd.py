@@ -248,6 +248,13 @@ def mesh_size(mesh: DeviceMesh, dims: Sequence[int]) -> int:
     return math.prod(mesh.size(i) for i in dims)
 
 
+def divides(n: int, size: int) -> bool:
+    """Whether ``n`` (heads, a batch, a sequence) splits into ``size``
+    whole, non-empty blocks: the rules' test for a dim over mesh axes of
+    ``size`` ranks."""
+    return n % size == 0 and n >= size
+
+
 def program(tree) -> contextlib.AbstractContextManager:
     """The context an entry point runs in: ``implicit_replication()`` when
     ``tree`` holds DTensors (the plain tensors made inside, such as scalars,
@@ -264,7 +271,7 @@ def batch_placements(shape: Sequence[int], mesh: DeviceMesh) -> Tuple[Placement,
     every other mesh axis replicated (all replicated when it does not)."""
     dims = data_mesh_dims(mesh)
     size = mesh_size(mesh, dims)
-    split = bool(dims) and len(shape) > 0 and shape[0] % size == 0 and shape[0] >= size
+    split = bool(dims) and len(shape) > 0 and divides(shape[0], size)
     return tuple(Shard(0) if split and i in dims else Replicate() for i in range(mesh.ndim))
 
 
@@ -324,6 +331,27 @@ def reduce_grad(x: torch.Tensor) -> torch.Tensor:
     row-parallel products upstream, where it would replicate their
     backward's compute over ``model``."""
     return _ReduceGrad.apply(x) if isinstance(x, DTensor) else x
+
+
+class _ContiguousGrad(torch.autograd.Function):
+    """Identity forward; the backward makes the gradient contiguous."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.contiguous()
+
+
+def to_local(x: DTensor) -> torch.Tensor:
+    """``x``'s block on this rank, whose gradient comes back contiguous. A
+    local product's gradient can come back in another memory order (an
+    einsum's backward hands its operands' gradients back as permuted views);
+    wrapped as a DTensor, such a block breaks the views that split or merge
+    its dims upstream (the heads' reshapes of a projection)."""
+    return _ContiguousGrad.apply(x.to_local())
 
 
 def matmul_operands(a: torch.Tensor, w: DTensor) -> Tuple[DTensor, DTensor]:
@@ -392,7 +420,7 @@ def sequence_placements(shape: Sequence[int], mesh: DeviceMesh) -> Tuple[Placeme
     rows = batch_placements(shape, mesh)
     model = model_mesh_dims(mesh)
     size = mesh_size(mesh, model)
-    if len(shape) < 2 or not model or shape[1] % size or shape[1] < size:
+    if len(shape) < 2 or not model or not divides(shape[1], size):
         return rows
     return tuple(Shard(1) if i in model else p for i, p in enumerate(rows))
 

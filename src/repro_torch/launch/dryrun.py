@@ -9,24 +9,22 @@ per-device program. The port compiles nothing: it runs the cell's step
 tensors under an :class:`~repro_torch.launch.hlo_stats.OpCounter`, which
 counts each op's FLOPs and bytes as PyTorch dispatches it.
 
-For the families whose sharded program is ported (the decoder-only GQA and
-MLA families, dense or MoE, the SSM family (RWKV6) and the hybrid one
-(hymba): ``spmd_family``), the step is rank 0's program
-of the production mesh: a DTensor program
-(:mod:`repro_torch.distributed.spmd`) on a fake process group of 256 or
-512 ranks, its arguments placed by ``shard_params``,
+The step is rank 0's program of the production mesh, for every family: a
+DTensor program (:mod:`repro_torch.distributed.spmd`) on a fake process
+group of 256 or 512 ranks, its arguments placed by ``shard_params``,
 ``shard_opt_state``, ``batch_specs`` and ``cache_specs`` as ``meta``
 blocks. The counter sees that rank's local ops and the collectives DTensor
 issues: per-device counts with no even split. The mesh's device type is
 ``"cuda"``, so DTensor issues each collective as it would to NCCL (on a
-``"cpu"`` mesh it would send an all-to-all as all-gather + chunk). Every
-other family keeps one card's eager count of the whole step split evenly
-over the chips, and its record says so (``"spmd": false``). An MoE cell's
-record names its dispatch (``moe_dispatch``, ``dispatch_note``); an SSM or
-hybrid cell's names where its scan runs (``ssm_scan``, ``scan_note``: by
-heads over ``model``, or replicated over it where the heads do not divide
-it), and a cell whose GQA attention cannot split by heads names its
-sequence-parallel layout (``attention``).
+``"cpu"`` mesh it would send an all-to-all as all-gather + chunk). A
+record's notes say where the layout departs from the plain one: an MoE
+cell's dispatch (``moe_dispatch``, ``dispatch_note``); where an SSM or
+hybrid cell's scan runs (``ssm_scan``, ``scan_note``: by heads over
+``model``, or replicated over it where the heads do not divide it); a GQA
+cell whose full attention cannot split by heads, its sequence-parallel
+layout (``attention``); an enc-dec cell's encoder and cross attention
+(``encoder``) and its cross cache (``cross_cache``); a VLM cell's patch
+tokens (``patch_tokens``).
 
 An MoE cell's ``expert_flops_vs_single_device`` is what its dispatch
 gives its expert FLOPs summed over the ranks, against one device's: the
@@ -39,11 +37,10 @@ port                           reference
 =============================  ==========================================
 ``counted_flops``              ``hlo_flops`` (per device x chips)
 ``counted_flops_per_device``   ``hlo_flops_per_device``: rank 0's count
-                               (``spmd``), else the even split
 ``counted_bytes``              ``hlo_bytes`` (per device x chips)
 ``counted_bytes_per_device``   ``hlo_bytes_per_device``
 ``collective_bytes``           the same key: rank 0's collective operand
-                               bytes x chips (null outside ``spmd``)
+                               bytes x chips
 ``collective_bytes_per_device``  the same key
 ``collectives``                the same key: rank 0's collectives under the
                                reference's op names
@@ -89,8 +86,7 @@ from repro_torch.distributed.sharding import (
     batch_specs, cache_specs, shard_opt_state, shard_params)
 from repro_torch.launch import hw
 from repro_torch.launch.hlo_stats import OpCounter
-from repro_torch.launch.mesh import (argument_bytes, make_production_mesh,
-                                     make_production_spmd_mesh)
+from repro_torch.launch.mesh import argument_bytes, make_production_spmd_mesh
 from repro_torch.launch.specs import input_specs
 from repro_torch.launch.train import init_opt_state, make_train_step
 from repro_torch.models import lm as lm_lib
@@ -107,8 +103,6 @@ LINK_NOTE = ("collective_s: rank 0's collective operand bytes x chips over NVLin
              "(hw.NVLINK_BW, 450 GB/s a card and direction); a (16, 16) mesh spans two "
              "8-card nodes along 'model', so that axis crosses InfiniBand, slower than "
              "this term assumes; collectives as DTensor issues them on a 'cuda' mesh")
-#: The ROADMAP 14d item that ports each family's sharded program.
-NEXT_SLICE = {"encdec": "item 2, enc-dec and VLM", "vlm": "item 2, enc-dec and VLM"}
 DISPATCH_NOTE = {
     "global": ("global dispatch: slots over the whole token stream (each data rank's "
                "offsets from an exclusive scan of its per-expert counts over the data "
@@ -121,40 +115,50 @@ DISPATCH_NOTE = {
 }
 
 
-def spmd_family(cfg: ArchConfig) -> bool:
-    """Whether ``cfg``'s sharded program is ported: the decoder-only
-    families with GQA or MLA attention and a dense or MoE FFN, RWKV6 and
-    hymba."""
-    return cfg.family in ("ssm", "hybrid") or (
-        cfg.family in ("dense", "moe") and cfg.attn_type in ("gqa", "mla"))
-
-
 def _layout_notes(cfg: ArchConfig, shape: ShapeSpec, model: int) -> Dict[str, Any]:
-    """The record's notes on where an SSM / hybrid cell's scan runs and how
-    a GQA cell's full attention splits over the ``model`` axis of size
-    ``model``."""
+    """The record's notes on where a cell's layout departs from the plain
+    one over the ``model`` axis of size ``model``: an SSM / hybrid cell's
+    scan, a GQA cell's full attention where its heads do not divide the
+    axis, an enc-dec cell's encoder and cross attention and its cross cache,
+    a VLM cell's patch tokens."""
     notes: Dict[str, Any] = {}
     if cfg.family in ("ssm", "hybrid"):
         h = cfg.ssm_heads
-        split = h % model == 0 and h >= model
+        split = spmd.divides(h, model)
         notes["ssm_scan"] = "by_heads" if split else "replicated_over_model"
         notes["scan_note"] = (
             f"{h} {'RWKV' if cfg.family == 'ssm' else 'SSD'} heads on a {model}-way model "
             + (f"axis: each rank scans its {h // model} heads of its own batch rows"
                if split else "axis do not divide it: each model rank scans every head of "
                "its own batch rows, the scan replicated over the model axis"))
-    if cfg.attn_type == "gqa" and shape.kind != "decode" and cfg.n_heads % model:
+    if cfg.attn_type == "gqa" and shape.kind != "decode" and not spmd.divides(cfg.n_heads,
+                                                                              model):
         notes["attention"] = (
             f"sequence-parallel: {cfg.n_heads} query heads do not divide the {model}-way model "
             f"axis; each rank attends with its {shape.seq_len // model} query rows against "
             "every key (_attn_act_specs)")
+    if cfg.family == "encdec" and shape.kind != "decode":
+        heads = (f"by heads, each rank with its {cfg.n_heads // model} of {cfg.n_heads}"
+                 if spmd.divides(cfg.n_heads, model) else
+                 f"with all {cfg.n_heads} heads on every model rank (they do not divide the "
+                 f"{model}-way model axis)")
+        notes["encoder"] = (f"{cfg.n_enc_layers} encoder layers and {cfg.n_layers} cross "
+                            f"attentions run {heads}, on each rank's own batch rows")
+    if cfg.family == "encdec" and shape.kind != "train":
+        src = shape.seq_len
+        notes["cross_cache"] = (
+            f"cross_k / cross_v of {src} source positions: "
+            + (f"the source sequence split over the {model}-way model axis ({src // model} a "
+               "rank); decode scores each rank's own block and reduces the softmax's max and "
+               "sum across blocks" if spmd.divides(src, model) else
+               f"the source sequence does not divide the {model}-way model axis and stays "
+               "whole on each rank"))
+    if cfg.family == "vlm" and shape.kind != "decode":
+        n_img = input_specs(cfg, shape)["patch_embeds"][0][1]
+        notes["patch_tokens"] = (
+            f"{n_img} patch tokens ahead of {shape.seq_len - n_img} text tokens in each "
+            "sequence; only the text positions are scored")
     return notes
-
-
-def _outside_note(cfg: ArchConfig) -> str:
-    return (f"null: the {cfg.family} family's sharded program is not ported (ROADMAP 14d "
-            f"{NEXT_SLICE[cfg.family]}); its counts are one card's eager count of the "
-            "whole step split evenly over the chips")
 
 
 def _model_flops(cfg: ArchConfig, shape: ShapeSpec) -> float:
@@ -262,37 +266,24 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str,
         )
         return rec
 
-    if spmd_family(cfg):
-        with make_production_spmd_mesh(multi_pod=mesh_kind == "multi") as mesh:
-            counter, arg_bytes, run_s = count_rank0(cfg, shape, mesh)
-            chips = mesh.size()
-            data = spmd.mesh_size(mesh, spmd.data_mesh_dims(mesh))
-            model = spmd.mesh_size(mesh, spmd.model_mesh_dims(mesh))
-        flops_dev, bytes_dev = float(counter.flops), float(counter.bytes)
-        coll = counter.collectives
-        coll_dev = float(coll["TOTAL"]["operand_bytes"])
-        extra = dict(spmd=True, collective_bytes=coll_dev * chips,
-                     collective_bytes_per_device=coll_dev, collectives=coll,
-                     collective_note=LINK_NOTE)
-        if cfg.n_experts:
-            # global dispatch: each rank's experts over the whole capacity
-            extra.update(moe_dispatch=cfg.moe_dispatch,
-                         dispatch_note=DISPATCH_NOTE[cfg.moe_dispatch],
-                         expert_flops_vs_single_device=(
-                             data if cfg.moe_dispatch == "global" else 1))
-        extra.update(_layout_notes(cfg, shape, model))
-    else:
-        mesh = make_production_mesh(multi_pod=(mesh_kind == "multi"))
-        chips = mesh.devices.size
-        fn, args, shardings = _step_and_specs(cfg, shape, mesh)
-        arg_bytes = argument_bytes(args, shardings)
-        t0 = time.time()
-        counter = count_step(fn, args)
-        run_s = time.time() - t0
-        flops_dev, bytes_dev = counter.flops / chips, counter.bytes / chips
-        coll_dev = None
-        extra = dict(spmd=False, collective_bytes=None, collective_bytes_per_device=None,
-                     collectives=None, collective_note=_outside_note(cfg))
+    with make_production_spmd_mesh(multi_pod=mesh_kind == "multi") as mesh:
+        counter, arg_bytes, run_s = count_rank0(cfg, shape, mesh)
+        chips = mesh.size()
+        data = spmd.mesh_size(mesh, spmd.data_mesh_dims(mesh))
+        model = spmd.mesh_size(mesh, spmd.model_mesh_dims(mesh))
+    flops_dev, bytes_dev = float(counter.flops), float(counter.bytes)
+    coll = counter.collectives
+    coll_dev = float(coll["TOTAL"]["operand_bytes"])
+    extra = dict(spmd=True, collective_bytes=coll_dev * chips,
+                 collective_bytes_per_device=coll_dev, collectives=coll,
+                 collective_note=LINK_NOTE)
+    if cfg.n_experts:
+        # global dispatch: each rank's experts over the whole capacity
+        extra.update(moe_dispatch=cfg.moe_dispatch,
+                     dispatch_note=DISPATCH_NOTE[cfg.moe_dispatch],
+                     expert_flops_vs_single_device=(
+                         data if cfg.moe_dispatch == "global" else 1))
+    extra.update(_layout_notes(cfg, shape, model))
     print(f"[{arch} {shape_name} {mesh_kind}] argument bytes per device: {arg_bytes:,}")
     print(f"[{arch} {shape_name} {mesh_kind}] counted per device: "
           f"flops={flops_dev:.3e} bytes={bytes_dev:.3e} collective bytes={coll_dev}")
@@ -300,9 +291,7 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str,
     flops, bytes_hbm = flops_dev * chips, bytes_dev * chips
     model_flops = _model_flops(cfg, shape)
     roofline = hw.roofline_terms(flops=flops, bytes_hbm=bytes_hbm,
-                                 bytes_collective=(coll_dev or 0.0) * chips, chips=chips)
-    if coll_dev is None:
-        roofline["collective_s"] = None
+                                 bytes_collective=coll_dev * chips, chips=chips)
     rec.update(
         status="ok",
         chips=chips,
@@ -372,11 +361,9 @@ def main() -> None:
                     json.dump(rec, f, indent=1)
                 if rec.get("status") == "ok":
                     r = rec["roofline"]
-                    coll = ("n/a" if r["collective_s"] is None
-                            else f"{r['collective_s']:.4f}s")
                     print(
                         f"ok in {rec['meta_run_s']:.0f}s  compute {r['compute_s']:.4f}s"
-                        f"  memory {r['memory_s']:.4f}s  collective {coll}"
+                        f"  memory {r['memory_s']:.4f}s  collective {r['collective_s']:.4f}s"
                         f"  dominant={r['dominant']}", flush=True,
                     )
     if failures:

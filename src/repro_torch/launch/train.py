@@ -155,6 +155,10 @@ def train_loop(
 
             def on_retry(attempt, err):
                 nonlocal params, opt_state
+                if ckpt:
+                    # a write still in flight is the newest checkpoint saved
+                    # before the failure: restore that one, not the one before
+                    ckpt.wait()
                 if ckpt and ckpt.latest_step() is not None:
                     _, restored = ckpt.restore({"params": params, "opt": opt_state})
                     params, opt_state = restored["params"], restored["opt"]

@@ -102,18 +102,20 @@ def _by_heads(x: DTensor, g: int) -> DTensor:
     of :func:`_sdpa`), its head dim sharded over the mesh's model axes
     where it divides, the batch as :func:`spmd.batch_placements` places it.
     Where only the repeated heads divide those axes, each rank gathers the
-    kv heads and repeats just those its own block of heads reads."""
+    kv heads and repeats just those its own block of heads reads. A model
+    axis of one rank splits nothing (DTensor cannot repeat a single kv head
+    sharded over it)."""
     mesh = x.device_mesh
     rows = spmd.batch_placements(x.shape, mesh)
     b, s, hkv, d = x.shape
-    heads = spmd.model_mesh_dims(mesh)
+    heads = tuple(i for i in spmd.model_mesh_dims(mesh) if mesh.size(i) > 1)
     size = spmd.mesh_size(mesh, heads)
     by = tuple(spmd.Shard(2) if i in heads else rows[i] for i in range(mesh.ndim))
-    if hkv % size == 0:
+    if spmd.divides(hkv, size):
         x = x.redistribute(mesh, by)
     else:
         x = x.redistribute(mesh, rows)
-        if hkv * g % size == 0:
+        if spmd.divides(hkv * g, size):
             _, off = spmd.local_shape((b, s, hkv * g, d), mesh, by)
             own = torch.arange(off[2], off[2] + hkv * g // size, device=x.device) // g
             grad = tuple(spmd.Partial() if i in heads else p for i, p in enumerate(rows))
@@ -132,7 +134,7 @@ def _sdpa_heads(q, k, v, mask, *, scores_bf16: bool = False):
     :func:`_sdpa`) with no collective, and its output is placed as ``q``."""
     g = q.shape[2] // k.shape[2]
     q, k, v = _by_heads(q, 1), _by_heads(k, g), _by_heads(v, g)
-    out = _attend(q.to_local(), k.to_local(), v.to_local(), mask, scores_bf16=scores_bf16)
+    out = _attend(*(spmd.to_local(t) for t in (q, k, v)), mask, scores_bf16=scores_bf16)
     return DTensor.from_local(out, q.device_mesh, q.placements, run_check=False)
 
 
@@ -264,7 +266,7 @@ def _by_sequence(x: DTensor, heads: int) -> bool:
     mesh = x.device_mesh
     size = spmd.mesh_size(mesh, spmd.model_mesh_dims(mesh))
     s = x.shape[1]
-    return not (heads % size == 0 and heads >= size) and s % size == 0 and s >= size and s > 1
+    return not spmd.divides(heads, size) and spmd.divides(s, size) and s > 1
 
 
 def gqa_full(p, x: torch.Tensor, cfg: ArchConfig, *, window=0, q_offset=0):
@@ -446,7 +448,7 @@ def _mla_full_sharded(p, x: DTensor, cfg: ArchConfig, q_offset):
     pos = torch.arange(s, device=x.device) + int(q_offset)
     cos, sin = rope_angles(pos, rope_d, cfg.rope_theta)
     kr = apply_rope(dot(x, p["wkr"]).redistribute(mesh, rows)[:, :, None, :], cos, sin)
-    by_heads = h % spmd.mesh_size(mesh, model) == 0
+    by_heads = spmd.divides(h, spmd.mesh_size(mesh, model))
     if by_heads:
         places = tuple(spmd.Shard(2) if i in model else p_ for i, p_ in enumerate(rows))
         split = model

@@ -37,7 +37,12 @@ SSM mixers have DTensor paths of their own (``attention._mla_full_sharded``
 ``_rwkv_channel_mix_sharded`` / ``_ssd_mix_sharded``); the recurrent states
 (RWKV's ``tm_s``, ``tm_x``, ``cm_x``, hymba's ``ssd_s``) are written into
 the cache in ``cache_specs``' placements, each rank its own block
-(``_put``). The MoE layer's aux loss
+(``_put``). The enc-dec encoder and cross attention run by heads like the
+decoder's attention, and the cross cache is written in ``cache_specs``'
+placements (its source sequence over ``model``, ``_place``) and read
+block by block in decode. The VLM's patch embeddings go ahead of the text
+in the batch's placements, so the concat and the text slice stay local
+(the sequence is never sharded between layers). The MoE layer's aux loss
 (a DTensor over the global token set) is summed over the layers as the
 plain path sums it. Each entry point (``forward_train``,
 ``loss_fn``, ``prefill``, ``decode_step``) runs its body under
@@ -366,14 +371,24 @@ def _decoder_stack(cfg: ArchConfig, params: Params, x: torch.Tensor, *,
 
 
 def _cross_attn(cfg, cp, x, enc_out, cached_kv=None):
+    """The decoder's attention over the encoder's output ``enc_out`` (train,
+    prefill) or over the cross cache ``cached_kv`` (decode). On DTensors:
+    queries, keys and values are column-parallel products split into heads
+    (``attention._heads``), the attention runs by heads on local blocks
+    (``_sdpa`` -> ``_sdpa_heads``), and the output projection is
+    row-parallel, reduced once. In decode the cross cache's source sequence
+    is sharded over ``model`` (``cache_specs``): ``_sdpa`` scores each
+    rank's own block and reduces the softmax's max and sum across blocks, as
+    the self-attention's decode does on its cache; the cache is never
+    gathered."""
     b, s, d = x.shape
     h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     hq = rms_norm(x, cp["ln"])
-    q = dot(hq, cp["wq"]).reshape(b, s, h, dh)
+    q = attn_lib._heads(dot(hq, cp["wq"]), b, s, h, dh)
     if cached_kv is None:
         se = enc_out.shape[1]
-        k = dot(enc_out, cp["wk"]).reshape(b, se, hkv, dh)
-        v = dot(enc_out, cp["wv"]).reshape(b, se, hkv, dh)
+        k = attn_lib._heads(dot(enc_out, cp["wk"]), b, se, hkv, dh)
+        v = attn_lib._heads(dot(enc_out, cp["wv"]), b, se, hkv, dh)
     else:
         k, v = cached_kv
     if cfg.attn_impl == "chunked":
@@ -384,11 +399,16 @@ def _cross_attn(cfg, cp, x, enc_out, cached_kv=None):
     else:
         mask = torch.ones((s, k.shape[1]), dtype=torch.bool, device=x.device)
         out = attn_lib._sdpa(q, k, v, mask)
-    return x + dot(out.reshape(b, s, h * dh), cp["wo"]), k, v
+    return x + spmd.reduced(dot(out.reshape(b, s, h * dh), cp["wo"])), k, v
 
 
 def _encoder_stack(cfg: ArchConfig, params: Params, src: torch.Tensor) -> torch.Tensor:
-    """Bidirectional encoder over frame embeddings (stub frontend)."""
+    """Bidirectional encoder over frame embeddings (stub frontend). On
+    DTensors each layer runs as the decoder's do: its input pinned to the
+    batch's placements, the attention by heads on local blocks, the
+    row-parallel outputs reduced once. The output leaves through
+    ``rms_norm``, whose backward reduces once the partial gradients that
+    every decoder layer's cross keys and values send back to it."""
     hh, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
 
     def body(x, lp):
@@ -396,15 +416,15 @@ def _encoder_stack(cfg: ArchConfig, params: Params, src: torch.Tensor) -> torch.
         lp = _cast_layer(cfg, lp)
         h = rms_norm(x, lp["ln1"])
         b, s, d = h.shape
-        q = dot(h, lp["attn"]["wq"]).reshape(b, s, hh, dh)
-        k = dot(h, lp["attn"]["wk"]).reshape(b, s, hkv, dh)
-        v = dot(h, lp["attn"]["wv"]).reshape(b, s, hkv, dh)
+        q = attn_lib._heads(dot(h, lp["attn"]["wq"]), b, s, hh, dh)
+        k = attn_lib._heads(dot(h, lp["attn"]["wk"]), b, s, hkv, dh)
+        v = attn_lib._heads(dot(h, lp["attn"]["wv"]), b, s, hkv, dh)
         cos, sin = rope_angles(torch.arange(s, device=x.device), dh, cfg.rope_theta)
         q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
         out = attn_lib._sdpa(q, k, v, torch.ones((s, s), dtype=torch.bool, device=x.device))
-        x = x + dot(out.reshape(b, s, hh * dh), lp["attn"]["wo"])
+        x = x + spmd.reduced(dot(out.reshape(b, s, hh * dh), lp["attn"]["wo"]))
         h2 = rms_norm(x, lp["ln2"])
-        return x + _ffn(lp["ffn"], h2)
+        return x + spmd.reduced(_ffn(lp["ffn"], h2))
 
     body_fn = _remat(cfg, body)
     x = src
@@ -585,8 +605,8 @@ def _prefill(cfg: ArchConfig, params: Params, batch: Dict[str, torch.Tensor],
             _put(cache, "ssd_s", caches[extra])
             extra += 1
         if cfg.family == "encdec":
-            cache["cross_k"] = caches[extra].to(cache["cross_k"].dtype)
-            cache["cross_v"] = caches[extra + 1].to(cache["cross_v"].dtype)
+            _place(cache["cross_k"], caches[extra])
+            _place(cache["cross_v"], caches[extra + 1])
     return logits, cache
 
 

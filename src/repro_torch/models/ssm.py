@@ -311,7 +311,7 @@ def _layout(x: DTensor, heads: int):
     model = spmd.model_mesh_dims(mesh)
     size = spmd.mesh_size(mesh, model)
     return (mesh, spmd.batch_placements(x.shape, mesh), model,
-            bool(model) and heads % size == 0 and heads >= size)
+            bool(model) and spmd.divides(heads, size))
 
 
 def _over(rows: Sequence[spmd.Placement], model: Sequence[int], dim: int,

@@ -1159,31 +1159,34 @@ def test_spmd_world_of_one_matches_plain(cuda_device, tmp_path):
 #: ``chip_smoke.SPMD_CASES`` past the first (yi-6b): MLA with the expanded and
 #: the absorbed decode, qwen3-moe at capacity_factor 1.0 with global and with
 #: grouped dispatch, grok with 3 experts, rwkv6-7b with 4 and 3 heads, hymba
-#: at 4 layers with 4 and 3 heads.
+#: at 4 layers with 4 and 3 heads, seamless (2 + 2 layers) with a vocab of 256
+#: and of 255, llava with 2 and 1 kv heads.
 SPMD_FAMILY_CASES = {"minicpm3": 1, "minicpm3-absorb": 2, "qwen3-moe-global": 3,
                      "qwen3-moe-grouped": 4, "grok-e3": 5, "rwkv6": 6, "rwkv6-h3": 7,
-                     "hymba": 8, "hymba-h3": 9}
+                     "hymba": 8, "hymba-h3": 9, "seamless": 10, "seamless-v255": 11,
+                     "llava": 12, "llava-kv1": 13}
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", SPMD_FAMILY_CASES)
 def test_spmd_world_of_one_matches_plain_families(cuda_device, tmp_path, case):
-    """Phase 18 (a) for the MLA, MoE, SSM and hybrid families on a world-1
-    NCCL mesh: each reduced config's sharded step, prefill and decode
-    against the plain port on the card (``SPMD_TOL``)."""
+    """Phase 18 (a) for the MLA, MoE, SSM, hybrid, enc-dec and VLM families
+    on a world-1 NCCL mesh: each reduced config's sharded step, prefill and
+    decode against the plain port on the card (``SPMD_TOL``)."""
     summary = _spmd_world(1, tmp_path, str(SPMD_FAMILY_CASES[case]))
     assert "no gradient off its parameter's placements" in summary
 
 
 @pytest.mark.cuda
 def test_spmd_two_cards_match_plain(cuda_device, tmp_path):
-    """(c): reduced yi-6b, minicpm3, qwen3-moe, rwkv6-7b (4 and 3 heads) and
-    hymba (4 and 3 heads) on a (2, n/2) NCCL mesh."""
+    """(c): reduced yi-6b, minicpm3, qwen3-moe, rwkv6-7b (4 and 3 heads),
+    hymba (4 and 3 heads), seamless and llava (1 kv head) on a (2, n/2)
+    NCCL mesh."""
     n = torch.cuda.device_count()
     if n < 2:
         pytest.skip("needs 2 or more cards (NCCL puts no two ranks on one card)")
     lines = _spmd_world(2 * (n // 2), tmp_path).splitlines()
     assert [ln.split(":")[0].split(",")[0] for ln in lines] == [
         "yi-6b", "minicpm3-4b", "qwen3-moe-235b-a22b", "rwkv6-7b", "rwkv6-7b", "hymba-1.5b",
-        "hymba-1.5b"]
+        "hymba-1.5b", "seamless-m4t-large-v2", "llava-next-mistral-7b"]
     assert all("greedy tokens decided" in ln for ln in lines)

@@ -351,17 +351,37 @@ def test_run_cell_record(shape):
     assert skipped["status"] == "skipped(full-attention)"
 
 
-def test_run_cell_outside_the_slice_keeps_the_even_split():
-    """A family whose sharded program is not ported (enc-dec,
-    seamless-m4t-large-v2, 2 + 2 layers) keeps one card's count split
-    evenly, and says so."""
+def test_run_cell_of_encdec_is_rank0s_program():
+    """An enc-dec cell (seamless-m4t-large-v2, 2 + 2 layers, ``decode_32k``)
+    counts rank 0's program with its collectives, as every family does, and
+    its record says that the cross cache's source sequence is split over
+    ``model``, each rank scoring its own block (the encoder does not run in
+    decode: its note is a train / prefill cell's)."""
     rec = dryrun.run_cell("seamless-m4t-large-v2", "decode_32k", "single",
                           {"n_layers": "2", "n_enc_layers": "2"})
-    assert rec["status"] == "ok" and rec["spmd"] is False
-    assert rec["collective_bytes"] is None and rec["collectives"] is None
-    assert rec["roofline"]["collective_s"] is None
-    assert "ROADMAP 14d" in rec["collective_note"] and "enc-dec" in rec["collective_note"]
-    assert rec["counted_flops_per_device"] == rec["counted_flops"] / 256
+    assert rec["status"] == "ok" and rec["spmd"] is True and rec["chips"] == 256
+    assert rec["collectives"]["TOTAL"]["count"] > 0
+    assert rec["collective_bytes"] == rec["collective_bytes_per_device"] * 256 > 0
+    assert rec["roofline"]["collective_s"] > 0
+    assert 0 < rec["counted_flops_per_device"] < rec["counted_flops"]
+    assert "encoder" not in rec
+    assert rec["cross_cache"].startswith("cross_k / cross_v of 32768 source positions")
+    assert "split over the 16-way model axis (2048 a rank)" in rec["cross_cache"]
+
+
+def test_run_cell_of_vlm_is_rank0s_program():
+    """A VLM cell (llava-next-mistral-7b, 2 layers, ``train_4k``) counts
+    rank 0's program with its collectives, and its record gives the patch
+    tokens ahead of the text (2,048 of 4,096: ``launch.specs``) and says that
+    only the text is scored."""
+    rec = dryrun.run_cell("llava-next-mistral-7b", "train_4k", "single", {"n_layers": "2"})
+    assert rec["status"] == "ok" and rec["spmd"] is True and rec["chips"] == 256
+    assert rec["collectives"]["TOTAL"]["count"] > 0
+    assert rec["collective_bytes"] == rec["collective_bytes_per_device"] * 256 > 0
+    assert 0 < rec["counted_flops_per_device"] < rec["counted_flops"]
+    assert rec["patch_tokens"] == ("2048 patch tokens ahead of 2048 text tokens in each "
+                                   "sequence; only the text positions are scored")
+    assert "encoder" not in rec and "cross_cache" not in rec
 
 
 # -- the enterprise serving dry run ------------------------------------------

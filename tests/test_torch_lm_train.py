@@ -175,6 +175,33 @@ def test_loop_retries_injected_failure_and_resumes(tmp_path):
     assert first["losses"][6] != clean["losses"][6]
 
 
+def test_loop_retry_waits_for_a_checkpoint_in_flight(tmp_path, monkeypatch):
+    """The retry restores the newest checkpoint saved before the failure even
+    while its asynchronous write is still running (each write held back 0.3
+    s here; on the card two reduced steps take less than a write): after 12
+    steps with a failure at step 6 the optimizer has taken 10, the 2 steps
+    rolled back to the step-4 checkpoint taken again."""
+    import time
+
+    from repro_torch.checkpoint import ckpt as ckpt_mod
+
+    write = ckpt_mod.Checkpointer._write
+
+    def slow_write(self, *args):
+        time.sleep(0.3)
+        return write(self, *args)
+
+    monkeypatch.setattr(ckpt_mod.Checkpointer, "_write", slow_write)
+    _, tcfg = configs("yi-6b")
+    d = str(tmp_path / "ck")
+    first = TT.train_loop(tcfg, steps=12, inject_failure_at=6, batch=4, seq=16, ckpt_dir=d,
+                          save_every=4, device="cpu")
+    assert first["steps_run"] == 12
+    step, state = Checkpointer(d).restore(
+        {"opt": {"inner": {"step": torch.zeros((), dtype=torch.int32)}}}, device="cpu")
+    assert step == 12 and int(state["opt"]["inner"]["step"]) == 10
+
+
 def test_optimizer_state_crosses_through_convert():
     """``convert.lm_params_from_numpy`` carries an optimizer state: int32
     ``step`` and Adafactor's factored ``vr`` / ``vc``."""

@@ -541,13 +541,14 @@ def test_rank0_count_covers_the_single_device_count():
     from repro_torch.configs.shapes import ShapeSpec
     from repro_torch.distributed import spmd
     from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_production_mesh
 
     cfg = reduced_config(get_config("yi-6b"))
     shape = ShapeSpec("train_small", SEQ, BATCH, "train")
     with spmd.spmd_mesh((2, 2), ("data", "model"), backend="fake") as mesh:
         counter, arg_bytes, _ = dryrun.count_rank0(cfg, shape, mesh)
         chips = mesh.size()
-    fn, args, _ = dryrun._step_and_specs(cfg, shape, dryrun.make_production_mesh())
+    fn, args, _ = dryrun._step_and_specs(cfg, shape, make_production_mesh())
     one = dryrun.count_step(fn, args)
     assert chips == 4 and arg_bytes > 0
     ratio = chips * counter.flops / one.flops

@@ -525,13 +525,14 @@ def _train_counts(case, **overrides):
     from repro_torch.configs.shapes import ShapeSpec
     from repro_torch.distributed import spmd
     from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_production_mesh
 
     cfg = dataclasses.replace(_config(get_config, reduced_config, case), **overrides)
     shape = ShapeSpec("train_small", SEQ, BATCH, "train")
     with spmd.spmd_mesh((2, 2), ("data", "model"), backend="fake") as mesh:
         counter, arg_bytes, _ = dryrun.count_rank0(cfg, shape, mesh)
         chips = mesh.size()
-    fn, args, _ = dryrun._step_and_specs(cfg, shape, dryrun.make_production_mesh())
+    fn, args, _ = dryrun._step_and_specs(cfg, shape, make_production_mesh())
     assert arg_bytes > 0 and counter.collectives["TOTAL"]["count"] > 0
     return chips * counter.flops, dryrun.count_step(fn, args).flops
 

@@ -401,6 +401,7 @@ def _train_counts(case, stand_in: bool = False):
     from repro_torch.configs.shapes import ShapeSpec
     from repro_torch.distributed import spmd
     from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_production_mesh
     from repro_torch.models import ssm
 
     cfg = _config(get_config, reduced_config, case)
@@ -409,7 +410,7 @@ def _train_counts(case, stand_in: bool = False):
         counter, arg_bytes, _ = dryrun.count_rank0(cfg, shape, mesh)
         chips = mesh.size()
     assert arg_bytes > 0 and counter.collectives["TOTAL"]["count"] > 0
-    fn, args, _ = dryrun._step_and_specs(cfg, shape, dryrun.make_production_mesh())
+    fn, args, _ = dryrun._step_and_specs(cfg, shape, make_production_mesh())
     if not stand_in:
         return chips * counter.flops, dryrun.count_step(fn, args).flops
     scans = ssm.wkv6_chunked, ssm.ssd_chunked
