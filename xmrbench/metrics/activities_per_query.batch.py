@@ -1,0 +1,7 @@
+"""Device activities (kernels, copies, memsets) a query in the traced batch calls."""
+
+from xmrbench import readers
+
+
+def read(rec):
+    return readers.activities_per_query(rec, "batch")

@@ -1,0 +1,7 @@
+"""95th percentile of the client-timed serve_online calls over the window, in ms (host clock)."""
+
+from xmrbench import readers
+
+
+def read(rec):
+    return readers.latency_ms(rec, "online", 95)
