@@ -1163,7 +1163,7 @@ def log_block_kernel(what: str, rows, queries: int, kernel: str = "mscm_block_ke
             f"{us / 1e3:.4f} ms in all)")
 
 
-def path(torch, mk, gpu: str):
+def path(torch, gpu: str):
     """Phase 5: the batch path at the search-1m geometry. Returns the grouped
     kernel's launches, the tree and the queries."""
     from repro_torch.data.build import build_benchmark_tree
@@ -1188,11 +1188,11 @@ def path(torch, mk, gpu: str):
     eng.warmup(shape.d, batch_sizes=(64,))
     torch.cuda.reset_peak_memory_stats()
 
-    mk.GROUPED_LAUNCHES = 0
+    zero_counts()
     t0 = time.perf_counter()
     s, l = eng.serve_batch(queries)
     wall = time.perf_counter() - t0
-    launches = mk.GROUPED_LAUNCHES
+    launches = counts()["grouped"]
     n_batches = -(-queries.shape[0] // SERVE["max_batch"])
     if launches != tree.depth * n_batches:
         raise AssertionError(f"{launches} grouped launches, want {tree.depth * n_batches}")
@@ -1262,7 +1262,7 @@ def quant_codes_check(torch, layer, d: int) -> None:
         f"{rc.shape[1]}), of a level of {c} chunks x {r} x {b} equal the CPU's bitwise")
 
 
-def quant(torch, mk, qk, gpu: str, tree, queries):
+def quant(torch, gpu: str, tree, queries):
     """Phase 6: the quantized tiers on search-1m in batch. Returns the
     grouped_q kernel's launches on the int8 tier."""
     from repro_torch.quant import dequantize_tree, recall_at_k, score_mae
@@ -1287,11 +1287,12 @@ def quant(torch, mk, qk, gpu: str, tree, queries):
 
     def counted(eng, tier):
         """One serve_batch with the launch counts set to 0 just before."""
-        qk.GROUPED_Q_LAUNCHES = mk.GROUPED_LAUNCHES = 0
+        zero_counts()
         t0 = time.perf_counter()
         s, l = eng.serve_batch(queries)
         wall = time.perf_counter() - t0
-        launches = (qk.GROUPED_Q_LAUNCHES, mk.GROUPED_LAUNCHES)
+        got = counts()
+        launches = (got["grouped_q"], got["grouped"])
         if launches != (tree.depth * n_batches, 0):
             raise AssertionError(f"tier {tier}: (grouped_q, grouped) launches {launches}, "
                                  f"want {(tree.depth * n_batches, 0)}")
@@ -1362,7 +1363,7 @@ def quant(torch, mk, qk, gpu: str, tree, queries):
     return launches
 
 
-def online(torch, mk, gpu: str, tree, queries):
+def online(torch, gpu: str, tree, queries):
     """Phase 7: the online setting, one query at a time. Returns the
     pregather kernel's launches on search-1m and the fused kernel's on
     search-32k."""
@@ -1379,12 +1380,12 @@ def online(torch, mk, gpu: str, tree, queries):
         the launch counts set to 0 just before."""
         eng = XMRServingEngine(t, ServeConfig(method=method, **SERVE))
         eng.warmup(t.d)
-        mk.FUSED_LAUNCHES = mk.PREGATHER_LAUNCHES = 0
+        zero_counts()
         s, l = eng.serve_online(qs, limit=n)
-        counts = (mk.FUSED_LAUNCHES, mk.PREGATHER_LAUNCHES)
+        got = counts()
         if s.shape != (n, SERVE["topk"]) or not np.isfinite(s).all():
             raise AssertionError(f"{method}: bad scores, shape {s.shape}")
-        return eng, s, l, counts
+        return eng, s, l, (got["fused"], got["pregather"])
 
     def expect(method, counts, want):
         if counts != want:
@@ -1457,16 +1458,27 @@ def online(torch, mk, gpu: str, tree, queries):
     return pregather, fused
 
 
-def zero_counts(mk, qk) -> None:
-    """Set every kernel's launch count to 0."""
-    mk.GROUPED_LAUNCHES = mk.FUSED_LAUNCHES = mk.PREGATHER_LAUNCHES = 0
-    qk.GROUPED_Q_LAUNCHES = 0
+#: The kernels whose launches the port counts (``obs`` counters
+#: ``launches.mscm_<kernel>``).
+KERNELS = ("grouped", "grouped_q", "fused", "pregather")
+#: Each kernel's launch total at the last :func:`zero_counts`.
+_LAUNCH_BASE = dict.fromkeys(KERNELS, 0)
 
 
-def counts(mk, qk) -> dict:
-    """Every kernel's launch count, by name."""
-    return {"grouped": mk.GROUPED_LAUNCHES, "grouped_q": qk.GROUPED_Q_LAUNCHES,
-            "fused": mk.FUSED_LAUNCHES, "pregather": mk.PREGATHER_LAUNCHES}
+def _launch_totals() -> dict:
+    from repro_torch import obs
+
+    return {k: obs.total(f"launches.mscm_{k}") for k in KERNELS}
+
+
+def zero_counts() -> None:
+    """Count every kernel's launches from 0 here on."""
+    _LAUNCH_BASE.update(_launch_totals())
+
+
+def counts() -> dict:
+    """Every kernel's launches since the last :func:`zero_counts`, by name."""
+    return {k: n - _LAUNCH_BASE[k] for k, n in _launch_totals().items()}
 
 
 def serve_through_batcher(mb, queries, clients: int = 1, started: bool = False):
@@ -1537,7 +1549,7 @@ def server_readings(metrics) -> str:
             f"{occ:.4f}, shed {s['shed']}")
 
 
-def server(torch, mk, qk, gpu: str, tree, queries) -> tuple:
+def server(torch, gpu: str, tree, queries) -> tuple:
     """Phase 8: the serving front end on search-1m: 256 queries through a
     ``MicroBatcher`` from 4 client threads (exact tier), 512 at a bounded
     queue (overload), a burst under an SLO ladder, and the int8 tier. Each
@@ -1576,9 +1588,9 @@ def server(torch, mk, qk, gpu: str, tree, queries) -> tuple:
     s_x, l_x = eng.serve_batch(queries)
     batch_wall = time.perf_counter() - t0
     mb = MicroBatcher(eng, policy, warmup_on_start=False)
-    zero_counts(mk, qk)
+    zero_counts()
     res, wall = serve_through_batcher(mb, queries, clients=4, started=True)
-    got = counts(mk, qk)
+    got = counts()
     batches = len(mb.metrics.batch_sizes)
     expect("exact tier", got, grouped=depth * batches)
     held_bitwise(res, s_x, l_x, "server exact tier")
@@ -1602,9 +1614,9 @@ def server(torch, mk, qk, gpu: str, tree, queries) -> tuple:
     eng_o.warmup_buckets(tree.d, SERVE["max_batch"])
     twice = queries.slice_rows(np.concatenate([np.arange(n), np.arange(n)]))
     mb = MicroBatcher(eng_o, policy, warmup_on_start=False)
-    zero_counts(mk, qk)
+    zero_counts()
     res, _ = serve_through_batcher(mb, twice)
-    got = counts(mk, qk)
+    got = counts()
     expect("overload", got, grouped=depth)
     ok = [r for r in res if r.ok]
     shed = [r for r in res if r.status == "overloaded" and r.http_status == 429]
@@ -1629,13 +1641,13 @@ def server(torch, mk, qk, gpu: str, tree, queries) -> tuple:
     def probe_then_zero(*args, **kwargs):
         """start()'s calibration probe; the counts restart after each."""
         out = probe(*args, **kwargs)
-        zero_counts(mk, qk)
+        zero_counts()
         return out
 
     eng_s.measure_batch_seconds = probe_then_zero
     mb = MicroBatcher(eng_s, policy, warmup_on_start=False)
     res, _ = serve_through_batcher(mb, queries)
-    got = counts(mk, qk)
+    got = counts()
     batches = len(mb.metrics.batch_sizes)
     expect("SLO ladder", got, grouped=depth * batches)
     summ, tq = mb.metrics.summary(), dict(mb.metrics.tier_queries)
@@ -1663,9 +1675,9 @@ def server(torch, mk, qk, gpu: str, tree, queries) -> tuple:
     eng_q.warmup_buckets(tree.d, SERVE["max_batch"])
     s_q, l_q = eng_q.serve_batch(queries)
     mb = MicroBatcher(eng_q, policy, warmup_on_start=False)
-    zero_counts(mk, qk)
+    zero_counts()
     res, wall = serve_through_batcher(mb, queries)
-    got = counts(mk, qk)
+    got = counts()
     expect("int8 tier", got, grouped_q=depth * len(mb.metrics.batch_sizes))
     held_bitwise(res, s_q, l_q, "server int8 tier")
     log(f"  int8 tier, {n} enqueued before start: {server_readings(mb.metrics)}; wall "
@@ -1681,7 +1693,7 @@ def device_slots(torch, n: int) -> list:
     return [f"cuda:{i % cards}" for i in range(n)]
 
 
-def partition(torch, mk, qk, gpu: str, tree, queries) -> tuple:
+def partition(torch, gpu: str, tree, queries) -> tuple:
     """Phase 9: the label-partitioned index on search-1m at full width, P =
     PARTITIONS (split level 1): ``serve_batch`` of the queries through
     ``level`` and ``pipelined`` (bitwise the unpartitioned engine), the
@@ -1730,11 +1742,11 @@ def partition(torch, mk, qk, gpu: str, tree, queries) -> tuple:
 
     def served(eng, what, grouped=0, grouped_q=0, at_most=False):
         """One serve_batch of every query, launch counts from 0 just before."""
-        zero_counts(mk, qk)
+        zero_counts()
         t0 = time.perf_counter()
         s, l = eng.serve_batch(queries)
         wall = time.perf_counter() - t0
-        got = counts(mk, qk)
+        got = counts()
         want = {"grouped": grouped, "grouped_q": grouped_q, "fused": 0, "pregather": 0}
         ok = (all(got[k] <= want[k] for k in want) and got["grouped"] >= batches
               if at_most else got == want)
@@ -1808,9 +1820,9 @@ def partition(torch, mk, qk, gpu: str, tree, queries) -> tuple:
     eng = build(f"P=2 shards=2 on {slots}", devices=slots, shards=2, partitions=2)
     mb = MicroBatcher(eng, BatchPolicy(max_batch=mb_size, max_wait_ms=2.0),
                       warmup_on_start=False)
-    zero_counts(mk, qk)
+    zero_counts()
     res, wall = serve_through_batcher(mb, queries, clients=4, started=True)
-    got = counts(mk, qk)
+    got = counts()
     nb = len(mb.metrics.batch_sizes)
     if got != {"grouped": nb * (1 + (depth - 1) * 2 * 2), "grouped_q": 0, "fused": 0,
                "pregather": 0}:
@@ -1941,7 +1953,7 @@ def proc_memory(pid) -> str:
     return f"now {fields['VmRSS']:.3f} GB, peak {peak}"
 
 
-def fleet(torch, mk, qk, gpu: str, tree, queries) -> tuple:
+def fleet(torch, gpu: str, tree, queries) -> tuple:
     """Phase 10: search-1m's P = 4 partitions (split level 1, pipelined)
     served by fleet workers, in three parts. (1) Launch counts: 4 workers in
     threads of this process on the card, over sockets, the int8 tier then
@@ -1982,9 +1994,9 @@ def fleet(torch, mk, qk, gpu: str, tree, queries) -> tuple:
             raise AssertionError(f"fleet {what}: not bitwise")
 
     def counted(eng, what, grouped, grouped_q=0):
-        zero_counts(mk, qk)
+        zero_counts()
         s, l = eng.serve_batch(queries)
-        got = counts(mk, qk)
+        got = counts()
         want = {"grouped": grouped, "grouped_q": grouped_q, "fused": 0, "pregather": 0}
         if got != want:
             raise AssertionError(f"fleet {what}: launches {got}, want {want}")
@@ -2226,7 +2238,7 @@ def fleet(torch, mk, qk, gpu: str, tree, queries) -> tuple:
     return fleet_launches["grouped"], fleet_launches["grouped_q"]
 
 
-def train(torch, mk, gpu: str, random_levels: list) -> int:
+def train(torch, gpu: str, random_levels: list) -> int:
     """Phase 11: the training path at eurlex-4k's width (d, L, n_test of
     ``PAPER_SHAPES``; n_train 4 x n_test, the quickstart's ratio), trained
     on the card, then its test split served in batch through
@@ -2281,11 +2293,11 @@ def train(torch, mk, gpu: str, random_levels: list) -> int:
     eng.warmup(d, batch_sizes=(64,))
     n_test = queries.shape[0]
     n_batches = -(-n_test // serve["max_batch"])
-    mk.GROUPED_LAUNCHES = 0
+    zero_counts()
     t0 = time.perf_counter()
     s, l = eng.serve_batch(queries)
     wall = time.perf_counter() - t0
-    launches = mk.GROUPED_LAUNCHES
+    launches = counts()["grouped"]
     if launches != tree.depth * n_batches:
         raise AssertionError(f"{launches} grouped launches, want {tree.depth * n_batches}")
     if s.shape != (n_test, serve["topk"]) or not np.isfinite(s).all():
@@ -2329,7 +2341,7 @@ def bits_equal(torch, a, b) -> bool:
     return bool(torch.equal(a.contiguous().view(width), b.contiguous().view(width)))
 
 
-def ckpt(torch, mk, qk, gpu: str, tree, queries, device: str = "cuda") -> None:
+def ckpt(torch, gpu: str, tree, queries, device: str = "cuda") -> None:
     """Phase 11: checkpoints of the int8 and fp8 search-1m trees and of two
     reduced LMs (f32 and bf16 parameters), written in both modes and
     restored onto the card bitwise; the 256 queries served through the
@@ -2398,9 +2410,9 @@ def ckpt(torch, mk, qk, gpu: str, tree, queries, device: str = "cuda") -> None:
         for t in (qtree, back):
             eng = XMRServingEngine(t, ServeConfig(method="mscm_pallas_grouped_q", **SERVE),
                                    device=device)
-            zero_counts(mk, qk)
+            zero_counts()
             results.append(eng.serve_batch(queries))
-            launches = counts(mk, qk)
+            launches = counts()
             want = tree.depth * -(-n // SERVE["max_batch"])
             if launches["grouped_q"] != want or launches["grouped"]:
                 raise AssertionError(f"restored int8 tree: launches {launches}")
@@ -3687,26 +3699,26 @@ def main() -> int:
     log(f"phase small (at {time.perf_counter() - t_all:.1f} s)")
     small_check(torch)
     log(f"phase path (at {time.perf_counter() - t_all:.1f} s)")
-    grouped["launches"], tree, queries, random_levels = path(torch, mk, gpu)
+    grouped["launches"], tree, queries, random_levels = path(torch, gpu)
     log(f"phase quant (at {time.perf_counter() - t_all:.1f} s)")
-    grouped_q["launches"] = quant(torch, mk, qk, gpu, tree, queries)
+    grouped_q["launches"] = quant(torch, gpu, tree, queries)
     log(f"phase online (at {time.perf_counter() - t_all:.1f} s)")
-    pregather["launches"], fused["launches"] = online(torch, mk, gpu, tree, queries)
+    pregather["launches"], fused["launches"] = online(torch, gpu, tree, queries)
     log(f"phase server (at {time.perf_counter() - t_all:.1f} s)")
     grouped["server_launches"], grouped_q["server_launches"] = server(
-        torch, mk, qk, gpu, tree, queries)
+        torch, gpu, tree, queries)
     log(f"phase partition (at {time.perf_counter() - t_all:.1f} s)")
     grouped["partition_launches"], grouped_q["partition_launches"] = partition(
-        torch, mk, qk, gpu, tree, queries)
+        torch, gpu, tree, queries)
     log(f"phase fleet (at {time.perf_counter() - t_all:.1f} s)")
     grouped["fleet_launches"], grouped_q["fleet_launches"] = fleet(
-        torch, mk, qk, gpu, tree, queries)
+        torch, gpu, tree, queries)
     log(f"phase ckpt (at {time.perf_counter() - t_all:.1f} s)")
-    ckpt(torch, mk, qk, gpu, tree, queries)
+    ckpt(torch, gpu, tree, queries)
     del tree, queries
     torch.cuda.empty_cache()
     log(f"phase train (at {time.perf_counter() - t_all:.1f} s)")
-    grouped["train_launches"] = train(torch, mk, gpu, random_levels)
+    grouped["train_launches"] = train(torch, gpu, random_levels)
     log(f"phase lm (at {time.perf_counter() - t_all:.1f} s)")
     lm_phase(torch, gpu)
     log(f"phase lm_train (at {time.perf_counter() - t_all:.1f} s)")

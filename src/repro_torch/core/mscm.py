@@ -26,6 +26,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from repro_torch import obs
+
 
 def scatter_dense(x_idx: torch.Tensor, x_val: torch.Tensor, d: int) -> torch.Tensor:
     """Scatter ELL queries into a dense [n, d+1] lookup table.
@@ -36,11 +38,12 @@ def scatter_dense(x_idx: torch.Tensor, x_val: torch.Tensor, d: int) -> torch.Ten
     ``mode="drop"`` drops those past d; query ids are never negative).
     """
     n = x_idx.shape[0]
-    keep = (x_idx >= 0) & (x_idx <= d)
-    idx = torch.where(keep, x_idx, d).to(torch.int64)
-    val = torch.where(keep, x_val, 0.0)
-    out = torch.zeros((n, d + 1), dtype=x_val.dtype, device=x_val.device)
-    return out.scatter_add_(1, idx, val)
+    with obs.span("mscm.table", device=x_val.device):
+        keep = (x_idx >= 0) & (x_idx <= d)
+        idx = torch.where(keep, x_idx, d).to(torch.int64)
+        val = torch.where(keep, x_val, 0.0)
+        out = torch.zeros((n, d + 1), dtype=x_val.dtype, device=x_val.device)
+        return out.scatter_add_(1, idx, val)
 
 
 def mscm_dense_lookup(

@@ -27,6 +27,7 @@ from typing import List, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core import mscm as mscm_lib
 from repro_torch.core.beam import NEG_INF, beam_select, combine_scores
 from repro_torch.core.chunked import ChunkedLayer, ColumnELLLayer
@@ -419,15 +420,17 @@ def _tree_infer(
             chunk_ids = parent_ids.clamp(max=layer.chunk_rows.shape[0] - 1)
         is_last = li == len(layers) - 1
         next_b = min(topk if is_last else beam, n_cols[li])
-        combined = level_combined(
-            layer, branching[li], d, x_idx, x_val, x_dense, chunk_ids, scores,
-            method=method, score_mode=score_mode, qt=qt,
-        )
-        parent_ids, scores = beam_select(chunk_ids, combined, n_cols[li], next_b)
-        if method in _GROUPED and not is_last:
-            # Keep the beam id-ascending so the next level's block list is
-            # already chunk-major within each query; selection is canonical,
-            # so the order cannot change results.
-            parent_ids, perm = torch.sort(parent_ids, dim=1)
-            scores = scores.gather(1, perm)
+        with obs.span("tree.level", level=li):
+            combined = level_combined(
+                layer, branching[li], d, x_idx, x_val, x_dense, chunk_ids, scores,
+                method=method, score_mode=score_mode, qt=qt,
+            )
+        with obs.span("tree.beam_select", device=dev):
+            parent_ids, scores = beam_select(chunk_ids, combined, n_cols[li], next_b)
+            if method in _GROUPED and not is_last:
+                # Keep the beam id-ascending so the next level's block list is
+                # already chunk-major within each query; selection is canonical,
+                # so the order cannot change results.
+                parent_ids, perm = torch.sort(parent_ids, dim=1)
+                scores = scores.gather(1, perm)
     return scores, parent_ids

@@ -64,6 +64,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core import mscm as mscm_lib
 from repro_torch.core.beam import NEG_INF, beam_select, topk_canonical
 from repro_torch.core.tree import _NEEDS_DENSE, check_method, owned_level_combined
@@ -183,8 +184,9 @@ def _merge_beams(
     select: every global survivor is in its owner's local beam, and the
     order is total. ``width`` carries the unpartitioned ``min(next_b, b·B)``
     clamp. Returns ``(ids, scores)``."""
-    merged_scores, merged_ids = merge_topk(
-        torch.cat(list(scores), dim=1), torch.cat(list(ids), dim=1), width=width)
+    with obs.span("plan.gather_select", device=scores[0].device):
+        merged_scores, merged_ids = merge_topk(
+            torch.cat(list(scores), dim=1), torch.cat(list(ids), dim=1), width=width)
     return merged_ids, merged_scores
 
 
@@ -199,10 +201,11 @@ def _gather_select(
     """The owners' slices composed into the global candidates, then the
     canonical select. A row no partition owns stays ``NEG_INF``, as the
     unpartitioned traversal's mask pins it."""
-    acc = torch.full_like(parts_combined[0], NEG_INF)
-    for combined, owned in zip(parts_combined, parts_owned):
-        acc = torch.where(owned[..., None], combined, acc)
-    return beam_select(parent_ids, acc, n_cols, next_b)
+    with obs.span("plan.gather_select", device=parent_ids.device):
+        acc = torch.full_like(parts_combined[0], NEG_INF)
+        for combined, owned in zip(parts_combined, parts_owned):
+            acc = torch.where(owned[..., None], combined, acc)
+        return beam_select(parent_ids, acc, n_cols, next_b)
 
 
 def merge_topk(
@@ -468,10 +471,11 @@ class ScatterGatherPlanner:
     # -- query path ---------------------------------------------------------
     def _route(self, x_idx: torch.Tensor, x_val: torch.Tensor, *, beam: int, qt: int):
         """Router head: the global beam after the levels above the split."""
-        return self.head.infer(
-            x_idx, x_val, beam=beam, topk=beam, method=self._router_method,
-            score_mode=self.score_mode, qt=qt,
-        )
+        with obs.span("plan.route"):
+            return self.head.infer(
+                x_idx, x_val, beam=beam, topk=beam, method=self._router_method,
+                score_mode=self.score_mode, qt=qt,
+            )
 
     def _active_partitions(self, parent_ids: torch.Tensor) -> List[int]:
         """Partitions taking part in this batch: all of them without a cache
@@ -488,16 +492,17 @@ class ScatterGatherPlanner:
         the partitions placed on it."""
         out: Dict[int, list] = {}
         by_slot: Dict[Slot, tuple] = {}
-        for pid in active:
-            out[pid] = []
-            for slot, (r0, r1) in zip(self._slots[pid], rows):
-                if slot not in by_slot:
-                    xi, xv = send((x_idx[r0:r1], x_val[r0:r1]), self._coord, slot)
-                    with slot.enter():
-                        xd = (mscm_lib.scatter_dense(xi, xv, self.index.d)
-                              if self._needs_dense else None)
-                    by_slot[slot] = (xi, xv, xd)
-                out[pid].append(by_slot[slot])
+        with obs.span("plan.inputs"):
+            for pid in active:
+                out[pid] = []
+                for slot, (r0, r1) in zip(self._slots[pid], rows):
+                    if slot not in by_slot:
+                        xi, xv = send((x_idx[r0:r1], x_val[r0:r1]), self._coord, slot)
+                        with slot.enter():
+                            xd = (mscm_lib.scatter_dense(xi, xv, self.index.d)
+                                  if self._needs_dense else None)
+                        by_slot[slot] = (xi, xv, xd)
+                    out[pid].append(by_slot[slot])
         return out
 
     def infer(
@@ -556,19 +561,20 @@ class ScatterGatherPlanner:
             # branching products of the levels in between (tree order).
             span = int(np.prod(idx.branching[idx.level:li], dtype=np.int64))
             combined, owned = [], []
-            for pid in active:
-                comb_r, own_r = [], []
-                for r, (slot, (r0, r1)) in enumerate(zip(self._slots[pid], rows)):
-                    ids_p, sc_p = send((parent_ids[r0:r1], scores[r0:r1]), coord, slot)
-                    with slot.enter():
-                        comb_p, own_p = self._level_owned(li, pid, r, inputs, ids_p, sc_p,
-                                                          span, qt)
-                    comb_p, own_p = send((comb_p, own_p), slot, coord)
-                    comb_r.append(comb_p)
-                    own_r.append(own_p)
-                with coord.enter():
-                    combined.append(_cat_rows(comb_r))
-                    owned.append(_cat_rows(own_r))
+            with obs.span("tree.level", level=li):
+                for pid in active:
+                    comb_r, own_r = [], []
+                    for r, (slot, (r0, r1)) in enumerate(zip(self._slots[pid], rows)):
+                        ids_p, sc_p = send((parent_ids[r0:r1], scores[r0:r1]), coord, slot)
+                        with slot.enter():
+                            comb_p, own_p = self._level_owned(li, pid, r, inputs, ids_p,
+                                                              sc_p, span, qt)
+                        comb_p, own_p = send((comb_p, own_p), slot, coord)
+                        comb_r.append(comb_p)
+                        own_r.append(own_p)
+                    with coord.enter():
+                        combined.append(_cat_rows(comb_r))
+                        owned.append(_cat_rows(own_r))
             with coord.enter():
                 parent_ids, scores = _gather_select(
                     parent_ids, combined, owned, n_cols=idx.n_cols[li], next_b=next_b)
@@ -603,43 +609,44 @@ class ScatterGatherPlanner:
             next_b = min(self.topk if is_last else beam, idx.n_cols[li])
             width = min(next_b, width * idx.branching[li])
             sel = dict(n_cols=idx.n_cols[li], n_chunks=idx.n_cols[li - 1], next_b=next_b)
-            # (1) local canonical beams for level li.
-            for pid in active:
-                for r, (slot, (r0, r1)) in enumerate(zip(self._slots[pid], rows)):
-                    if li == li0:  # scored from the router handoff
-                        ids, sc = send((parent_ids[r0:r1], scores[r0:r1]), coord, slot)
-                        with slot.enter():
-                            comb, own = self._level_owned(li, pid, r, inputs, ids, sc, 1, qt)
-                            beam_p[pid, r] = _local_select(ids, comb, own, **sel)
-                    else:
-                        (ids,) = send((w_ids[r0:r1],), coord, slot)
-                        lay = self._trees[pid][r].layers[li - li0]
-                        with slot.enter():
-                            beam_p[pid, r] = _reconcile_select(
-                                ids, beam_p[pid, r][0], spec_comb[pid, r],
-                                infos[pid].chunk_start * span, lay.chunk_rows.shape[0] - 1,
-                                **sel)
-            # (2) the local beams to the coordinator, ahead of the products.
-            gathered = {key: send(beam_p[key], self._slots[key[0]][key[1]], coord)
-                        for key in beam_p}
-            # (3) the canonical merge == the global select for level li.
-            with coord.enter():
-                w_ids, w_scores = _merge_beams(
-                    [_cat_rows([gathered[pid, r][0] for r in range(len(rows))])
-                     for pid in active],
-                    [_cat_rows([gathered[pid, r][1] for r in range(len(rows))])
-                     for pid in active],
-                    width=width,
-                )
-            # (4) speculative expansion of level li+1: the double buffer.
-            if not is_last:
-                span *= idx.branching[li]
+            with obs.span("tree.level", level=li):
+                # (1) local canonical beams for level li.
                 for pid in active:
-                    for r, slot in enumerate(self._slots[pid]):
-                        s_ids, s_sc = beam_p[pid, r]
-                        with slot.enter():
-                            spec_comb[pid, r], _ = self._level_owned(
-                                li + 1, pid, r, inputs, s_ids, s_sc, span, qt)
+                    for r, (slot, (r0, r1)) in enumerate(zip(self._slots[pid], rows)):
+                        if li == li0:  # scored from the router handoff
+                            ids, sc = send((parent_ids[r0:r1], scores[r0:r1]), coord, slot)
+                            with slot.enter():
+                                comb, own = self._level_owned(li, pid, r, inputs, ids, sc, 1, qt)
+                                beam_p[pid, r] = _local_select(ids, comb, own, **sel)
+                        else:
+                            (ids,) = send((w_ids[r0:r1],), coord, slot)
+                            lay = self._trees[pid][r].layers[li - li0]
+                            with slot.enter():
+                                beam_p[pid, r] = _reconcile_select(
+                                    ids, beam_p[pid, r][0], spec_comb[pid, r],
+                                    infos[pid].chunk_start * span, lay.chunk_rows.shape[0] - 1,
+                                    **sel)
+                # (2) the local beams to the coordinator, ahead of the products.
+                gathered = {key: send(beam_p[key], self._slots[key[0]][key[1]], coord)
+                            for key in beam_p}
+                # (3) the canonical merge == the global select for level li.
+                with coord.enter():
+                    w_ids, w_scores = _merge_beams(
+                        [_cat_rows([gathered[pid, r][0] for r in range(len(rows))])
+                         for pid in active],
+                        [_cat_rows([gathered[pid, r][1] for r in range(len(rows))])
+                         for pid in active],
+                        width=width,
+                    )
+                # (4) speculative expansion of level li+1: the double buffer.
+                if not is_last:
+                    span *= idx.branching[li]
+                    for pid in active:
+                        for r, slot in enumerate(self._slots[pid]):
+                            s_ids, s_sc = beam_p[pid, r]
+                            with slot.enter():
+                                spec_comb[pid, r], _ = self._level_owned(
+                                    li + 1, pid, r, inputs, s_ids, s_sc, span, qt)
         return w_scores, w_ids
 
     def _run_partition(self, pid: int, r: int, ids_p, sc_p, xi_p, xv_p, *,

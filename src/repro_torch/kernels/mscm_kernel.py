@@ -24,27 +24,21 @@ point in ``csrc/mscm_grouped.cu``.
 
 Each wrapper takes the plain version for tensors on the CPU and launches
 its CUDA kernel for tensors on a GPU, raising if it cannot; it never falls
-back from one to the other. ``*_LAUNCHES`` count each kernel's launches, so
-a run can show its main path went through it.
+back from one to the other. Each launch adds 1 to the ``obs`` counter
+``launches.<kernel>`` (``launches.mscm_grouped``, ``.mscm_fused``,
+``.mscm_pregather``), so a run can show its main path went through it.
 """
 
 from __future__ import annotations
 
 import functools
-import threading
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-#: Launches of each CUDA kernel since import (or since a caller reset them).
-GROUPED_LAUNCHES = 0
-FUSED_LAUNCHES = 0
-PREGATHER_LAUNCHES = 0
-#: Held while a count is raised: wrappers run on several threads at once (a
-#: batcher's worker, in-process fleet workers), and ``+=`` is not atomic.
-COUNT_LOCK = threading.Lock()
+from repro_torch import obs
 
 #: Element types the per-block kernels take, by their code in the C interface.
 BLOCK_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -210,10 +204,8 @@ def mscm_grouped(
     if common_device(tensors, "mscm_grouped").type == "cpu":
         return mscm_grouped_plain(xg_tiles, vals, tile_chunk, parent_scores, mode=mode,
                                   tile_src=tile_src)
-    global GROUPED_LAUNCHES
     out = launch_grouped(xg_tiles, vals, None, tile_chunk, tile_src, parent_scores, mode)
-    with COUNT_LOCK:
-        GROUPED_LAUNCHES += 1
+    obs.count("launches.mscm_grouped")
     return out
 
 
@@ -648,7 +640,6 @@ def mscm_pregather(
 
 
 def _launch_block(x, vals, block_c, rows=None, block_q=None) -> torch.Tensor:
-    global FUSED_LAUNCHES, PREGATHER_LAUNCHES
     from repro_torch.kernels.build import load_library
 
     c, r, b = vals.shape
@@ -680,9 +671,5 @@ def _launch_block(x, vals, block_c, rows=None, block_q=None) -> torch.Tensor:
             f"{name} launch failed with CUDA error {err} "
             f"(A={a}, R={r}, B={b}, C={c}, x {tuple(x.shape)} {x.dtype}, {plan})"
         )
-    with COUNT_LOCK:
-        if rows is not None:
-            FUSED_LAUNCHES += 1
-        else:
-            PREGATHER_LAUNCHES += 1
+    obs.count(f"launches.{name}")
     return out

@@ -17,6 +17,7 @@ from typing import Callable, Optional, Tuple
 
 import torch
 
+from repro_torch import obs
 from repro_torch.core.mscm import gather_query_rows
 from repro_torch.kernels.mscm_kernel import mscm_fused, mscm_grouped, mscm_pregather
 
@@ -95,28 +96,29 @@ def group_blocks_device(
       flat_pos   [A]      position of sorted block i in the flattened
                           [T*QT] tile layout (strictly increasing)
     """
-    a = block_c.shape[0]
-    t = grouped_tile_bound(a, qt, num_chunks)
-    dev = block_c.device
-    order = torch.argsort(block_c, stable=True)
-    sc = block_c[order].to(torch.int64)                  # [A] sorted chunks
-    idx = torch.arange(a, device=dev)
-    run_start = torch.searchsorted(sc, sc, side="left")
-    slot = (idx - run_start) % qt                        # position in run, mod qt
-    tile_id = torch.cumsum((slot == 0).to(torch.int64), 0) - 1
-    flat_pos = tile_id * qt + slot                       # strictly increasing
-    # Invert sorted-position -> tile-slot by binary search: flat slot f is
-    # occupied iff some flat_pos equals f.
-    fgrid = torch.arange(t * qt, device=dev)
-    j = torch.searchsorted(flat_pos, fgrid).clamp(max=a - 1)
-    hit = flat_pos[j] == fgrid
-    tile_src = torch.where(hit, order[j], -1).reshape(t, qt)
-    # Chunk per tile from its slot-0 occupant; padding tiles (all at the
-    # tail, chunks ascending) inherit the last real chunk via cummax.
-    hit0 = hit.reshape(t, qt)[:, 0]
-    j0 = j.reshape(t, qt)[:, 0]
-    tile_chunk = torch.cummax(torch.where(hit0, sc[j0], 0), 0).values
-    return tile_chunk, tile_src, order, flat_pos
+    with obs.span("mscm.group"):
+        a = block_c.shape[0]
+        t = grouped_tile_bound(a, qt, num_chunks)
+        dev = block_c.device
+        order = torch.argsort(block_c, stable=True)
+        sc = block_c[order].to(torch.int64)                  # [A] sorted chunks
+        idx = torch.arange(a, device=dev)
+        run_start = torch.searchsorted(sc, sc, side="left")
+        slot = (idx - run_start) % qt                        # position in run, mod qt
+        tile_id = torch.cumsum((slot == 0).to(torch.int64), 0) - 1
+        flat_pos = tile_id * qt + slot                       # strictly increasing
+        # Invert sorted-position -> tile-slot by binary search: flat slot f is
+        # occupied iff some flat_pos equals f.
+        fgrid = torch.arange(t * qt, device=dev)
+        j = torch.searchsorted(flat_pos, fgrid).clamp(max=a - 1)
+        hit = flat_pos[j] == fgrid
+        tile_src = torch.where(hit, order[j], -1).reshape(t, qt)
+        # Chunk per tile from its slot-0 occupant; padding tiles (all at the
+        # tail, chunks ascending) inherit the last real chunk via cummax.
+        hit0 = hit.reshape(t, qt)[:, 0]
+        j0 = j.reshape(t, qt)[:, 0]
+        tile_chunk = torch.cummax(torch.where(hit0, sc[j0], 0), 0).values
+        return tile_chunk, tile_src, order, flat_pos
 
 
 def mscm_grouped_level(

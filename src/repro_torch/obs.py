@@ -1,0 +1,209 @@
+"""Spans and counters of the port's serving path.
+
+A span (:func:`span`) marks one stage of a call: its name, its start and end,
+the span it ran inside, the call it belongs to (the id of its root span), its
+attributes, and what :func:`count` counted while it was the innermost open
+span of its thread. Spans are recorded only while tracing is on, which is
+
+* while a ``torch.profiler`` session records: each span is then also a
+  ``record_function`` range of the same name, so the program's stages lie in
+  the trace's host timeline (a session that records host activity shows
+  them; one of the device alone shows none); or
+* inside :func:`recording`, which records spans without the profiler.
+
+Off, :func:`span` checks two flags and hands back one shared object that does
+nothing: it reads no clock and allocates nothing.
+
+Timestamps are nanoseconds on the profiler's clock, the epoch clock that
+``time.time_ns()`` reads (torch 2.13 on the CPU; torch 2.11 with CUDA 12.8 on
+an H100). A span reads it just outside its range, so the span encloses its
+profiler event: a few microseconds each side, a few hundred before the first
+range of a session.
+
+A span given ``device=`` a CUDA device also records a pair of CUDA events on
+that device's current stream, around the span. :func:`spans` resolves them to
+milliseconds (``elapsed_time``) when it reads the buffer, after the work has
+finished; nothing during the call synchronises. That device interval is the
+stream's time from the span's first enqueued work to its last: device work
+where the device runs behind the host, and the launch gaps inside the stage
+as well where the host sets the pace.
+
+The buffer holds the newest :data:`CAPACITY` spans; :func:`dropped` counts
+those it let go. :func:`count` always adds to a process-wide total
+(:func:`total`); the kernel wrappers count their launches with it.
+"""
+
+from __future__ import annotations
+
+import collections
+import contextlib
+import itertools
+import threading
+import time
+from typing import Dict, Iterator, List
+
+import torch
+from torch.autograd import profiler as _profiler
+
+#: Spans the buffer holds; the oldest go first.
+CAPACITY = 1 << 16
+
+#: The profiler's clock, in nanoseconds.
+clock_ns = time.time_ns
+#: A range of the profiler's host timeline: ``record_function``'s, entered
+#: from C (``record_function`` itself dispatches an operator each way, which
+#: cost 36 us a range under a CUDA-only session on the H100's host).
+_Range = torch._C._profiler._RecordFunctionFast
+
+_lock = threading.Lock()
+_local = threading.local()
+_buffer: collections.deque = collections.deque(maxlen=CAPACITY)
+_dropped = 0
+_recording = 0
+_totals: Dict[str, int] = collections.defaultdict(int)
+_ids = itertools.count(1)
+
+
+class _Off:
+    """The span handed back while tracing is off."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        return False
+
+
+OFF = _Off()
+
+
+def _stack() -> list:
+    try:
+        return _local.stack
+    except AttributeError:
+        _local.stack = []
+        return _local.stack
+
+
+class Span:
+    """One span: the context manager :func:`span` hands back while tracing,
+    then the record :func:`spans` reads. ``parent`` is the enclosing span's
+    ``sid`` (None for a root); ``call`` is the root's ``sid``; ``device_ms``
+    is the device interval of a span given a CUDA device, else None."""
+
+    __slots__ = ("name", "attrs", "sid", "parent", "call", "counts", "start_ns", "end_ns",
+                 "device_ms", "_device", "_range", "_events")
+
+    def __init__(self, name: str, device, attrs: dict):
+        self.name, self._device, self.attrs = name, device, attrs
+        self.device_ms = None
+
+    @property
+    def host_ms(self) -> float:
+        return (self.end_ns - self.start_ns) * 1e-6
+
+    def __enter__(self):
+        stack = _stack()
+        up = stack[-1] if stack else None
+        self.sid = next(_ids)
+        self.parent = None if up is None else up.sid
+        self.call = self.sid if up is None else up.call
+        self.counts = {}
+        self.start_ns = clock_ns()
+        self._range = None
+        if _profiler._is_profiler_enabled:
+            self._range = _Range(self.name)
+            self._range.__enter__()
+        self._events = None
+        if self._device is not None and self._device.type == "cuda":
+            stream = torch.cuda.current_stream(self._device)
+            start = torch.cuda.Event(enable_timing=True)
+            start.record(stream)
+            self._events = (start, torch.cuda.Event(enable_timing=True), stream)
+        stack.append(self)
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        global _dropped
+        _stack().pop()
+        if self._events is not None:
+            self._events[1].record(self._events[2])
+        if self._range is not None:
+            self._range.__exit__(None, None, None)
+            self._range = None
+        self.end_ns = clock_ns()
+        with _lock:
+            if len(_buffer) == _buffer.maxlen:
+                _dropped += 1
+            _buffer.append(self)
+        return False
+
+
+def span(name: str, device: torch.device | None = None, **attrs):
+    """A context manager marking one stage named ``name``; ``attrs`` are kept
+    with it. ``device``: where a metric reads the stage's device time, the
+    device its work runs on (events are recorded only on a CUDA device)."""
+    if _profiler._is_profiler_enabled or _recording:
+        return Span(name, device, attrs)
+    return OFF
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to the process-wide total ``name`` and, while tracing, to the
+    innermost open span of this thread."""
+    with _lock:
+        _totals[name] += n
+    if _profiler._is_profiler_enabled or _recording:
+        stack = _stack()
+        if stack:
+            counts = stack[-1].counts
+            counts[name] = counts.get(name, 0) + n
+
+
+def total(name: str) -> int:
+    """The counter ``name``'s process-wide total."""
+    with _lock:
+        return _totals.get(name, 0)
+
+
+@contextlib.contextmanager
+def recording() -> Iterator[None]:
+    """Record spans in this block, on every thread, without the profiler."""
+    global _recording
+    with _lock:
+        _recording += 1
+    try:
+        yield
+    finally:
+        with _lock:
+            _recording -= 1
+
+
+def spans() -> List[Span]:
+    """The buffered spans, oldest first, their device intervals resolved
+    (waiting for the work they enclose where it has not finished)."""
+    with _lock:
+        out = list(_buffer)
+    for s in out:
+        events, s._events = s._events, None
+        if events is not None:
+            start, end, _ = events
+            end.synchronize()
+            s.device_ms = start.elapsed_time(end)
+    out.sort(key=lambda s: s.sid)
+    return out
+
+
+def dropped() -> int:
+    """Spans the full buffer let go since the last :func:`clear`."""
+    return _dropped
+
+
+def clear() -> None:
+    """Empty the buffer."""
+    global _dropped
+    with _lock:
+        _buffer.clear()
+        _dropped = 0

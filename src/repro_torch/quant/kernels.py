@@ -11,8 +11,8 @@ result is bitwise the f32 kernel's on the dequantized tiles (``float(q) * scale`
 comes from storage, never from the kernel.
 
 The wrapper takes the plain version for tensors on the CPU and launches the
-kernel for tensors on a GPU, raising if it cannot. ``GROUPED_Q_LAUNCHES``
-counts its launches. The level around it is
+kernel for tensors on a GPU, raising if it cannot. Each launch adds 1 to
+the ``obs`` counter ``launches.mscm_grouped_q``. The level around it is
 :func:`repro_torch.kernels.ops.mscm_grouped_level` with this product in
 place of the f32 one: same grouping, staging and unsort.
 """
@@ -23,9 +23,9 @@ from typing import Optional
 
 import torch
 
+from repro_torch import obs
 from repro_torch.kernels import ops
 from repro_torch.kernels.mscm_kernel import (
-    COUNT_LOCK,
     Q_DTYPES,
     check_grouped_args,
     common_device,
@@ -33,9 +33,6 @@ from repro_torch.kernels.mscm_kernel import (
     launch_grouped,
     mscm_grouped_plain,
 )
-
-#: Launches of the CUDA kernel since import (or since a caller reset it).
-GROUPED_Q_LAUNCHES = 0
 
 
 def _check_scales(vals: torch.Tensor, scales: torch.Tensor) -> None:
@@ -89,10 +86,8 @@ def mscm_grouped_q(
     if common_device(tensors, "mscm_grouped_q").type == "cpu":
         return mscm_grouped_q_plain(xg_tiles, vals, scales, tile_chunk, parent_scores,
                                     mode=mode, tile_src=tile_src)
-    global GROUPED_Q_LAUNCHES
     out = launch_grouped(xg_tiles, vals, scales, tile_chunk, tile_src, parent_scores, mode)
-    with COUNT_LOCK:
-        GROUPED_Q_LAUNCHES += 1
+    obs.count("launches.mscm_grouped_q")
     return out
 
 

@@ -45,12 +45,14 @@ one card, or the CPU, can stand in for a mesh.
 
 from __future__ import annotations
 
+import itertools
 import time
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core.tree import XMRTree, check_method, resolve_device
 from repro_torch.distributed.sharding import (
     Slot, replica_mesh, resolve_devices, row_slices, send, visible_devices)
@@ -82,6 +84,10 @@ def resolve_method(method: str, device: str | torch.device | None = None) -> str
     if device is None:
         device = "cuda" if torch.cuda.is_available() else "cpu"
     return "mscm_pallas_grouped" if torch.device(device).type == "cuda" else "mscm_dense"
+
+
+#: Serial numbers of engines, for the ``engine`` attribute of their root spans.
+_SERIALS = itertools.count(1)
 
 
 def _bucket(n: int, max_batch: int) -> int:
@@ -133,6 +139,7 @@ class XMRServingEngine:
                     )
         self.label_perm = label_perm  # leaf position -> original label id
         self.stats = LatencyStats()
+        self.serial = next(_SERIALS)
         self.mesh = None
         self.index = None
         self.placement = None
@@ -193,12 +200,13 @@ class XMRServingEngine:
         are empty queries (sentinel index ``d``, value 0)."""
         w = self.config.ell_width
         d = queries.shape[1]
-        idx, val = rows_to_ell(queries, rows, w)
-        if bucket > len(rows):
-            pad = bucket - len(rows)
-            idx = np.concatenate([idx, np.full((pad, w), d, np.int32)])
-            val = np.concatenate([val, np.zeros((pad, w), np.float32)])
-        return self._to_device(idx), self._to_device(val)
+        with obs.span("serve.marshal"):
+            idx, val = rows_to_ell(queries, rows, w)
+            if bucket > len(rows):
+                pad = bucket - len(rows)
+                idx = np.concatenate([idx, np.full((pad, w), d, np.int32)])
+                val = np.concatenate([val, np.zeros((pad, w), np.float32)])
+            return self._to_device(idx), self._to_device(val)
 
     def bucket_for(self, n: int) -> int:
         """Power-of-two bucket for ``n`` queries, never below ``shards`` so
@@ -211,29 +219,30 @@ class XMRServingEngine:
         return (self.bucket_for(n), int(tier))
 
     def _run(self, xi: torch.Tensor, xv: torch.Tensor, tier: int = 0):
-        c, t = self.config, self.tiers[tier]
-        if self.planner is not None:
-            # The tier's beam/qt ride as per-call overrides only when degraded.
-            if tier:
-                return self.planner.infer(xi, xv, beam=t.beam, qt=t.qt)
-            return self.planner.infer(xi, xv)
-        kw = dict(beam=t.beam, topk=c.topk, method=self.method, score_mode=c.score_mode,
-                  qt=t.qt)
-        if self._replicas is None:
-            return self.tree.infer(xi, xv, **kw)
-        # Each slot serves its run of rows on its own stream; the caller's
-        # stream waits for every slot before the results are handed back.
-        caller = Slot.current(xi.device)
-        out_s, out_l = [], []
-        for (slot, tree), (r0, r1) in zip(self._replicas,
-                                          row_slices(xi.shape[0], len(self._replicas))):
-            xi_r, xv_r = send((xi[r0:r1], xv[r0:r1]), caller, slot)
-            with slot.enter():
-                s, l = tree.infer(xi_r, xv_r, **kw)
-            s, l = send((s, l), slot, caller)
-            out_s.append(s)
-            out_l.append(l)
-        return torch.cat(out_s), torch.cat(out_l)
+        with obs.span("serve.run"):
+            c, t = self.config, self.tiers[tier]
+            if self.planner is not None:
+                # The tier's beam/qt ride as per-call overrides only when degraded.
+                if tier:
+                    return self.planner.infer(xi, xv, beam=t.beam, qt=t.qt)
+                return self.planner.infer(xi, xv)
+            kw = dict(beam=t.beam, topk=c.topk, method=self.method, score_mode=c.score_mode,
+                      qt=t.qt)
+            if self._replicas is None:
+                return self.tree.infer(xi, xv, **kw)
+            # Each slot serves its run of rows on its own stream; the caller's
+            # stream waits for every slot before the results are handed back.
+            caller = Slot.current(xi.device)
+            out_s, out_l = [], []
+            for (slot, tree), (r0, r1) in zip(self._replicas,
+                                              row_slices(xi.shape[0], len(self._replicas))):
+                xi_r, xv_r = send((xi[r0:r1], xv[r0:r1]), caller, slot)
+                with slot.enter():
+                    s, l = tree.infer(xi_r, xv_r, **kw)
+                s, l = send((s, l), slot, caller)
+                out_s.append(s)
+                out_l.append(l)
+            return torch.cat(out_s), torch.cat(out_l)
 
     def _run_to_host(self, xi: torch.Tensor, xv: torch.Tensor, count: int, tier: int = 0):
         """Enqueue one bucket at ``tier`` and the copies of its first
@@ -243,12 +252,13 @@ class XMRServingEngine:
         everything has already finished) completes: a non-blocking copy
         read early gives stale memory and no error."""
         s, l = self._run(xi, xv, tier=tier)
-        s = s[:count].to("cpu", non_blocking=True)
-        l = l[:count].to("cpu", non_blocking=True)
-        done = None
-        if self.device.type == "cuda":
-            done = torch.cuda.Event()
-            done.record(torch.cuda.current_stream(self.device))
+        with obs.span("serve.copy_back"):
+            s = s[:count].to("cpu", non_blocking=True)
+            l = l[:count].to("cpu", non_blocking=True)
+            done = None
+            if self.device.type == "cuda":
+                done = torch.cuda.Event()
+                done.record(torch.cuda.current_stream(self.device))
         return s, l, done
 
     def _empty_batch(self, bucket: int, d: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -283,53 +293,63 @@ class XMRServingEngine:
         """Batch setting: all queries, in ``max_batch`` chunks, double
         buffered. One amortized per-query average is recorded per call."""
         n = queries.shape[0]
-        out_s, out_l = [], []
+        mb = self.config.max_batch
+        t_start = obs.clock_ns()
+        with obs.span("serve.batch", engine=self.serial, queries=n, buckets=-(-n // mb)):
+            out_s, out_l = [], []
 
-        def finalize(pending) -> None:
-            s, l, done = pending
-            if done is not None:
-                done.synchronize()  # this chunk and its copy, not the next
-            out_s.append(s.numpy())
-            out_l.append(l.numpy())
+            def finalize(pending) -> None:
+                s, l, done = pending
+                if done is not None:
+                    with obs.span("serve.wait"):
+                        done.synchronize()  # this chunk and its copy, not the next
+                with obs.span("serve.finalize"):
+                    out_s.append(s.numpy())
+                    out_l.append(l.numpy())
 
-        t_start = time.perf_counter()
-        pending = None
-        i = 0
-        while i < n:
-            count = min(self.config.max_batch, n - i)
-            bucket = self.bucket_for(count)
-            xi, xv = self.marshal_rows(queries, np.arange(i, i + count), bucket)
-            # Enqueued with its copy back, not waited for: waiting for this
-            # chunk never waits for the next one.
-            nxt = self._run_to_host(xi, xv, count)
+            pending = None
+            i = 0
+            while i < n:
+                count = min(mb, n - i)
+                bucket = self.bucket_for(count)
+                xi, xv = self.marshal_rows(queries, np.arange(i, i + count), bucket)
+                # Enqueued with its copy back, not waited for: waiting for this
+                # chunk never waits for the next one.
+                nxt = self._run_to_host(xi, xv, count)
+                if pending is not None:
+                    finalize(pending)
+                pending = nxt
+                i += count
             if pending is not None:
                 finalize(pending)
-            pending = nxt
-            i += count
-        if pending is not None:
-            finalize(pending)
-        self.stats.record_amortized(time.perf_counter() - t_start, n)
-        scores = np.concatenate(out_s)
-        leaves = np.concatenate(out_l)
-        return scores, self._map_labels(leaves)
+            with obs.span("serve.finalize"):
+                scores = np.concatenate(out_s)
+                labels = self._map_labels(np.concatenate(out_l))
+        self.stats.record_amortized((obs.clock_ns() - t_start) * 1e-9, n)
+        return scores, labels
 
     def serve_online(self, queries: CSR, limit: int | None = None
                      ) -> Tuple[np.ndarray, np.ndarray]:
-        """Online setting: one query at a time, per-query latency recorded."""
+        """Online setting: one query at a time, each query's latency recorded
+        from its marshaling to its answer on the host."""
         n = queries.shape[0] if limit is None else min(limit, queries.shape[0])
-        out_s, out_l = [], []
-        bucket = self.bucket_for(1)
-        for i in range(n):
-            xi, xv = self.marshal_rows(queries, np.arange(i, i + 1), bucket)
-            t0 = time.perf_counter()
-            s, l = self._run(xi, xv)
-            self._sync()
-            self.stats.record(time.perf_counter() - t0)
-            out_s.append(s[0].cpu().numpy())
-            out_l.append(l[0].cpu().numpy())
-        scores = np.stack(out_s)
-        leaves = np.stack(out_l)
-        return scores, self._map_labels(leaves)
+        with obs.span("serve.online", engine=self.serial, queries=n, buckets=n):
+            out_s, out_l = [], []
+            bucket = self.bucket_for(1)
+            for i in range(n):
+                t0 = obs.clock_ns()
+                xi, xv = self.marshal_rows(queries, np.arange(i, i + 1), bucket)
+                s, l = self._run(xi, xv)
+                with obs.span("serve.wait"):
+                    self._sync()
+                with obs.span("serve.copy_back"):
+                    out_s.append(s[0].cpu().numpy())
+                    out_l.append(l[0].cpu().numpy())
+                self.stats.record((obs.clock_ns() - t0) * 1e-9)
+            with obs.span("serve.finalize"):
+                scores = np.stack(out_s)
+                labels = self._map_labels(np.stack(out_l))
+        return scores, labels
 
     def _map_labels(self, leaves: np.ndarray) -> np.ndarray:
         if self.label_perm is None:

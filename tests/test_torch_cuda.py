@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch import obs
 from repro_torch.core.tree import XMRTree
 from repro_torch.kernels import mscm_kernel as tk
 from repro_torch.kernels import ops
@@ -32,6 +33,11 @@ from repro_torch.sparse.csr import random_sparse_csc, random_sparse_csr
 KERNEL_RTOL, KERNEL_ATOL = 1e-5, 1e-4
 # bf16 inputs: the tolerance the reference's dtype sweep uses.
 BF16_TOL = 2e-2
+
+
+def launches(kernel: str) -> int:
+    """Launches of the CUDA kernel ``mscm_<kernel>`` since import."""
+    return obs.total(f"launches.mscm_{kernel}")
 
 
 @pytest.fixture
@@ -89,9 +95,9 @@ def test_kernel_matches_plain(cuda_device, shape, dead):
     xg, vals, tc, ps, src = _grouped_inputs(cuda_device, shape, 0, dead)
     for mode in ("none", "prod", "logsum"):
         p = None if mode == "none" else ps
-        before = tk.GROUPED_LAUNCHES
+        before = launches("grouped")
         got = tk.mscm_grouped(xg, vals, tc, p, mode=mode, tile_src=src)
-        assert tk.GROUPED_LAUNCHES == before + 1
+        assert launches("grouped") == before + 1
         want = tk.mscm_grouped_plain(xg, vals, tc, p, mode=mode, tile_src=src)
         torch.cuda.synchronize()
         torch.testing.assert_close(got, want, rtol=KERNEL_RTOL, atol=KERNEL_ATOL)
@@ -125,10 +131,10 @@ def test_traversal_on_card_matches_cpu(cuda_device, score_mode):
     gpu = XMRTree.from_weight_matrices(ws, B)  # the default device is the GPU
     assert gpu.device.type == "cuda"
     s0, l0 = cpu.infer(xi, xv, beam=10, topk=5, method="mscm_dense", score_mode=score_mode)
-    before = tk.GROUPED_LAUNCHES
+    before = launches("grouped")
     s1, l1 = gpu.infer(xi, xv, beam=10, topk=5, method="mscm_pallas_grouped",
                        score_mode=score_mode, qt=4)
-    assert tk.GROUPED_LAUNCHES == before + gpu.depth
+    assert launches("grouped") == before + gpu.depth
     check_ranking(s1.cpu().numpy(), l1.cpu().numpy(), s0.numpy(), l0.numpy(), "grouped")
 
 
@@ -164,14 +170,14 @@ def test_block_kernels_match_plain(cuda_device, shape, dtype):
     x, rows, vals, bq, bc = _block_inputs(cuda_device, shape, dtype)
     tol = dict(rtol=KERNEL_RTOL, atol=KERNEL_ATOL) if dtype == torch.float32 else dict(
         rtol=BF16_TOL, atol=BF16_TOL)
-    before = tk.FUSED_LAUNCHES
+    before = launches("fused")
     got = tk.mscm_fused(x, rows, vals, bq, bc)
-    assert tk.FUSED_LAUNCHES == before + 1
+    assert launches("fused") == before + 1
     torch.testing.assert_close(got, tk.mscm_fused_plain(x, rows, vals, bq, bc), **tol)
     xg = x[bq[:, None], rows[bc.clamp(max=c - 1)].long().clamp(max=dp - 1)]
-    before = tk.PREGATHER_LAUNCHES
+    before = launches("pregather")
     got = tk.mscm_pregather(xg, vals, bc)
-    assert tk.PREGATHER_LAUNCHES == before + 1
+    assert launches("pregather") == before + 1
     torch.testing.assert_close(got, tk.mscm_pregather_plain(xg, vals, bc), **tol)
     torch.cuda.synchronize()
 
@@ -220,13 +226,13 @@ def test_online_traversal_on_card_matches_cpu(cuda_device, method, score_mode):
     for i in range(xi.shape[0]):  # one query at a time, as the online setting runs
         q = slice(i, i + 1)
         s0, l0 = cpu.infer(xi[q], xv[q], beam=10, topk=5, method=method, score_mode=score_mode)
-        fused, pregather = tk.FUSED_LAUNCHES, tk.PREGATHER_LAUNCHES
+        fused, pregather = launches("fused"), launches("pregather")
         s1, l1 = gpu.infer(xi[q], xv[q], beam=10, topk=5, method=method,
                            score_mode=score_mode)
         if method == "mscm_pallas":  # d + 1 columns: under the limit, so fused
-            assert (tk.FUSED_LAUNCHES, tk.PREGATHER_LAUNCHES) == (fused + gpu.depth, pregather)
+            assert (launches("fused"), launches("pregather")) == (fused + gpu.depth, pregather)
         if method == "mscm_pallas_pregather":
-            assert (tk.FUSED_LAUNCHES, tk.PREGATHER_LAUNCHES) == (fused, pregather + gpu.depth)
+            assert (launches("fused"), launches("pregather")) == (fused, pregather + gpu.depth)
         check_ranking(s1.cpu().numpy(), l1.cpu().numpy(), s0.numpy(), l0.numpy(), method)
 
 
@@ -240,9 +246,9 @@ def test_grouped_q_kernel_matches_plain_and_dequantized(cuda_device, shape, dtyp
     deq = vals.float() * scales[:, None, :]
     for mode in ("none", "prod", "logsum"):
         p = None if mode == "none" else ps
-        before = qk.GROUPED_Q_LAUNCHES
+        before = launches("grouped_q")
         got = qk.mscm_grouped_q(xg, vals, scales, tc, p, mode=mode, tile_src=src)
-        assert qk.GROUPED_Q_LAUNCHES == before + 1
+        assert launches("grouped_q") == before + 1
         want = qk.mscm_grouped_q_plain(xg, vals, scales, tc, p, mode=mode, tile_src=src)
         torch.testing.assert_close(got, want, rtol=KERNEL_RTOL, atol=KERNEL_ATOL)
         # One routine: the dequantized tiles through the f32 kernel, bitwise.
@@ -265,9 +271,9 @@ def test_quantized_traversal_on_card_matches_cpu(cuda_device, tier):
         assert torch.equal(lc.chunk_vals.view(torch.uint8), lg.chunk_vals.cpu().view(torch.uint8))
         assert torch.equal(lc.chunk_scales, lg.chunk_scales.cpu())
     s0, l0 = cpu.infer(xi, xv, beam=10, topk=5, method="mscm_pallas_grouped_q")
-    before = qk.GROUPED_Q_LAUNCHES
+    before = launches("grouped_q")
     s1, l1 = gpu.infer(xi, xv, beam=10, topk=5, method="mscm_pallas_grouped_q", qt=4)
-    assert qk.GROUPED_Q_LAUNCHES == before + gpu.depth
+    assert launches("grouped_q") == before + gpu.depth
     check_ranking(s1.cpu().numpy(), l1.cpu().numpy(), s0.numpy(), l0.numpy(), tier)
 
 
@@ -287,10 +293,10 @@ def test_wide_tree_and_tall_tiles_on_card(cuda_device, method):
     for m in (method, "mscm_dense"):
         eng = XMRServingEngine(tree, ServeConfig(beam=10, topk=10, method=m, qt=32,
                                                  max_batch=64, ell_width=32))
-        counts = (tk.GROUPED_LAUNCHES, tk.FUSED_LAUNCHES, tk.PREGATHER_LAUNCHES)
+        counts = (launches("grouped"), launches("fused"), launches("pregather"))
         out[m] = eng.serve_batch(x)
-        launched = [a - b for a, b in zip((tk.GROUPED_LAUNCHES, tk.FUSED_LAUNCHES,
-                                           tk.PREGATHER_LAUNCHES), counts)]
+        launched = [a - b for a, b in zip((launches("grouped"), launches("fused"),
+                                           launches("pregather")), counts)]
         if m != "mscm_dense":
             assert sum(launched) == 1
     check_ranking(*out[method], *out["mscm_dense"], f"branching 1024, qt=32, {method}")
@@ -320,9 +326,9 @@ def test_train_on_card_and_serve_through_grouped_kernel(cuda_device):
                             nnz_per_col=48, steps=120)
     assert model.tree.device.type == "cuda" and model.tree.depth == 3
     xi, xv = (torch.from_numpy(a) for a in ds.x_test.to_ell(64))
-    before = tk.GROUPED_LAUNCHES
+    before = launches("grouped")
     s, l = model.predict(xi, xv, beam=16, topk=5, method="mscm_pallas_grouped")
-    assert tk.GROUPED_LAUNCHES == before + model.tree.depth
+    assert launches("grouped") == before + model.tree.depth
     s0, l0 = model.predict(xi, xv, beam=16, topk=5, method="mscm_dense")
     check_ranking(s, l, s0, l0, "trained tree, grouped vs mscm_dense")
     assert precision_at_k(l, ds.y_test, 1) > 0.25
@@ -380,7 +386,7 @@ def test_microbatcher_on_card_bitwise_per_query(cuda_device):
     eng.warmup_buckets(tree.d, 16)  # what start() runs; counted apart from traffic
     mb = MicroBatcher(eng, BatchPolicy(max_batch=16, max_wait_ms=5.0), warmup_on_start=False)
     futs = [mb.submit(Query(*queries.row(i), qid=i)) for i in range(45)]
-    before = (tk.GROUPED_LAUNCHES, tk.FUSED_LAUNCHES, tk.PREGATHER_LAUNCHES)
+    before = (launches("grouped"), launches("fused"), launches("pregather"))
     try:
         mb.start()
         res = [f.result(timeout=60) for f in futs]
@@ -390,7 +396,7 @@ def test_microbatcher_on_card_bitwise_per_query(cuda_device):
     np.testing.assert_array_equal(np.stack([r.scores for r in res]).view(np.uint32),
                                   ref_s.view(np.uint32))
     np.testing.assert_array_equal(np.stack([r.ids for r in res]), ref_l)
-    after = (tk.GROUPED_LAUNCHES, tk.FUSED_LAUNCHES, tk.PREGATHER_LAUNCHES)
+    after = (launches("grouped"), launches("fused"), launches("pregather"))
     assert [a - b for a, b in zip(after, before)] == [tree.depth * 3, 0, 0]
 
 
@@ -525,9 +531,9 @@ def test_partitioned_grouped_bitwise_on_card(cuda_device, tier, n_partitions, sy
                         n_cols=tree.n_cols, branching=tree.branching, d=tree.d)
     pl = ScatterGatherPlanner(idx, beam=10, topk=10, method=method, sync=sync)
     pl.infer(xi, xv)  # builds and loads the kernels
-    before = (tk.GROUPED_LAUNCHES, qk.GROUPED_Q_LAUNCHES)
+    before = (launches("grouped"), launches("grouped_q"))
     got = pl.infer(xi, xv)
-    grouped, grouped_q = tk.GROUPED_LAUNCHES - before[0], qk.GROUPED_Q_LAUNCHES - before[1]
+    grouped, grouped_q = launches("grouped") - before[0], launches("grouped_q") - before[1]
     part_launches = (tree.depth - idx.level) * n_partitions
     assert (grouped, grouped_q) == ((1 + part_launches, 0) if tier == "exact"
                                     else (1, part_launches))
@@ -546,11 +552,11 @@ def test_planner_block_methods_bitwise_on_card(cuda_device, method, sync):
 
     tree, queries = _serving_tree()
     xi, xv = _card_batch(queries)
-    before = (tk.FUSED_LAUNCHES, tk.PREGATHER_LAUNCHES)
+    before = (launches("fused"), launches("pregather"))
     got = ScatterGatherPlanner(partition_tree(tree, 3), beam=10, topk=5, method=method,
                                sync=sync).infer(xi, xv)
     _bitwise(got, tree.infer(xi, xv, beam=10, topk=5, method=method))
-    fused, pregather = tk.FUSED_LAUNCHES - before[0], tk.PREGATHER_LAUNCHES - before[1]
+    fused, pregather = launches("fused") - before[0], launches("pregather") - before[1]
     if method == "mscm_pallas":
         assert fused > 0 and pregather == 0
     elif method == "mscm_pallas_pregather":

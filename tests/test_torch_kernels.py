@@ -24,6 +24,7 @@ from repro.kernels import ref as jref
 from repro.kernels.mscm_kernel import group_blocks_by_chunk as j_group_host
 from repro.kernels.mscm_kernel import mscm_grouped as j_mscm_grouped
 from repro.sparse import random_sparse_csc, random_sparse_csr
+from repro_torch import obs
 from repro_torch.core import mscm as TM
 from repro_torch.kernels import mscm_kernel as tk
 from repro_torch.kernels import ops as tops
@@ -138,9 +139,9 @@ def test_grouped_plain_matches_pallas_interpret(mode):
     p_t = None if mode == "none" else T(ps)
     want = j_mscm_grouped(jnp.asarray(xg), jnp.asarray(vals), jnp.asarray(tc), p_j,
                           mode=mode, interpret=True)
-    before = tk.GROUPED_LAUNCHES
+    before = obs.total("launches.mscm_grouped")
     got = tk.mscm_grouped(T(xg), T(vals), T(tc).long(), p_t, mode=mode)
-    assert tk.GROUPED_LAUNCHES == before  # CPU tensors never launch the kernel
+    assert obs.total("launches.mscm_grouped") == before  # CPU tensors never launch the kernel
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL, atol=ATOL)
     np.testing.assert_array_equal(
         got.numpy(), tk.mscm_grouped_plain(T(xg), T(vals), T(tc), p_t, mode=mode).numpy())
@@ -546,9 +547,9 @@ def test_fused_plain_matches_pallas_interpret(seed):
     bq, bc = _sorted_blocks(m)
     want = jk.mscm_fused(xd_j, jnp.asarray(m["rows"]), jnp.asarray(m["vals"]),
                          jnp.asarray(bq), jnp.asarray(bc), interpret=True)
-    before = tk.FUSED_LAUNCHES
+    before = obs.total("launches.mscm_fused")
     got = tk.mscm_fused(xd_t, T(m["rows"]), T(m["vals"]), T(bq).long(), T(bc).long())
-    assert tk.FUSED_LAUNCHES == before  # CPU tensors never launch the kernel
+    assert obs.total("launches.mscm_fused") == before  # CPU tensors never launch the kernel
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL, atol=ATOL)
     np.testing.assert_array_equal(
         got.numpy(), tk.mscm_fused_plain(xd_t, T(m["rows"]), T(m["vals"]), T(bq), T(bc)).numpy())
@@ -562,9 +563,9 @@ def test_pregather_plain_matches_pallas_interpret(seed):
     xg_j = JM.gather_query_rows(xd_j, jnp.asarray(m["rows"]), jnp.asarray(bq), jnp.asarray(bc))
     xg_t = TM.gather_query_rows(xd_t, T(m["rows"]), T(bq), T(bc))
     want = jk.mscm_pregather(xg_j, jnp.asarray(m["vals"]), jnp.asarray(bc), interpret=True)
-    before = tk.PREGATHER_LAUNCHES
+    before = obs.total("launches.mscm_pregather")
     got = tk.mscm_pregather(xg_t, T(m["vals"]), T(bc).long())
-    assert tk.PREGATHER_LAUNCHES == before
+    assert obs.total("launches.mscm_pregather") == before
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL, atol=ATOL)
 
 

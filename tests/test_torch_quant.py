@@ -26,6 +26,7 @@ from repro.serving import QuantConfig as JQuantConfig
 from repro.serving import ServeConfig as JConfig
 from repro.serving import XMRServingEngine as JEngine
 from repro.sparse import random_sparse_csr
+from repro_torch import obs
 from repro_torch import quant as Q
 from repro_torch.convert import quantized_tree_from_numpy
 from repro_torch.core import mscm as TM
@@ -254,10 +255,10 @@ def test_grouped_q_plain_matches_pallas_interpret(mode, dtype):
     p_t = None if mode == "none" else T(ps)
     want = J.mscm_grouped_q(jnp.asarray(xg), q, s, jnp.asarray(tc), p_j, mode=mode,
                             interpret=True)
-    before = qk.GROUPED_Q_LAUNCHES
+    before = obs.total("launches.mscm_grouped_q")
     got = qk.mscm_grouped_q(T(xg), port_codes(q), T(np.array(s)), T(tc).long(), p_t,
                             mode=mode)
-    assert qk.GROUPED_Q_LAUNCHES == before  # CPU tensors never launch the kernel
+    assert obs.total("launches.mscm_grouped_q") == before  # CPU tensors never launch the kernel
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL, atol=ATOL)
 
 
