@@ -1221,7 +1221,7 @@ def path(torch, gpu: str):
         f"{float(np.abs(s - s_d).max()):.3e}, {n_diff} near-tie label swaps of {l.size}; "
         f"mscm_dense {1e3 * wall_d / n:.5f} ms/query amortized  [{gpu}]")
 
-    counts = level_counts(torch, eng, queries, SERVE["max_batch"])
+    levels = level_counts(torch, eng, queries, SERVE["max_batch"])
 
     # The dense lookup table the path scatters every batch: [64, d+1] f32.
     from repro_torch.core.mscm import scatter_dense
@@ -1238,7 +1238,7 @@ def path(torch, gpu: str):
     log_profile("one serve_batch", wall, acts, busy_us, rows, gpu, 14)
     log_block_kernel(f"one serve_batch of {n}", rows, n, "mscm_grouped_kernel",
                      "the grouped kernel")
-    return launches, tree, queries, counts
+    return launches, tree, queries, levels
 
 
 def quant_codes_check(torch, layer, d: int) -> None:
@@ -1438,9 +1438,9 @@ def online(torch, gpu: str, tree, queries):
         f"R={tree32.layers[-1].chunk_vals.shape[1]}, {tree32.memory_bytes() / 1e9:.3f} GB chunk "
         f"tiles, in {time.perf_counter() - t0:.1f} s (host)")
     q32 = benchmark_queries(shape, n, rng)
-    eng, s, l, counts = serve("mscm_pallas", tree32, q32)
-    fused = counts[0]
-    expect("search-32k mscm_pallas", counts, (tree32.depth * n, 0))
+    eng, s, l, launched = serve("mscm_pallas", tree32, q32)
+    fused = launched[0]
+    expect("search-32k mscm_pallas", launched, (tree32.depth * n, 0))
     dense, s_d, l_d, _ = serve("mscm_dense", tree32, q32)
     n_diff = check_ranking(s, l, s_d, l_d, "search-32k online mscm_pallas vs mscm_dense")
     st, st_d = eng.latency_summary(), dense.latency_summary()
@@ -1580,7 +1580,7 @@ def server(torch, gpu: str, tree, queries) -> tuple:
     eng.warmup_buckets(tree.d, SERVE["max_batch"])  # what start() runs
     again = 1e3 * (time.perf_counter() - t0)
     cost0 = 1e3 * eng.measure_batch_seconds(SERVE["max_batch"])
-    log(f"  exact tier: first run of each bucket (ms) "
+    log(f"  exact tier: each bucket's warm-up, eager and its graph's capture (ms) "
         f"{ {b: round(ms, 3) for b, ms in warm.items()} }; warmup_buckets(1-64) again "
         f"{again:.3f} ms; a 64-query batch at tier 0 {cost0:.5f} ms (measure_batch_seconds)"
         f"  [{gpu}]")
@@ -2323,12 +2323,12 @@ def train(torch, gpu: str, random_levels: list) -> int:
     _, l_x = model.predict(xi, xv, beam=leaves, topk=serve["topk"])
     log(f"  exact search (beam = {leaves}, mscm_dense): P@1 {precision_at_k(l_x, ds.y_test, 1):.6f}"
         f" against {p1:.6f} at beam {serve['beam']}")
-    counts = level_counts(torch, eng, queries, serve["max_batch"])
-    trained = ", ".join(f"{100 * c['zero_share']:.2f}%" for c in counts)
+    levels = level_counts(torch, eng, queries, serve["max_batch"])
+    trained = ", ".join(f"{100 * c['zero_share']:.2f}%" for c in levels)
     random = ", ".join(f"{100 * c['zero_share']:.2f}%" for c in random_levels)
     log(f"  logits exactly 0 per level, first batch: trained tree {trained}; random search-1m "
         f"tree {random}; live tiles per level: trained "
-        f"{[c['live'] for c in counts]} of {[c['tiles'] for c in counts]}, search-1m "
+        f"{[c['live'] for c in levels]} of {[c['tiles'] for c in levels]}, search-1m "
         f"{[c['live'] for c in random_levels]} of {[c['tiles'] for c in random_levels]}")
     return launches
 

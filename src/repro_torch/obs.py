@@ -21,7 +21,9 @@ profiler event: a few microseconds each side, a few hundred before the first
 range of a session.
 
 A span given ``device=`` a CUDA device also records a pair of CUDA events on
-that device's current stream, around the span. :func:`spans` resolves them to
+that device's current stream, around the span, unless that stream is being
+captured into a CUDA graph: a span inside a capture is entered once, when
+the graph is recorded, and holds no device interval. :func:`spans` resolves them to
 milliseconds (``elapsed_time``) when it reads the buffer, after the work has
 finished; nothing during the call synchronises. That device interval is the
 stream's time from the span's first enqueued work to its last: device work
@@ -30,7 +32,10 @@ as well where the host sets the pace.
 
 The buffer holds the newest :data:`CAPACITY` spans; :func:`dropped` counts
 those it let go. :func:`count` always adds to a process-wide total
-(:func:`total`); the kernel wrappers count their launches with it.
+(:func:`total`); the kernel wrappers count their launches with it, and the
+serving engine its CUDA graphs' captures and replays. :func:`tally` collects
+what one thread counts in a block: the engine re-counts a graph's launches,
+as its capture counted them, at each replay.
 """
 
 from __future__ import annotations
@@ -117,7 +122,8 @@ class Span:
             self._range = _Range(self.name)
             self._range.__enter__()
         self._events = None
-        if self._device is not None and self._device.type == "cuda":
+        if (self._device is not None and self._device.type == "cuda"
+                and not torch.cuda.is_current_stream_capturing()):
             stream = torch.cuda.current_stream(self._device)
             start = torch.cuda.Event(enable_timing=True)
             start.record(stream)
@@ -155,6 +161,9 @@ def count(name: str, n: int = 1) -> None:
     innermost open span of this thread."""
     with _lock:
         _totals[name] += n
+    got = getattr(_local, "tally", None)
+    if got is not None:
+        got[name] = got.get(name, 0) + n
     if _profiler._is_profiler_enabled or _recording:
         stack = _stack()
         if stack:
@@ -166,6 +175,21 @@ def total(name: str) -> int:
     """The counter ``name``'s process-wide total."""
     with _lock:
         return _totals.get(name, 0)
+
+
+@contextlib.contextmanager
+def tally() -> Iterator[Dict[str, int]]:
+    """The counts this thread adds in this block, by name (they still go to
+    the totals and the spans as well)."""
+    outer = getattr(_local, "tally", None)
+    _local.tally = got = {}
+    try:
+        yield got
+    finally:
+        _local.tally = outer
+        if outer is not None:
+            for name, n in got.items():
+                outer[name] = outer.get(name, 0) + n
 
 
 @contextlib.contextmanager

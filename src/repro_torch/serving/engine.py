@@ -41,13 +41,25 @@ the head and the parts on the card, not a copy of the whole tree.
 ``devices=`` names the device slots of either mesh (every visible card by
 default on a GPU, the engine's device on the CPU); a device may repeat, so
 one card, or the CPU, can stand in for a mesh.
+
+CUDA graphs: where the whole traversal is enqueued on the caller's stream
+(a CUDA device, no replicas, and no planner placement, beam cache or
+transport: ``XMRServingEngine._graphable``), a dispatch key's first
+``_run`` runs eagerly, its second records the same traversal as one CUDA
+graph on static input buffers, and every later ``_run`` of the key copies
+its queries into them and replays the graph: one ``cudaGraphLaunch`` for the
+~400 launches a traversal issues, and counts again the launches its capture
+counted (``obs``' ``launches.*``). All the keys' graphs share one memory
+pool, so they replay only on the stream the first was recorded from.
+Elsewhere, and on any other stream, every ``_run`` runs eagerly.
 """
 
 from __future__ import annotations
 
 import itertools
+import threading
 import time
-from typing import Optional, Sequence, Tuple
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -88,6 +100,18 @@ def resolve_method(method: str, device: str | torch.device | None = None) -> str
 
 #: Serial numbers of engines, for the ``engine`` attribute of their root spans.
 _SERIALS = itertools.count(1)
+
+
+class _Graph(NamedTuple):
+    """One dispatch key's recorded traversal: the graph, the static inputs
+    it reads, the outputs it writes, and the ``obs`` counts (the kernels'
+    launches) its capture made, which each replay counts again."""
+
+    graph: "torch.cuda.CUDAGraph"
+    xi: torch.Tensor
+    xv: torch.Tensor
+    out: Tuple[torch.Tensor, torch.Tensor]
+    counts: Dict[str, int]
 
 
 def _bucket(n: int, max_batch: int) -> int:
@@ -145,6 +169,15 @@ class XMRServingEngine:
         self.placement = None
         self.planner = None
         self._replicas = None
+        # CUDA graphs by dispatch key, the keys run once eagerly, and the
+        # pool, capture stream and replay stream every key shares (set at the
+        # first capture: graphs that share a pool must never run at once).
+        self._graphs = {}
+        self._warm_keys = set()
+        self._graph_pool = None
+        self._capture_stream = None
+        self._graph_stream = None
+        self._graph_lock = threading.Lock()
         c, pc = self.config, self.config.partition
         shards = c.shards
         if shards < 1 or shards & (shards - 1):
@@ -218,31 +251,100 @@ class XMRServingEngine:
         bounded static sets, so ``warmup_buckets`` can enumerate every key."""
         return (self.bucket_for(n), int(tier))
 
+    def _graphable(self) -> bool:
+        """Whether ``_run`` enqueues the whole traversal on the caller's
+        stream and reads nothing back to the host, so that a CUDA graph can
+        record it: no replicas (each on a stream of its own), and a planner,
+        if any, without a placement (streams per slot), a beam cache (which
+        reads the router's beam back) or a transport (which copies to numpy).
+        The graphs engage only where this holds on a CUDA device."""
+        if self._replicas is not None:
+            return False
+        p = self.planner
+        return p is None or (p.placement is None and p.cache is None and p.transport is None)
+
+    def _traverse(self, xi: torch.Tensor, xv: torch.Tensor, tier: int):
+        """The traversal of one bucket at ``tier``, enqueued eagerly."""
+        c, t = self.config, self.tiers[tier]
+        if self.planner is not None:
+            # The tier's beam/qt ride as per-call overrides only when degraded.
+            if tier:
+                return self.planner.infer(xi, xv, beam=t.beam, qt=t.qt)
+            return self.planner.infer(xi, xv)
+        kw = dict(beam=t.beam, topk=c.topk, method=self.method, score_mode=c.score_mode,
+                  qt=t.qt)
+        if self._replicas is None:
+            return self.tree.infer(xi, xv, **kw)
+        # Each slot serves its run of rows on its own stream; the caller's
+        # stream waits for every slot before the results are handed back.
+        caller = Slot.current(xi.device)
+        out_s, out_l = [], []
+        for (slot, tree), (r0, r1) in zip(self._replicas,
+                                          row_slices(xi.shape[0], len(self._replicas))):
+            xi_r, xv_r = send((xi[r0:r1], xv[r0:r1]), caller, slot)
+            with slot.enter():
+                s, l = tree.infer(xi_r, xv_r, **kw)
+            s, l = send((s, l), slot, caller)
+            out_s.append(s)
+            out_l.append(l)
+        return torch.cat(out_s), torch.cat(out_l)
+
     def _run(self, xi: torch.Tensor, xv: torch.Tensor, tier: int = 0):
         with obs.span("serve.run"):
-            c, t = self.config, self.tiers[tier]
-            if self.planner is not None:
-                # The tier's beam/qt ride as per-call overrides only when degraded.
-                if tier:
-                    return self.planner.infer(xi, xv, beam=t.beam, qt=t.qt)
-                return self.planner.infer(xi, xv)
-            kw = dict(beam=t.beam, topk=c.topk, method=self.method, score_mode=c.score_mode,
-                      qt=t.qt)
-            if self._replicas is None:
-                return self.tree.infer(xi, xv, **kw)
-            # Each slot serves its run of rows on its own stream; the caller's
-            # stream waits for every slot before the results are handed back.
-            caller = Slot.current(xi.device)
-            out_s, out_l = [], []
-            for (slot, tree), (r0, r1) in zip(self._replicas,
-                                              row_slices(xi.shape[0], len(self._replicas))):
-                xi_r, xv_r = send((xi[r0:r1], xv[r0:r1]), caller, slot)
-                with slot.enter():
-                    s, l = tree.infer(xi_r, xv_r, **kw)
-                s, l = send((s, l), slot, caller)
-                out_s.append(s)
-                out_l.append(l)
-            return torch.cat(out_s), torch.cat(out_l)
+            out = self._replay(xi, xv, tier)
+            return self._traverse(xi, xv, tier) if out is None else out
+
+    def _replay(self, xi: torch.Tensor, xv: torch.Tensor, tier: int):
+        """``_run``'s outputs from its dispatch key's CUDA graph, recorded at
+        the key's second run; None where the run is eager: off a CUDA device,
+        where :meth:`_graphable` does not hold, a key's first run, and a run
+        on another stream than the one the engine's first graph was recorded
+        on (all the graphs share one pool, so they replay on one stream)."""
+        dev = xi.device
+        if dev.type != "cuda" or not self._graphable():
+            return None
+        key = (tier, tuple(xi.shape), tuple(xv.shape), xi.dtype, xv.dtype)
+        stream = torch.cuda.current_stream(dev)
+        with self._graph_lock:
+            if self._graph_stream not in (None, stream):
+                return None
+            g = self._graphs.get(key)
+            recount = g is not None
+            if g is None:
+                if key not in self._warm_keys:
+                    # The key's first run builds and loads the kernels, sets
+                    # their attributes and fills the plan caches.
+                    self._warm_keys.add(key)
+                    return None
+                g = self._graphs[key] = self._capture(xi, xv, tier)
+                self._graph_stream = stream
+            # Stream-ordered after the last replay, whose outputs were copied
+            # out before these inputs overwrite the static ones.
+            g.xi.copy_(xi)
+            g.xv.copy_(xv)
+            g.graph.replay()
+            obs.count("graph.replay")
+            if recount:  # the capture counted this run's launches itself
+                for name, n in g.counts.items():
+                    obs.count(name, n)
+            return tuple(o.clone() for o in g.out)
+
+    def _capture(self, xi: torch.Tensor, xv: torch.Tensor, tier: int) -> _Graph:
+        """Record ``_traverse`` as a CUDA graph on static inputs of
+        ``xi``/``xv``'s shapes, in the pool all the engine's graphs share."""
+        dev = xi.device
+        if self._graph_pool is None:
+            self._graph_pool = torch.cuda.graph_pool_handle()
+            self._capture_stream = torch.cuda.Stream(dev)
+        sxi, sxv = torch.empty_like(xi), torch.empty_like(xv)
+        graph = torch.cuda.CUDAGraph()
+        # thread_local: other threads may go on using the device meanwhile.
+        with obs.tally() as counted, torch.cuda.device(dev), torch.cuda.graph(
+                graph, pool=self._graph_pool, stream=self._capture_stream,
+                capture_error_mode="thread_local"):
+            out = self._traverse(sxi, sxv, tier)
+        obs.count("graph.capture")
+        return _Graph(graph, sxi, sxv, tuple(out), counted)
 
     def _run_to_host(self, xi: torch.Tensor, xv: torch.Tensor, count: int, tier: int = 0):
         """Enqueue one bucket at ``tier`` and the copies of its first
@@ -271,9 +373,14 @@ class XMRServingEngine:
     def warmup(self, d: int, batch_sizes: Sequence[int] = (1,), tier: int = 0) -> None:
         """Run each bucket once at ``tier``, so that the kernels are built
         and loaded, and the plans and the allocator cached, before live
-        traffic arrives."""
-        for b in batch_sizes:
-            self._run(*self._empty_batch(self.bucket_for(b), d), tier=tier)
+        traffic arrives. Where CUDA graphs engage, then run each once more,
+        largest first: that run records the bucket's graph, and the smaller
+        buckets' graphs fit in the pool memory the largest one's took."""
+        batches = [self._empty_batch(self.bucket_for(b), d) for b in batch_sizes]
+        if self.device.type == "cuda" and self._graphable():
+            batches += sorted(batches, key=lambda batch: -batch[0].shape[0])
+        for xi, xv in batches:
+            self._run(xi, xv, tier=tier)
             self._sync()
 
     def warmup_buckets(self, d: int, max_batch: int,

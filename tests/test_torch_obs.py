@@ -100,6 +100,25 @@ def test_counts_land_in_the_innermost_span_and_the_total():
     assert obs.total("test.launches") == before + 5
 
 
+def test_tally_holds_this_threads_counts_in_the_block():
+    """Tracing off: a tally gets what its own thread counts inside it, a
+    nested tally's counts too, and nothing another thread counts meanwhile;
+    every count still reaches the total."""
+    before = obs.total("test.tally")
+    obs.count("test.tally")                      # before the block
+    with obs.tally() as got:
+        obs.count("test.tally", 2)
+        with obs.tally() as inner:
+            obs.count("test.tally.inner")
+        other = threading.Thread(target=obs.count, args=("test.tally", 5))
+        other.start()
+        other.join(timeout=60)
+    obs.count("test.tally")                      # after it
+    assert inner == {"test.tally.inner": 1}
+    assert got == {"test.tally": 2, "test.tally.inner": 1}
+    assert obs.total("test.tally") == before + 9
+
+
 def test_full_buffer_drops_the_oldest(monkeypatch):
     monkeypatch.setattr(obs, "_buffer", collections.deque(maxlen=3))
     with obs.recording():
