@@ -39,19 +39,19 @@ def main(argv=None) -> int:
     _paths()
     import torch
 
-    from xmrbench import control, harness
+    from xmrbench import harness
 
     if not torch.cuda.is_available():
         print("no CUDA card", file=sys.stderr)
         return 2
     cell = harness.load_cell(args.workload)
+    hooks = harness.load_kind(cell.config.get("kind", harness.DEFAULT_KIND), cell.kinds)
     runs = [(s, "program", None) for s in _seeds(args.seeds)]
     if args.control_seeds:
-        runs += [(s, "control", control.control_hook()) for s in _seeds(args.control_seeds)]
+        runs += [(s, "control", hooks.control_hook()) for s in _seeds(args.control_seeds)]
     if args.faults:
         seed = _seeds(args.seeds)[0]
-        kinds = control.FAULTS if cell.mix["mode"] == "batch" else ("alter_answer", "stale")
-        runs += [(seed, f, control.fault_hook(f)) for f in kinds]
+        runs += [(seed, f, hook) for f, hook in hooks.fault_hooks(cell.mix).items()]
     summary = {}
     for seed, kind, hook in runs:
         t0 = time.perf_counter()

@@ -71,3 +71,11 @@ def activities_per_query(rec, mode: str) -> Optional[float]:
     if t is None or not rec.traced_queries:
         return None
     return t.activities / rec.traced_queries
+
+
+def activities_per_call(rec, mode: str) -> Optional[float]:
+    """Device activities in the traced window over the calls it made."""
+    t = _traced(rec, mode)
+    if t is None or not rec.traced_calls:
+        return None
+    return t.activities / rec.traced_calls
