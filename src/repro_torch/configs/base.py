@@ -8,7 +8,7 @@ import dataclasses
 import importlib
 from typing import Dict, List
 
-from repro_torch.models.common import ArchConfig
+from repro_torch.models.common import ArchConfig, PortArchConfig
 
 ARCH_IDS: List[str] = [
     "yi-9b",
@@ -23,12 +23,20 @@ ARCH_IDS: List[str] = [
     "rwkv6-7b",
 ]
 
-_MODULES = {a: "repro_torch.configs." + a.replace("-", "_").replace(".", "_") for a in ARCH_IDS}
+#: The port's own architectures (``PortArchConfig``s): ``get_config``
+#: resolves them, and they stay out of ``ARCH_IDS`` and ``all_configs``,
+#: which hold the JAX package's list.
+PORT_ARCH_IDS: List[str] = [
+    "deepseek-v2-lite",
+]
+
+_MODULES = {a: "repro_torch.configs." + a.replace("-", "_").replace(".", "_")
+            for a in ARCH_IDS + PORT_ARCH_IDS}
 
 
 def get_config(arch_id: str) -> ArchConfig:
     if arch_id not in _MODULES:
-        raise KeyError(f"unknown arch {arch_id!r}; known: {ARCH_IDS}")
+        raise KeyError(f"unknown arch {arch_id!r}; known: {ARCH_IDS + PORT_ARCH_IDS}")
     mod = importlib.import_module(_MODULES[arch_id])
     return mod.CONFIG
 
@@ -61,6 +69,16 @@ def reduced_config(cfg: ArchConfig) -> ArchConfig:
         kw.update(frontend_tokens=8)
     if cfg.sliding_window:
         kw.update(sliding_window=8)
+    if isinstance(cfg, PortArchConfig):
+        # one leading dense layer and two MoE layers, the query without
+        # LoRA where it has none, shared experts and the routing as
+        # registered, YaRN over an original 16 positions so that a short
+        # test sequence runs past it
+        kw.update(n_layers=cfg.first_k_dense + 2, q_lora_rank=min(cfg.q_lora_rank, 32))
+        if cfg.n_experts:
+            kw.update(n_experts=8, experts_per_token=3)
+        if cfg.yarn is not None:
+            kw.update(yarn=dataclasses.replace(cfg.yarn, original_max_position=16))
     return dataclasses.replace(cfg, **kw)
 
 

@@ -11,7 +11,11 @@ Two execution modes per variant:
 
 MLA keeps the *compressed* cache (c_kv + rotary key); decode supports the
 naive expand-per-step form and the "absorbed" form (projection matrices
-folded into the query / output).
+folded into the query / output). A config with ``q_lora_rank`` 0 projects
+the query with one ``wq`` (DeepSeek-V2-Lite); a config with YaRN
+(``PortArchConfig.yarn``) scales the rotary frequencies and the softmax
+(``common.rope_angles``, ``common.mla_softmax_scale``), in the full, the
+chunked and the decode paths.
 
 Decode writes the new key/value into the cache at ``pos`` in place and
 returns the cache; the reference returns new arrays. A ``pos`` past the
@@ -46,8 +50,8 @@ from torch.distributed.tensor import DTensor
 
 from repro_torch.distributed import spmd
 from repro_torch.models.common import (ArchConfig, apply_rope, dense_init, dot,
-                                       dot_by_sequence, einsum, full_init, rms_norm,
-                                       rope_angles, softmax)
+                                       dot_by_sequence, einsum, full_init, mla_softmax_scale,
+                                       rms_norm, rope_angles, softmax)
 
 NEG = -1e30  # the reference's mask value
 
@@ -68,8 +72,11 @@ def causal_window_mask(s_q: int, s_k: int, q_offset, window,
     return mask
 
 
-def _sdpa(q, k, v, mask, *, scores_bf16: bool = False) -> torch.Tensor:
-    """q [B,Sq,H,dh], k [B,Sk,Hkv,dh], v [B,Sk,Hkv,dv]; GQA head grouping."""
+def _sdpa(q, k, v, mask, *, scores_bf16: bool = False,
+          softmax_scale: float | None = None) -> torch.Tensor:
+    """q [B,Sq,H,dh], k [B,Sk,Hkv,dh], v [B,Sk,Hkv,dv]; GQA head grouping.
+    The scores are divided by ``sqrt(dh)``, or multiplied by
+    ``softmax_scale`` where it is given."""
     if isinstance(q, DTensor) and not spmd.sharding_dims(k, 1):
         return _sdpa_heads(q, k, v, mask, scores_bf16=scores_bf16)
     if isinstance(q, DTensor):
@@ -81,9 +88,12 @@ def _sdpa(q, k, v, mask, *, scores_bf16: bool = False) -> torch.Tensor:
     scores = einsum("bqkgd,bskd->bkgqs", q, k)
     if not scores_bf16:
         scores = scores.float()
-    scale = spmd.replicate_like(torch.sqrt(torch.tensor(float(dh), dtype=scores.dtype,
-                                                        device=scores.device)), scores)
-    scores = scores / scale
+    if softmax_scale is None:
+        scale = spmd.replicate_like(torch.sqrt(torch.tensor(float(dh), dtype=scores.dtype,
+                                                            device=scores.device)), scores)
+        scores = scores / scale
+    else:
+        scores = scores * softmax_scale
     scores = torch.where(spmd.replicate_like(mask.to(scores.device)[None, None, None], scores),
                          scores, NEG)
     probs = softmax(scores, -1).to(v.dtype)
@@ -159,13 +169,15 @@ def _attend(q, k, v, mask, *, scores_bf16: bool = False) -> torch.Tensor:
 
 
 def _chunked_sdpa(q, k, v, *, q_offset, window, kblock: int, qblock: int,
-                  causal: bool = True, full_unroll: bool = False) -> torch.Tensor:
+                  causal: bool = True, full_unroll: bool = False,
+                  softmax_scale: float | None = None) -> torch.Tensor:
     """Flash-style attention: online softmax over key blocks.
 
     Never materializes the [Sq, Sk] score matrix — peak intermediate is one
     [qblock, kblock] tile per head group. Same FLOPs as naive; equal up to
-    fp reassociation. q [B,Sq,H,dh]. ``full_unroll`` is the reference's
-    dry-run knob and has no effect here.
+    fp reassociation. q [B,Sq,H,dh]. The scores are scaled by
+    ``softmax_scale`` (default ``1 / sqrt(dh)``). ``full_unroll`` is the
+    reference's dry-run knob and has no effect here.
     """
     b, sq, h, dh = q.shape
     sk, hkv, dv = k.shape[1], k.shape[2], v.shape[3]
@@ -179,7 +191,8 @@ def _chunked_sdpa(q, k, v, *, q_offset, window, kblock: int, qblock: int,
         k = F.pad(k, (0, 0, 0, 0, 0, pad_k))
         v = F.pad(v, (0, 0, 0, 0, 0, pad_k))
     win = int(window)
-    scale = torch.rsqrt(torch.tensor(float(dh), dtype=torch.float32))
+    scale = (torch.rsqrt(torch.tensor(float(dh), dtype=torch.float32)) if softmax_scale is None
+             else torch.tensor(softmax_scale, dtype=torch.float32))
     qr = q.reshape(b, sq, hkv, g, dh)
 
     outs = []
@@ -216,9 +229,19 @@ def _chunked_sdpa(q, k, v, *, q_offset, window, kblock: int, qblock: int,
     return out.movedim(3, 1).reshape(b, sq, h, dv)
 
 
-def _write_slot(cache: torch.Tensor, val: torch.Tensor, pos: int) -> torch.Tensor:
+def position(pos):
+    """A decode position as the decode paths take it: an int (a 0-d tensor
+    read once), or a device tensor ``[1]``, which a CUDA graph of the step
+    reads at each replay."""
+    return pos if isinstance(pos, torch.Tensor) and pos.ndim == 1 else int(pos)
+
+
+def _write_slot(cache: torch.Tensor, val: torch.Tensor, pos) -> torch.Tensor:
     """Write ``val`` [B,1,...] at sequence slot ``pos`` of ``cache`` [B,S,...]
-    in place, clamped into the cache as ``dynamic_update_slice`` clamps."""
+    in place, clamped into the cache as ``dynamic_update_slice`` clamps
+    (``pos``: see :func:`position`)."""
+    if isinstance(pos, torch.Tensor):
+        return cache.index_copy_(1, pos.clamp(0, cache.shape[1] - 1), val.to(cache.dtype))
     slot = min(max(int(pos), 0), cache.shape[1] - 1)
     if isinstance(cache, DTensor):
         spmd.write_block(cache, val, dim=1, start=slot)
@@ -227,7 +250,7 @@ def _write_slot(cache: torch.Tensor, val: torch.Tensor, pos: int) -> torch.Tenso
     return cache
 
 
-def _decode_mask(s_max: int, pos: int, window: int, device) -> torch.Tensor:
+def _decode_mask(s_max: int, pos, window: int, device) -> torch.Tensor:
     kpos = torch.arange(s_max, device=device)
     mask = kpos <= pos
     if window > 0:
@@ -368,10 +391,14 @@ def mla_init(generator: torch.Generator, cfg: ArchConfig,
     qr, kvr = cfg.q_lora_rank, cfg.kv_lora_rank
     nope, rope_d, vd = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
     dt = cfg.param_dtype
+    if qr:
+        q = {"wdq": dense_init(generator, (d, qr), d, dt, device),
+             "q_norm": full_init((qr,), 1.0, dt, device),
+             "wuq": dense_init(generator, (qr, h * (nope + rope_d)), qr, dt, device)}
+    else:
+        q = {"wq": dense_init(generator, (d, h * (nope + rope_d)), d, dt, device)}
     return {
-        "wdq": dense_init(generator, (d, qr), d, dt, device),
-        "q_norm": full_init((qr,), 1.0, dt, device),
-        "wuq": dense_init(generator, (qr, h * (nope + rope_d)), qr, dt, device),
+        **q,
         "wdkv": dense_init(generator, (d, kvr), d, dt, device),
         "kv_norm": full_init((kvr,), 1.0, dt, device),
         "wkr": dense_init(generator, (d, rope_d), d, dt, device),
@@ -381,10 +408,16 @@ def mla_init(generator: torch.Generator, cfg: ArchConfig,
 
 
 def _mla_q(p, x, cfg):
+    """The query ``[B, S, H, nope]``, ``[B, S, H, rope]`` (before RoPE):
+    through the low-rank ``wdq``, ``q_norm``, ``wuq``, or one ``wq`` where
+    ``q_lora_rank`` is 0."""
     b, s, _ = x.shape
     h, nope, rope_d = cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim
-    cq = rms_norm(dot(x, p["wdq"]), p["q_norm"])
-    q = dot(cq, p["wuq"]).reshape(b, s, h, nope + rope_d)
+    if cfg.q_lora_rank:
+        cq = rms_norm(dot(x, p["wdq"]), p["q_norm"])
+        q = dot(cq, p["wuq"]).reshape(b, s, h, nope + rope_d)
+    else:
+        q = dot(x, p["wq"]).reshape(b, s, h, nope + rope_d)
     return q[..., :nope], q[..., nope:]
 
 
@@ -398,7 +431,7 @@ def mla_full(p, x: torch.Tensor, cfg: ArchConfig, *, q_offset=0):
     ckv = rms_norm(dot(x, p["wdkv"]), p["kv_norm"])              # [B,S,kvr]
     kr = dot(x, p["wkr"])[:, :, None, :]                         # [B,S,1,rope]
     cos, sin = rope_angles(torch.arange(s, device=x.device) + int(q_offset), rope_d,
-                           cfg.rope_theta)
+                           cfg.rope_theta, getattr(cfg, "yarn", None))
     q_rope = apply_rope(q_rope, cos, sin)
     kr = apply_rope(kr, cos, sin)
     kv = dot(ckv, p["wukv"]).reshape(b, s, h, nope + vd)
@@ -408,10 +441,11 @@ def mla_full(p, x: torch.Tensor, cfg: ArchConfig, *, q_offset=0):
     if cfg.attn_impl == "chunked":
         out = _chunked_sdpa(q, k, v, q_offset=q_offset, window=0,
                             kblock=cfg.attn_kblock, qblock=cfg.attn_qblock,
-                            full_unroll=cfg.unroll_layers)
+                            full_unroll=cfg.unroll_layers, softmax_scale=mla_softmax_scale(cfg))
     else:
         mask = causal_window_mask(s, s, q_offset, 0, x.device)
-        out = _sdpa(q, k, v, mask, scores_bf16=cfg.attn_scores_bf16)
+        out = _sdpa(q, k, v, mask, scores_bf16=cfg.attn_scores_bf16,
+                    softmax_scale=mla_softmax_scale(cfg))
     return dot(out.reshape(b, s, h * vd), p["wo"]), (ckv, kr[:, :, 0, :])
 
 
@@ -483,29 +517,45 @@ def _mla_full_sharded(p, x: DTensor, cfg: ArchConfig, q_offset):
     return y, (ckv, kr[:, :, 0, :])
 
 
-def mla_decode(p, x, cache_ckv, cache_kr, pos, cfg: ArchConfig, *, absorb: bool = True):
+def mla_decode_tables(cfg: ArchConfig, pos, s_max: int, device):
+    """What every layer's :func:`mla_decode` at position ``pos`` (see
+    :func:`position`) of a cache of ``s_max`` slots shares: the rotary
+    tables (cos, sin ``[1, rope/2]``) and the mask ``[s_max]``. An int
+    position is made on the device: a copy from the host's pageable memory
+    would wait for the stream."""
+    pos = position(pos)
+    at = pos if isinstance(pos, torch.Tensor) else torch.full((1,), pos, device=device)
+    cos, sin = rope_angles(at, cfg.qk_rope_dim, cfg.rope_theta, getattr(cfg, "yarn", None))
+    return cos, sin, _decode_mask(s_max, pos, 0, device)
+
+
+def mla_decode(p, x, cache_ckv, cache_kr, pos, cfg: ArchConfig, *, absorb: bool = True,
+               tables=None):
     """Compressed-cache decode (caches written in place). absorb=True folds
-    W_ukv into q/out; absorb=False expands keys/values per step."""
+    W_ukv into q/out; absorb=False expands keys/values per step. ``tables``:
+    :func:`mla_decode_tables` of ``pos``, made once for all the layers of a
+    step (made here where None)."""
     if isinstance(cache_ckv, DTensor):
         return _mla_decode_sharded(p, x, cache_ckv, cache_kr, pos, cfg, absorb=absorb)
     b, _, _ = x.shape
     h = cfg.n_heads
     nope, rope_d, vd = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
     kvr = cfg.kv_lora_rank
-    s_max = cache_ckv.shape[1]
-    pos = int(pos)
+    pos = position(pos)
     q_nope, q_rope = _mla_q(p, x, cfg)                    # [B,1,H,*]
-    cos, sin = rope_angles(torch.tensor([pos], device=x.device), rope_d, cfg.rope_theta)
+    cos, sin, mask = (mla_decode_tables(cfg, pos, cache_ckv.shape[1], x.device)
+                      if tables is None else tables)      # mask [S]
     q_rope = apply_rope(q_rope, cos, sin)
     ckv_t = rms_norm(dot(x, p["wdkv"]), p["kv_norm"])     # [B,1,kvr]
     kr_t = apply_rope(dot(x, p["wkr"])[:, :, None, :], cos, sin)[:, :, 0, :]
     cache_ckv = _write_slot(cache_ckv, ckv_t, pos)
     cache_kr = _write_slot(cache_kr, kr_t, pos)
-    mask = _decode_mask(s_max, pos, 0, x.device)          # [S]
     wukv = p["wukv"].reshape(kvr, h, nope + vd)
     wk = wukv[..., :nope]                                 # [kvr,H,nope]
     wv = wukv[..., nope:]                                 # [kvr,H,vd]
-    scale = torch.sqrt(torch.tensor(float(nope + rope_d), dtype=torch.float32))
+    softmax_scale = mla_softmax_scale(cfg)
+    scale = (torch.sqrt(torch.tensor(float(nope + rope_d), dtype=torch.float32))
+             if softmax_scale is None else torch.tensor(1.0 / softmax_scale, dtype=torch.float32))
     if absorb:
         # score_h(s) = <q_nope_h W_k_h, ckv_s> + <q_rope_h, kr_s>
         q_eff = einsum("bqhn,chn->bqhc", q_nope, wk)      # [B,1,H,kvr]

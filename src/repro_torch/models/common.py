@@ -175,6 +175,84 @@ class ArchConfig:
         return int(full - expert_p + active_e)
 
 
+@dataclasses.dataclass(frozen=True)
+class YaRN:
+    """YaRN's rotary scaling, as DeepSeek-V2's ``rope_scaling`` (type
+    ``yarn``) states it: the rotary frequencies between the correction dims
+    of ``beta_fast`` and ``beta_slow`` rotations over
+    ``original_max_position`` positions blended towards ``1 / factor`` of
+    themselves (see :func:`rope_angles`), and the softmax scale times
+    ``yarn_mscale(factor, mscale_all_dim) ** 2``."""
+
+    factor: float
+    original_max_position: int
+    beta_fast: float = 32.0
+    beta_slow: float = 1.0
+    mscale: float = 1.0
+    mscale_all_dim: float = 0.0
+
+
+@dataclasses.dataclass(frozen=True)
+class PortArchConfig(ArchConfig):
+    """An architecture that the port registers and the JAX package does not
+    (``configs.base.PORT_ARCH_IDS``): :class:`ArchConfig`'s fields, with
+    their meanings, and the settings that only such architectures use, so
+    that the ten shared configurations keep the reference's fields. An MLA
+    model with ``q_lora_rank`` 0 projects its query with one ``wq``.
+
+    These run on one card: the DTensor program refuses them
+    (``models.lm``)."""
+
+    # shared experts: one SwiGLU of n_shared_experts * moe_d_ff that every
+    # token of an MoE layer runs, added to the routed experts' sum
+    n_shared_experts: int = 0
+    # leading layers whose feed-forward is a dense SwiGLU of d_ff
+    first_k_dense: int = 0
+    # renormalise the top-k routing weights to sum to 1; otherwise they are
+    # the router's probabilities times routed_scale
+    norm_topk_prob: bool = True
+    routed_scale: float = 1.0
+    # route every (token, expert) pair: no capacity, nothing dropped
+    moe_dropless: bool = False
+    # rotary scaling of the MLA's rotary dims (None: plain RoPE)
+    yarn: Optional[YaRN] = None
+
+    def n_params(self) -> int:
+        d, h, V, L = self.d_model, self.n_heads, self.vocab, self.n_layers
+        nope, rope, vd = self.qk_nope_dim, self.qk_rope_dim, self.v_head_dim
+        q = (d * self.q_lora_rank + self.q_lora_rank * h * (nope + rope) if self.q_lora_rank
+             else d * h * (nope + rope))
+        attn = q + d * (self.kv_lora_rank + rope) + self.kv_lora_rank * h * (nope + vd) + h * vd * d
+        k = self.first_k_dense if self.n_experts else 0
+        moe = (3 * d * self.moe_d_ff * (self.n_experts + self.n_shared_experts)
+               + d * self.n_experts)
+        ffn = k * 3 * d * self.d_ff + (L - k) * (moe if self.n_experts else 3 * d * self.d_ff)
+        return V * d * (1 if self.tie_embeddings else 2) + L * attn + ffn
+
+    def n_active_params(self) -> int:
+        if not self.n_experts:
+            return self.n_params()
+        idle = (self.n_layers - self.first_k_dense) * (self.n_experts - self.experts_per_token)
+        return self.n_params() - idle * 3 * self.d_model * self.moe_d_ff
+
+
+def yarn_mscale(factor: float, mscale: float) -> float:
+    """YaRN's attention factor ``0.1 * mscale * ln(factor) + 1`` (1 where
+    ``factor`` is at most 1)."""
+    return 1.0 if factor <= 1 else 0.1 * mscale * math.log(factor) + 1.0
+
+
+def mla_softmax_scale(cfg: ArchConfig) -> Optional[float]:
+    """The MLA softmax's scale where YaRN sets it, ``(nope + rope)^-1/2 *
+    yarn_mscale(factor, mscale_all_dim)^2``; None for the plain
+    ``1 / sqrt(nope + rope)``."""
+    yarn = getattr(cfg, "yarn", None)
+    if yarn is None:
+        return None
+    m = yarn_mscale(yarn.factor, yarn.mscale_all_dim)
+    return (cfg.qk_nope_dim + cfg.qk_rope_dim) ** -0.5 * m * m
+
+
 # ---------------------------------------------------------------------------
 # products in JAX's promoted dtype
 # ---------------------------------------------------------------------------
@@ -323,13 +401,40 @@ def _rms_norm_sharded(x: DTensor, scale: DTensor, eps: float) -> DTensor:
     return spmd.from_block(out, mesh, x.placements, x.shape)
 
 
-def rope_angles(positions: torch.Tensor, dim: int, theta: float
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """positions [...]; returns (cos, sin) of shape [..., dim/2]."""
+def rope_angles(positions: torch.Tensor, dim: int, theta: float,
+                yarn: Optional[YaRN] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """positions [...]; returns (cos, sin) of shape [..., dim/2].
+
+    Under ``yarn`` the frequencies ``f_i = theta^(-2i/dim)`` become
+    ``f_i / factor * ramp_i + f_i * (1 - ramp_i)``, with ``ramp_i`` rising
+    linearly from 0 at the correction dim ``low`` of ``beta_fast``
+    rotations to 1 at ``high`` of ``beta_slow`` (``corr(r) = dim *
+    ln(original / (2 pi r)) / (2 ln theta)``, ``low = floor(corr(beta_fast))``
+    and ``high = ceil(corr(beta_slow))`` clamped into [0, dim - 1]), and cos
+    and sin are multiplied by ``yarn_mscale(factor, mscale) /
+    yarn_mscale(factor, mscale_all_dim)``. The float32 operations are
+    DeepSeek-V2's own (``DeepseekV2YarnRotaryEmbedding``): at positions past
+    8k an angle's float32 rounding is ~5e-4 rad, so another order of the
+    same arithmetic moves the rotary scores by about 1e-4."""
     ar = torch.arange(0, dim, 2, dtype=torch.float32, device=positions.device)
     freq = 1.0 / (theta ** (ar / dim))
+    if yarn is not None:
+        def corr(rotations):
+            turns = yarn.original_max_position / (rotations * 2 * math.pi)
+            return dim * math.log(turns) / (2 * math.log(theta))
+        low = max(math.floor(corr(yarn.beta_fast)), 0)
+        high = min(math.ceil(corr(yarn.beta_slow)), dim - 1)
+        if high == low:
+            high += 0.001
+        i = torch.arange(dim // 2, dtype=torch.float32, device=positions.device)
+        keep = 1.0 - ((i - low) / (high - low)).clamp(0, 1)
+        inter = 1.0 / (yarn.factor * theta ** (ar / dim))
+        freq = inter * (1 - keep) + freq * keep
     ang = positions.float()[..., None] * freq
-    return torch.cos(ang), torch.sin(ang)
+    if yarn is None:
+        return torch.cos(ang), torch.sin(ang)
+    m = yarn_mscale(yarn.factor, yarn.mscale) / yarn_mscale(yarn.factor, yarn.mscale_all_dim)
+    return torch.cos(ang) * m, torch.sin(ang) * m
 
 
 def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
@@ -340,6 +445,22 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
     c = spmd.replicate_like(cos[..., None, :], x)
     s = spmd.replicate_like(sin[..., None, :], x)
     return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1).to(x.dtype)
+
+
+def swiglu(p, x: torch.Tensor) -> torch.Tensor:
+    """The SwiGLU feed-forward ``(silu(x W1) * x W3) W2``."""
+    return dot(silu(dot(x, p["w1"])) * dot(x, p["w3"]), p["w2"])
+
+
+def swiglu_init(generator: torch.Generator, d: int, ff: int, dtype: torch.dtype = torch.float32,
+                device: str | torch.device | None = None):
+    """:func:`swiglu`'s leaves: ``w1``, ``w3`` ``[d, ff]`` (gate, up), ``w2``
+    ``[ff, d]`` (down), drawn in that order."""
+    return {
+        "w1": dense_init(generator, (d, ff), d, dtype, device),
+        "w3": dense_init(generator, (d, ff), d, dtype, device),
+        "w2": dense_init(generator, (ff, d), ff, dtype, device),
+    }
 
 
 def dense_init(generator: torch.Generator, shape: Tuple[int, ...], in_dim: int,

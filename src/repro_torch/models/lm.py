@@ -64,15 +64,16 @@ from torch.utils._pytree import tree_leaves
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                      create_selective_checkpoint_contexts)
 
+from repro_torch import obs
 from repro_torch.core.tree import resolve_device
 from repro_torch.distributed import spmd
 from repro_torch.distributed.sharding import cache_specs
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
-from repro_torch.models.common import (ArchConfig, apply_rope, checkpoint_name,
+from repro_torch.models.common import (ArchConfig, PortArchConfig, apply_rope,
                                        cross_entropy_loss, dense_init, dot, dot_by_sequence,
-                                       full_init, rms_norm, rope_angles, silu)
+                                       full_init, rms_norm, rope_angles, swiglu, swiglu_init)
 
 Params = Dict[str, Any]
 Device = Optional[str | torch.device]
@@ -100,20 +101,13 @@ def _layers(stacked: Params, n: int) -> List[Params]:
 # ---------------------------------------------------------------------------
 
 def _ffn_init(generator, cfg: ArchConfig, device: Device = None) -> Params:
-    d, ff = cfg.d_model, cfg.d_ff
-    dt = cfg.param_dtype
-    return {
-        "w1": dense_init(generator, (d, ff), d, dt, device),
-        "w3": dense_init(generator, (d, ff), d, dt, device),
-        "w2": dense_init(generator, (ff, d), ff, dt, device),
-    }
+    return swiglu_init(generator, cfg.d_model, cfg.d_ff, cfg.param_dtype, device)
 
 
-def _ffn(p, x):
-    return dot(silu(dot(x, p["w1"])) * dot(x, p["w3"]), p["w2"])
-
-
-def _layer_init(generator, cfg: ArchConfig, device: Device = None) -> Params:
+def _layer_init(generator, cfg: ArchConfig, device: Device = None, *,
+                moe: Optional[bool] = None) -> Params:
+    """One layer's leaves; its feed-forward is the MoE where ``moe`` (by
+    default: where the config has experts), else the dense SwiGLU."""
     dt = cfg.param_dtype
     d = cfg.d_model
     layer: Params = {"ln1": full_init((d,), 1.0, dt, device),
@@ -128,7 +122,7 @@ def _layer_init(generator, cfg: ArchConfig, device: Device = None) -> Params:
         layer["attn"] = attn_lib.gqa_init(generator, cfg, device)
     if cfg.family == "hybrid":
         layer["ssd"] = ssm_lib.ssd_init(generator, cfg, device)
-    if cfg.n_experts:
+    if bool(cfg.n_experts) if moe is None else moe:
         layer["ffn"] = moe_lib.moe_init(generator, cfg, device)
     else:
         layer["ffn"] = _ffn_init(generator, cfg, device)
@@ -189,17 +183,29 @@ def layer_windows(cfg: ArchConfig) -> torch.Tensor:
     return w
 
 
+def _first_dense(cfg: ArchConfig) -> int:
+    """Leading layers of an MoE model whose feed-forward is dense."""
+    return getattr(cfg, "first_k_dense", 0) if cfg.n_experts else 0
+
+
 def init_params(cfg: ArchConfig, generator: torch.Generator, *,
                 device: Device = None) -> Params:
     """Random parameters in the reference's layout, drawn from ``generator``
-    (on its device) and placed on ``device`` (CUDA unless named)."""
+    (on its device) and placed on ``device`` (CUDA unless named). An MoE
+    model with leading dense layers (``first_k_dense``) stacks those apart,
+    under ``dense_layers`` (their ``ffn`` a dense SwiGLU of ``d_ff``), and
+    ``layers`` holds the MoE layers that follow."""
     device = resolve_device(device)
     dt = cfg.param_dtype
+    k = _first_dense(cfg)
     params: Params = {
         "embed": dense_init(generator, (cfg.vocab, cfg.d_model), cfg.d_model, dt, device),
         "final_norm": full_init((cfg.d_model,), 1.0, dt, device),
-        "layers": _stack_layers(generator, cfg, cfg.n_layers, _layer_init, device),
     }
+    if k:
+        params["dense_layers"] = _stack_layers(
+            generator, cfg, k, functools.partial(_layer_init, moe=False), device)
+    params["layers"] = _stack_layers(generator, cfg, cfg.n_layers - k, _layer_init, device)
     if not cfg.tie_embeddings:
         params["lm_head"] = dense_init(generator, (cfg.d_model, cfg.vocab), cfg.d_model, dt,
                                        device)
@@ -306,10 +312,11 @@ def _zero(x: torch.Tensor) -> torch.Tensor:
 
 def _ffn_block(cfg, lp, x):
     h = rms_norm(x, lp["ln2"])
-    if cfg.n_experts:
+    if "router" in lp["ffn"]:
         out, aux = moe_lib.moe_ffn(lp["ffn"], h, cfg)
     else:
-        out, aux = _ffn(lp["ffn"], h), _zero(x)
+        with obs.span("ffn.dense", device=x.device):
+            out, aux = swiglu(lp["ffn"], h), _zero(x)
     return x + spmd.reduced(out), aux
 
 
@@ -331,6 +338,14 @@ def _rwkv_block_full(cfg, lp, x, mode="chunked"):
 # full forward (train / prefill)
 # ---------------------------------------------------------------------------
 
+def _decoder_layers(cfg: ArchConfig, params: Params) -> List[Params]:
+    """The decoder's layers in order, each leaf a view of its stack: the
+    leading dense layers (``dense_layers``), then ``layers``."""
+    k = _first_dense(cfg)
+    lead = _layers(params["dense_layers"], k) if k else []
+    return lead + _layers(params["layers"], cfg.n_layers - k)
+
+
 def _decoder_stack(cfg: ArchConfig, params: Params, x: torch.Tensor, *,
                    q_offset: int = 0, collect_cache: bool = False,
                    enc_out: Optional[torch.Tensor] = None):
@@ -339,7 +354,7 @@ def _decoder_stack(cfg: ArchConfig, params: Params, x: torch.Tensor, *,
     Returns (hidden [B,S,d], per-layer caches stacked on L or None, aux)."""
     windows = layer_windows(cfg).tolist()
     use_cross = cfg.family == "encdec"
-    layers = _layers(params["layers"], cfg.n_layers)
+    layers = _decoder_layers(cfg, params)
     cross = (_layers(params["cross_layers"], cfg.n_layers) if use_cross
              else [None] * cfg.n_layers)
 
@@ -424,7 +439,7 @@ def _encoder_stack(cfg: ArchConfig, params: Params, src: torch.Tensor) -> torch.
         out = attn_lib._sdpa(q, k, v, torch.ones((s, s), dtype=torch.bool, device=x.device))
         x = x + spmd.reduced(dot(out.reshape(b, s, hh * dh), lp["attn"]["wo"]))
         h2 = rms_norm(x, lp["ln2"])
-        return x + spmd.reduced(_ffn(lp["ffn"], h2))
+        return x + spmd.reduced(swiglu(lp["ffn"], h2))
 
     body_fn = _remat(cfg, body)
     x = src
@@ -483,9 +498,20 @@ def _embed_sharded(emb: DTensor, idx: DTensor) -> DTensor:
     return spmd.reduce_over(out, rows, vocab, mesh)
 
 
+def _program(cfg: ArchConfig, params: Params):
+    """``spmd.program(params)``, refused for the port's own architectures
+    (``PortArchConfig``) on DTensors: their shared experts, leading dense
+    layers, routing options, YaRN and query without LoRA have no DTensor
+    path."""
+    if isinstance(cfg, PortArchConfig) and isinstance(params["embed"], DTensor):
+        raise NotImplementedError(
+            f"{cfg.name} runs on one card: the port's own architectures have no DTensor path")
+    return spmd.program(params)
+
+
 def forward_train(cfg: ArchConfig, params: Params, batch: Dict[str, torch.Tensor]):
     """Full training forward. Returns (logits [B,S,V], aux_loss)."""
-    with spmd.program(params):
+    with _program(cfg, params):
         return _forward_train(cfg, params, batch)
 
 
@@ -510,7 +536,7 @@ def _forward_train(cfg: ArchConfig, params: Params, batch: Dict[str, torch.Tenso
 
 
 def loss_fn(cfg: ArchConfig, params: Params, batch: Dict[str, torch.Tensor]):
-    with spmd.program(params):
+    with _program(cfg, params):
         logits, aux = forward_train(cfg, params, batch)
         mask = batch.get("loss_mask")
         ce = cross_entropy_loss(logits, batch["targets"], mask)
@@ -565,7 +591,7 @@ def prefill(cfg: ArchConfig, params: Params, batch: Dict[str, torch.Tensor],
             max_len: int):
     """Process the prompt; returns (last-position logits, filled cache) on
     the parameters' device (over their mesh, for DTensors)."""
-    with spmd.program(params):
+    with _program(cfg, params):
         return _prefill(cfg, params, batch, max_len)
 
 
@@ -639,8 +665,15 @@ def decode_step(cfg: ArchConfig, params: Params, cache: Dict[str, torch.Tensor],
     """One token for every sequence. tokens [B] int; pos the position (an
     int or a 0-d tensor). Writes the cache in place.
 
+    An MLA decoder also takes ``pos`` as a device tensor ``[1]``
+    (``attention.position``), which a CUDA graph of the step reads at each
+    replay (``serving.decode.DecodeSession``).
+
+    Spans (``repro_torch.obs``): in each layer ``mla.decode`` or
+    ``gqa.decode`` and the feed-forward's (``ffn.dense``, or the MoE's).
+
     Returns (logits [B, V], the cache)."""
-    with spmd.program(params):
+    with _program(cfg, params):
         return _decode_step(cfg, params, cache, tokens, pos)
 
 
@@ -650,15 +683,18 @@ def _decode_step(cfg: ArchConfig, params: Params, cache: Dict[str, torch.Tensor]
     x = _maybe_bf16(cfg, _embed(emb, tokens)[:, None, :])     # [B,1,d]
     windows = layer_windows(cfg).tolist()
     use_cross = cfg.family == "encdec"
-    pos = int(pos)
+    pos = attn_lib.position(pos)
     cache = dict(cache)
     if cfg.family == "ssm":
         # The reference's scan returns the token-shift states in the
         # activations' dtype, so after a step they are no longer the cache's.
         for key in ("tm_x", "cm_x"):
             cache[key] = cache[key].to(x.dtype)
-    layers = _layers(params["layers"], cfg.n_layers)
+    layers = _decoder_layers(cfg, params)
     cross = _layers(params["cross_layers"], cfg.n_layers) if use_cross else None
+    tables = None
+    if cfg.attn_type == "mla" and not isinstance(cache["ckv"], DTensor):
+        tables = attn_lib.mla_decode_tables(cfg, pos, cache["ckv"].shape[2], x.device)
     for i, w in enumerate(windows):
         x = spmd.activation_placements(x)
         lp = _cast_layer(cfg, layers[i])
@@ -675,12 +711,13 @@ def _decode_step(cfg: ArchConfig, params: Params, cache: Dict[str, torch.Tensor]
                 _put(cache, key, val, i)
             continue
         h = rms_norm(x, lp["ln1"])
-        if cfg.attn_type == "mla":
-            out, _, _ = attn_lib.mla_decode(lp["attn"], h, cache["ckv"][i], cache["kr"][i],
-                                            pos, cfg, absorb=cfg.mla_absorb)
-        else:
-            out, _, _ = attn_lib.gqa_decode(lp["attn"], h, cache["k"][i], cache["v"][i],
-                                            pos, cfg, window=w)
+        with obs.span(f"{cfg.attn_type}.decode", device=x.device):
+            if cfg.attn_type == "mla":
+                out, _, _ = attn_lib.mla_decode(lp["attn"], h, cache["ckv"][i], cache["kr"][i],
+                                                pos, cfg, absorb=cfg.mla_absorb, tables=tables)
+            else:
+                out, _, _ = attn_lib.gqa_decode(lp["attn"], h, cache["k"][i], cache["v"][i],
+                                                pos, cfg, window=w)
         if cfg.family == "hybrid":
             sout, ss = ssm_lib.ssd_mix(lp["ssd"], h, cache["ssd_s"][i], cfg, mode="recurrent")
             _put(cache, "ssd_s", ss, i)

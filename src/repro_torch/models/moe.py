@@ -16,6 +16,22 @@ order among ties.
 ``moe_dense_ref`` (all experts, dense) is the smoke-test oracle: with ample
 capacity the two agree.
 
+The port's own architectures (``common.PortArchConfig``, DeepSeek-V2) add
+shared experts (one SwiGLU that every token runs, added to the routed sum),
+routing weights that are the router's probabilities times
+``routed_scale`` where ``norm_topk_prob`` is off, and dropless routing
+(``moe_dropless``): at one token a sequence (decode) every expert runs on
+the step's T tokens (:func:`_moe_every_expert`: the E x T rows that the
+capacity path would compute at a capacity of T, without its dispatch), and
+nothing waits on the host; over full sequences (prefill,
+training) each expert runs on its own tokens, sorted by expert, with one
+host sync for the counts (:func:`_moe_by_expert`).
+
+Spans (``repro_torch.obs``): ``moe.route``, ``moe.routed`` and
+``moe.shared``; counters ``moe.pairs`` (the (token, expert) pairs routed)
+and ``moe.rows`` (the rows the routed experts compute, capacity padding
+included), both from shapes.
+
 On DTensors (the LM over a mesh) :func:`moe_ffn` runs each rank's own
 experts on its own rows' pairs, with the plain path's slots, so the same
 pairs drop (:func:`_moe_sharded`).
@@ -30,22 +46,27 @@ import torch
 import torch.nn.functional as F
 from torch.distributed.tensor import DTensor
 
+from repro_torch import obs
 from repro_torch.core.beam import topk_canonical
 from repro_torch.distributed import spmd
 from repro_torch.models.common import (ArchConfig, checkpoint_name, dense_init, dot, einsum,
-                                       silu, softmax)
+                                       silu, softmax, swiglu, swiglu_init)
 
 
 def moe_init(generator: torch.Generator, cfg: ArchConfig,
              device: str | torch.device | None = None) -> Dict[str, torch.Tensor]:
     d, e, ff = cfg.d_model, cfg.n_experts, cfg.moe_d_ff
     dt = cfg.param_dtype
-    return {
+    p = {
         "router": dense_init(generator, (d, e), d, dt, device),
         "w1": dense_init(generator, (e, d, ff), d, dt, device),   # gate proj
         "w3": dense_init(generator, (e, d, ff), d, dt, device),   # up proj
         "w2": dense_init(generator, (e, ff, d), ff, dt, device),  # down proj
     }
+    shared = getattr(cfg, "n_shared_experts", 0)
+    if shared:
+        p["shared"] = swiglu_init(generator, d, shared * ff, dt, device)
+    return p
 
 
 def _route(p, x2d: torch.Tensor, cfg: ArchConfig):
@@ -54,7 +75,10 @@ def _route(p, x2d: torch.Tensor, cfg: ArchConfig):
     probs = softmax(logits, -1)
     experts = torch.arange(cfg.n_experts, device=x2d.device).expand_as(probs)
     idx, w = topk_canonical(probs, experts, cfg.experts_per_token)   # [T, K]
-    w = w / torch.clamp(w.sum(-1, keepdim=True), min=1e-9)  # renormalize
+    if getattr(cfg, "norm_topk_prob", True):
+        w = w / torch.clamp(w.sum(-1, keepdim=True), min=1e-9)  # renormalize
+    else:
+        w = w * cfg.routed_scale
     return w, idx, probs
 
 
@@ -89,13 +113,15 @@ def _aux_loss(idx: torch.Tensor, probs: torch.Tensor, e: int, k: int) -> torch.T
     return e * torch.sum(frac_tokens * probs.mean(0))
 
 
-def moe_ffn_grouped(p, x: torch.Tensor, cfg: ArchConfig) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Grouped dispatch: per-batch-row expert queues (capacity per row and
-    expert, ``ceil(S·K·capacity_factor / E)``)."""
+def moe_ffn_grouped(p, x: torch.Tensor, cfg: ArchConfig, w: torch.Tensor,
+                    idx: torch.Tensor) -> torch.Tensor:
+    """Grouped dispatch of the routing ``w``, ``idx`` ``[T, K]``: per-batch-row
+    expert queues (capacity per row and expert, ``ceil(S·K·capacity_factor
+    / E)``)."""
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.experts_per_token
     capg = max(1, math.ceil(s * k * cfg.capacity_factor / e))
-    w, idx, probs = _route(p, x.reshape(-1, d), cfg)
+    obs.count("moe.rows", b * e * capg)
     w = w.reshape(b, s, k)
     idx = idx.reshape(b, s, k)
 
@@ -119,22 +145,41 @@ def moe_ffn_grouped(p, x: torch.Tensor, cfg: ArchConfig) -> Tuple[torch.Tensor, 
          torch.zeros((b, 1, d), dtype=out_e.dtype, device=x.device)], dim=1)
     gathered = flat_out[rows, dest]                          # [B, S*K, d]
     y_tok = gathered * (w.reshape(b, s * k)[..., None] * keep[..., None]).to(x.dtype)
-    y = _sum_over_k(y_tok, k)                                # [B, S, d]
-    return y, _aux_loss(idx, probs, e, k)
+    return _sum_over_k(y_tok, k)                             # [B, S, d]
 
 
 def moe_ffn(p, x: torch.Tensor, cfg: ArchConfig) -> Tuple[torch.Tensor, torch.Tensor]:
     """x [B, S, d] -> (y [B, S, d], aux_loss scalar)."""
     if isinstance(x, DTensor):
         return _moe_sharded(p, x, cfg)
-    if cfg.moe_dispatch == "grouped":
-        return moe_ffn_grouped(p, x, cfg)
+    b, s, d = x.shape
+    e, k = cfg.n_experts, cfg.experts_per_token
+    dropless = getattr(cfg, "moe_dropless", False)
+    with obs.span("moe.route", device=x.device):
+        w, idx, probs = _route(p, x.reshape(-1, d), cfg)
+        obs.count("moe.pairs", b * s * k)
+    with obs.span("moe.routed", device=x.device):
+        if dropless:
+            y = _moe_by_expert(p, x, w, idx) if s > 1 else _moe_every_expert(p, x, w, idx)
+        elif cfg.moe_dispatch == "grouped":
+            y = moe_ffn_grouped(p, x, cfg, w, idx)
+        else:
+            y = _moe_global(p, x, cfg, w, idx, moe_capacity(b * s, cfg))
+    if "shared" in p:
+        with obs.span("moe.shared", device=x.device):
+            y = y + swiglu(p["shared"], x)
+    return y, _aux_loss(idx, probs, e, k)
+
+
+def _moe_global(p, x: torch.Tensor, cfg: ArchConfig, w: torch.Tensor, idx: torch.Tensor,
+                cap: int) -> torch.Tensor:
+    """Global dispatch of the routing ``w``, ``idx`` ``[T, K]`` over one
+    token stream, ``cap`` slots an expert."""
     b, s, d = x.shape
     t = b * s
     e, k = cfg.n_experts, cfg.experts_per_token
-    cap = moe_capacity(t, cfg)
     x2 = x.reshape(t, d)
-    w, idx, probs = _route(p, x2, cfg)
+    obs.count("moe.rows", e * cap)
 
     # position of each (token, k) in its expert's queue
     flat_e = idx.reshape(-1)                                 # [T*K]
@@ -153,8 +198,50 @@ def moe_ffn(p, x: torch.Tensor, cfg: ArchConfig) -> Tuple[torch.Tensor, torch.Te
     flat_out = torch.cat(
         [out_e.reshape(e * cap, d), torch.zeros((1, d), dtype=out_e.dtype, device=x.device)])
     y_tok = flat_out[dest] * (w.reshape(-1)[:, None] * keep[:, None]).to(x.dtype)
-    y = _sum_over_k(y_tok, k)
-    return y.reshape(b, s, d), _aux_loss(idx, probs, e, k)
+    return _sum_over_k(y_tok, k).reshape(b, s, d)
+
+
+def _moe_every_expert(p, x: torch.Tensor, w: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Every (token, expert) pair of the routing ``w``, ``idx`` ``[T, K]``,
+    dropless, at a few tokens: each expert runs on all T tokens (``[E, T,
+    d]``, the products of the capacity path at a capacity of T, where every
+    expert's weights are read once), and each pair's output is picked and
+    weighed, the K summed. Nothing is dispatched and nothing waits on the
+    host."""
+    b, s, d = x.shape
+    t, k = idx.shape
+    e = p["w1"].shape[0]
+    obs.count("moe.rows", e * t)
+    xin = x.reshape(1, t, d).expand(e, t, d)
+    h = silu(einsum("ecd,edf->ecf", xin, p["w1"])) * einsum("ecd,edf->ecf", xin, p["w3"])
+    out_e = einsum("ecf,efd->ecd", h, p["w2"])                      # [E, T, d]
+    pairs = out_e[idx, torch.arange(t, device=x.device)[:, None]]   # [T, K, d]
+    return (pairs * w[..., None].to(x.dtype)).sum(1).reshape(b, s, d)
+
+
+def _moe_by_expert(p, x: torch.Tensor, w: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Every (token, expert) pair of the routing ``w``, ``idx`` ``[T, K]``,
+    dropless: the pairs sorted by expert (stably, so each expert's tokens
+    keep their order) and each expert run on its own tokens, as DeepSeek's
+    ``moe_infer`` runs them; one host sync reads the per-expert counts.
+    Nothing of ``[E, T, d]`` is allocated: at an 8,192-token prefill the
+    pairs' rows are ``[T*K, d]``."""
+    b, s, d = x.shape
+    t, k = idx.shape
+    x2 = x.reshape(t, d)
+    flat = idx.reshape(-1)
+    order = torch.argsort(flat, stable=True)
+    counts = torch.bincount(flat, minlength=p["w1"].shape[0]).tolist()
+    obs.count("moe.rows", t * k)
+    out = torch.empty((t * k, d), dtype=x.dtype, device=x.device)
+    start = 0
+    for j, n in enumerate(counts):
+        if n:
+            pairs = order[start:start + n]
+            out[pairs] = swiglu({n_: p[n_][j] for n_ in ("w1", "w3", "w2")}, x2[pairs // k])
+        start += n
+    y_tok = out * w.reshape(-1, 1).to(x.dtype)
+    return _sum_over_k(y_tok, k).reshape(b, s, d)
 
 
 def _dispatch_slots(flat_e: torch.Tensor, e: int, cap: int, scan, mesh):

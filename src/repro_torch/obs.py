@@ -21,14 +21,19 @@ profiler event: a few microseconds each side, a few hundred before the first
 range of a session.
 
 A span given ``device=`` a CUDA device also records a pair of CUDA events on
-that device's current stream, around the span, unless that stream is being
-captured into a CUDA graph: a span inside a capture is entered once, when
-the graph is recorded, and holds no device interval. :func:`spans` resolves them to
+that device's current stream, around the span. :func:`spans` resolves them to
 milliseconds (``elapsed_time``) when it reads the buffer, after the work has
 finished; nothing during the call synchronises. That device interval is the
 stream's time from the span's first enqueued work to its last: device work
 where the device runs behind the host, and the launch gaps inside the stage
 as well where the host sets the pace.
+
+A span inside the capture of a CUDA graph is entered once, when the graph is
+recorded. Outside :func:`template` it holds no device interval. Inside it,
+it goes to the template instead of the buffer, and its events are external
+ones, recorded as nodes of the graph, so that every replay records them
+again; :func:`replayed` then puts a copy of the template's spans in the
+buffer for one replay, each with that replay's device interval.
 
 The buffer holds the newest :data:`CAPACITY` spans; :func:`dropped` counts
 those it let go. :func:`count` always adds to a process-wide total
@@ -65,6 +70,7 @@ _local = threading.local()
 _buffer: collections.deque = collections.deque(maxlen=CAPACITY)
 _dropped = 0
 _recording = 0
+_templating = 0
 _totals: Dict[str, int] = collections.defaultdict(int)
 _ids = itertools.count(1)
 
@@ -122,17 +128,18 @@ class Span:
             self._range = _Range(self.name)
             self._range.__enter__()
         self._events = None
-        if (self._device is not None and self._device.type == "cuda"
-                and not torch.cuda.is_current_stream_capturing()):
-            stream = torch.cuda.current_stream(self._device)
-            start = torch.cuda.Event(enable_timing=True)
-            start.record(stream)
-            self._events = (start, torch.cuda.Event(enable_timing=True), stream)
+        if self._device is not None and self._device.type == "cuda":
+            external = torch.cuda.is_current_stream_capturing()
+            if not external or getattr(_local, "template", None) is not None:
+                stream = torch.cuda.current_stream(self._device)
+                start = torch.cuda.Event(enable_timing=True, external=external)
+                start.record(stream)
+                self._events = (start, torch.cuda.Event(enable_timing=True, external=external),
+                                stream)
         stack.append(self)
         return self
 
     def __exit__(self, *exc) -> bool:
-        global _dropped
         _stack().pop()
         if self._events is not None:
             self._events[1].record(self._events[2])
@@ -140,20 +147,35 @@ class Span:
             self._range.__exit__(None, None, None)
             self._range = None
         self.end_ns = clock_ns()
-        with _lock:
-            if len(_buffer) == _buffer.maxlen:
-                _dropped += 1
-            _buffer.append(self)
+        template = getattr(_local, "template", None)
+        if template is not None:
+            template.append(self)
+            return False
+        _keep(self)
         return False
+
+
+def _keep(s: Span) -> None:
+    global _dropped
+    with _lock:
+        if len(_buffer) == _buffer.maxlen:
+            _dropped += 1
+        _buffer.append(s)
 
 
 def span(name: str, device: torch.device | None = None, **attrs):
     """A context manager marking one stage named ``name``; ``attrs`` are kept
     with it. ``device``: where a metric reads the stage's device time, the
     device its work runs on (events are recorded only on a CUDA device)."""
-    if _profiler._is_profiler_enabled or _recording:
+    if _profiler._is_profiler_enabled or _recording or _templating:
         return Span(name, device, attrs)
     return OFF
+
+
+def tracing() -> bool:
+    """Whether spans are being recorded (a profiler session, or
+    :func:`recording`)."""
+    return bool(_profiler._is_profiler_enabled or _recording)
 
 
 def count(name: str, n: int = 1) -> None:
@@ -164,7 +186,7 @@ def count(name: str, n: int = 1) -> None:
     got = getattr(_local, "tally", None)
     if got is not None:
         got[name] = got.get(name, 0) + n
-    if _profiler._is_profiler_enabled or _recording:
+    if _profiler._is_profiler_enabled or _recording or _templating:
         stack = _stack()
         if stack:
             counts = stack[-1].counts
@@ -203,6 +225,55 @@ def recording() -> Iterator[None]:
     finally:
         with _lock:
             _recording -= 1
+
+
+@contextlib.contextmanager
+def template() -> Iterator[List[Span]]:
+    """The spans this thread enters in this block, where it records a CUDA
+    graph: they go to the list handed out (in the order they end), each with
+    a pair of external events in the graph, and not to the buffer."""
+    global _templating
+    outer = getattr(_local, "template", None)
+    _local.template = got = []
+    with _lock:
+        _templating += 1
+    try:
+        yield got
+    finally:
+        with _lock:
+            _templating -= 1
+        _local.template = outer
+
+
+def replayed(spans: List[Span], start_ns: int) -> None:
+    """While spans are recorded, put in the buffer the spans of one replay of
+    the graph whose :func:`template` was ``spans``, replayed from
+    ``start_ns`` until now: a copy of each, with a new ``sid``, inside the
+    innermost open span of this thread (the template's outermost spans
+    become its children), the counts the capture counted, that host
+    interval, and the device interval of this replay's events. It waits for
+    the replay, since the next one records over its events."""
+    if not (_profiler._is_profiler_enabled or _recording):
+        return
+    stack = _stack()
+    up = stack[-1] if stack else None
+    end_ns = clock_ns()
+    new: Dict[int, Span] = {}
+    for t in sorted(spans, key=lambda s: s.sid):
+        s = Span(t.name, None, t.attrs)
+        s.sid = next(_ids)
+        top = new.get(t.parent, up)
+        s.parent = None if top is None else top.sid
+        s.call = s.sid if top is None else top.call
+        s.counts = dict(t.counts)
+        s.start_ns, s.end_ns = start_ns, end_ns
+        s._range = s._events = None
+        if t._events is not None:
+            start, end, _ = t._events
+            end.synchronize()
+            s.device_ms = start.elapsed_time(end)
+        new[t.sid] = s
+        _keep(s)
 
 
 def spans() -> List[Span]:
